@@ -1,0 +1,253 @@
+"""SG-MCMC engine: preconditioned SGLD over a batch of chains (port of
+``ir_sgmcmc_tpu/engine/mcmc.py``, per-chain parameter mode).
+
+    v'     = v + sqrt(2 tau) * sigma * eps
+    v_next = v' - tau * sigma² * grad U(v')
+
+Chains are the leading axis of every tensor; one transition launches each
+kernel once for all chains.  GMM and regularisation parameters are per
+chain, as in the JAX engine's default.
+
+Randomness: each chain carries the two 32-bit words of a key
+(``MCMCState.key``, ``(C, 2)`` int64 on the host).  A transition seeds one
+``torch.Generator`` on the state's device per chain from its key and the
+step count, so a state (and its conversion from the JAX package) fully
+determines the run; the draws are torch's, not threefry's.  Tests inject
+the JAX draws through ``noise=(eps, unif)`` instead.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..models.gmm import GMM
+from ..models.reg_loss import RegLossL2, RegLossLogNormal
+from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
+from ..optim.adam_decay import AdamDecayState, apply_updates
+from .bundle import ModelBundle
+from .vi import forward_sample, gmm_adam_step, vd_alpha
+
+
+class WelfordState(NamedTuple):
+    count: torch.Tensor  # (C,)
+    mean: torch.Tensor  # (C, 3, D, H, W)
+    m2: torch.Tensor
+
+
+def welford_init(no_chains: int, shape, device=None) -> WelfordState:
+    z = torch.zeros((no_chains,) + tuple(shape), dtype=torch.float32, device=device)
+    return WelfordState(torch.zeros((no_chains,), dtype=torch.float32, device=device),
+                        z, z.clone())
+
+
+def welford_update(w: WelfordState, x: torch.Tensor, weight: float) -> WelfordState:
+    """Weighted (0/1-gated) Welford update; ``weight`` gates thinning."""
+    count = w.count + weight
+    safe = _bcast(torch.clamp(count, min=1.0), x)
+    delta = x - w.mean
+    mean = w.mean + weight * delta / safe
+    m2 = w.m2 + weight * delta * (x - mean)
+    return WelfordState(count, mean, m2)
+
+
+def welford_finalize(w: WelfordState):
+    """``(mean, std)`` with the sample (ddof=1) normalisation."""
+    var = w.m2 / torch.clamp(w.count - 1.0, min=1.0)
+    return w.mean, torch.sqrt(var)
+
+
+def welford_merge(ws: WelfordState) -> WelfordState:
+    """Merge per-chain accumulators (leading axis) by Chan's parallel rule."""
+    acc = WelfordState(ws.count[0], ws.mean[0], ws.m2[0])
+    for i in range(1, ws.count.shape[0]):
+        b = WelfordState(ws.count[i], ws.mean[i], ws.m2[i])
+        n = acc.count + b.count
+        safe = torch.clamp(n, min=1.0)
+        delta = b.mean - acc.mean
+        mean = acc.mean + delta * b.count / safe
+        m2 = acc.m2 + b.m2 + delta ** 2 * acc.count * b.count / safe
+        acc = WelfordState(n, mean, m2)
+    return acc
+
+
+def _bcast(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return s.reshape(tuple(s.shape) + (1,) * (like.ndim - s.ndim))
+
+
+class MCMCState(NamedTuple):
+    """Every tensor carries a leading ``(C,)`` chain axis, except ``step``."""
+
+    v: torch.Tensor  # (C, 3, D, H, W)
+    sigma: torch.Tensor  # (C, 3, D, H, W) SGLD preconditioner
+    gmm: dict
+    reg: dict
+    opt_gmm: AdamDecayState
+    opt_reg: AdamDecayState
+    welford: WelfordState
+    key: torch.Tensor  # (C, 2) int64 key words, on the host
+    step: int
+
+
+def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
+                mode: str, q_v: dict | None, gmm: dict, reg: dict,
+                opt_gmm, opt_reg, device=None) -> MCMCState:
+    """SGLD state init (reference trainer.py:586-611).
+
+    ``mode``: ``'VI'`` (per-chain q(v) draws, sigma from the VI log-var),
+    ``'identity'`` (zeros, sigma 1) or ``'noise'`` (standard normal, sigma
+    1).  ``generator`` draws the initial state and the chains' keys; it
+    must live on ``device``.
+    """
+    shape = (no_chains, 3) + tuple(bundle.field_dims)
+    if mode == "VI":
+        if q_v is None:
+            raise ValueError("MCMC_init='VI' requires fitted q(v) params")
+        q_v = {k: t.to(device) for k, t in q_v.items()}
+        v = torch.stack([sample_q_v(generator, q_v) for _ in range(no_chains)])
+        sigma = torch.exp(0.5 * q_v["log_var"]).expand(shape).contiguous()
+    elif mode == "identity":
+        v = torch.zeros(shape, dtype=torch.float32, device=device)
+        sigma = torch.ones(shape, dtype=torch.float32, device=device)
+    elif mode == "noise":
+        v = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        sigma = torch.ones(shape, dtype=torch.float32, device=device)
+    else:
+        raise ValueError(f"unknown MCMC init mode: {mode}")
+
+    def rep(t):
+        return t.to(device).expand((no_chains,) + tuple(t.shape)).clone()
+
+    gmm_c = {k: rep(t) for k, t in gmm.items()}
+    reg_c = {k: rep(t) for k, t in reg.items()}
+    words = torch.randint(0, 2 ** 32, (no_chains, 2), generator=generator,
+                          dtype=torch.int64, device=device).cpu()
+    return MCMCState(
+        v=v, sigma=sigma, gmm=gmm_c, reg=reg_c,
+        opt_gmm=opt_gmm.init(gmm_c, (no_chains,)),
+        opt_reg=opt_reg.init(reg_c, (no_chains,)),
+        welford=welford_init(no_chains, (3,) + tuple(bundle.dims), device),
+        key=words, step=0)
+
+
+def _chain_noise(state: MCMCState, alpha: float):
+    """Per-chain ``(eps, unif)`` from generators seeded by (key, step)."""
+    C = state.v.shape[0]
+    eps = torch.empty_like(state.v)
+    unif = torch.empty_like(state.v)
+    for c in range(C):
+        k0, k1 = (int(w) for w in state.key[c])
+        gen = torch.Generator(device=state.v.device)
+        seed = ((k0 << 32) | k1) ^ (state.step * 0x9E3779B97F4A7C15)
+        gen.manual_seed(seed & 0xFFFFFFFFFFFFFFFF)
+        eps[c] = torch.randn(state.v.shape[1:], generator=gen,
+                             device=state.v.device)
+        unif[c] = uniform_voxel_noise(gen, state.v.shape[1:], alpha, state.v.device)
+    return eps, unif
+
+
+def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
+                         fixed: dict, moving: dict):
+    """Build ``transition(state, collect_weight, noise=None) -> (state,
+    metrics)`` over all chains of ``state``.
+
+    ``noise``: optional ``(eps, unif)``, each ``(C, 3, D, H, W)`` — the
+    standard-normal Langevin draw and the ``U(-alpha, alpha)`` voxel noise.
+    Without it they come from the chains' generators.  The returned state
+    keeps ``step``; :func:`make_mcmc_chunk` advances it.
+    """
+    reg_loss = bundle.reg_loss
+    learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
+    mask = fixed["mask"]
+
+    def potential(v_noised, reg_p, gmm, opt_gmm_state, unif):
+        out = forward_sample(bundle, fixed, moving, v_noised, unif)
+        alpha = vd_alpha(bundle, gmm, out["residuals"], mask)
+        gmm, opt_gmm_state = gmm_adam_step(
+            bundle, opt_gmm, gmm, opt_gmm_state, out["residuals"], mask, alpha)
+        data_term = bundle.gmm.masked_nll(gmm, out["residuals"], mask) * alpha
+        data_term = data_term - bundle.gmm_prior_terms(gmm)
+        reg, log_y = reg_loss(reg_p, out["v"])
+        reg_term = reg
+        if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
+            reg_term = reg_term - bundle.reg_loc_prior(log_y)
+            reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
+        elif learnable_reg and isinstance(reg_loss, RegLossL2):
+            reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
+        aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_term,
+               "reg_term": reg_term, "vd_alpha": alpha,
+               "reg_energy": torch.exp(log_y), "ndv": out["ndv"],
+               "sat": out["sat"], "sat_resid": out["sat_resid"],
+               "displacement": out["displacement"]}
+        return data_term + reg_term, aux
+
+    def transition(state: MCMCState, collect_weight: float, noise=None):
+        if noise is None:
+            noise = _chain_noise(state, float(bundle.uniform_noise_alpha))
+        eps, unif = noise
+        with torch.enable_grad():
+            v_noised = (state.v + langevin_noise(None, state.sigma, tau, eps)
+                        ).detach().requires_grad_(True)
+            reg_keys = list(state.reg)
+            reg_p = {k: state.reg[k].detach().requires_grad_(learnable_reg)
+                     for k in reg_keys}
+            loss, aux = potential(v_noised, reg_p, state.gmm, state.opt_gmm, unif)
+            wrt = [v_noised] + ([reg_p[k] for k in reg_keys] if learnable_reg else [])
+            grads = torch.autograd.grad(loss.sum(), wrt)
+        g_v = grads[0]
+        v_next = v_noised.detach() - tau * state.sigma ** 2 * g_v
+
+        reg_new, opt_reg_state = state.reg, state.opt_reg
+        if learnable_reg:
+            upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[1:])),
+                                                state.opt_reg)
+            reg_new = apply_updates({k: t.detach() for k, t in state.reg.items()}, upd)
+
+        disp = aux["displacement"].detach()
+        new_state = state._replace(
+            v=v_next, gmm=aux["gmm"], reg=reg_new, opt_gmm=aux["opt_gmm"],
+            opt_reg=opt_reg_state,
+            welford=welford_update(state.welford, disp, collect_weight))
+        metrics = {k: aux[k].detach() for k in (
+            "data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat",
+            "sat_resid")}
+        metrics["gmm_scales"] = GMM.scales(aux["gmm"])
+        metrics["gmm_proportions"] = GMM.proportions(aux["gmm"])
+        return new_state, metrics
+
+    return transition
+
+
+def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
+                    fixed: dict, moving: dict, chunk: int, burn_in: int,
+                    thin: int, param_mode: str = "per_chain"):
+    """``run(state) -> (state, metrics)``: ``chunk`` SGLD transitions over all
+    chains as a Python loop; metrics are stacked ``(chunk, C, …)``.
+
+    Thinned displacement samples feed the per-chain Welford accumulators
+    once past ``burn_in`` (every ``thin`` steps).  ``param_mode='shared'``
+    is ROADMAP A12.
+    """
+    if param_mode != "per_chain":
+        raise NotImplementedError("MCMC_params='shared' is not ported (ROADMAP A12)")
+    transition = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving)
+
+    def run(state: MCMCState):
+        per_step = []
+        for _ in range(chunk):
+            step = state.step + 1
+            collect = step > burn_in and (step - burn_in) % thin == 0
+            state, metrics = transition(state, 1.0 if collect else 0.0)
+            state = state._replace(step=step)
+            per_step.append(metrics)
+        stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        return state, stacked
+
+    return run
+
+
+def posterior_statistics(state: MCMCState):
+    """Pooled posterior mean/std of the displacement over all chains."""
+    return welford_finalize(welford_merge(state.welford))
+

@@ -1,0 +1,126 @@
+"""Build, load and launch the hand-written CUDA kernels of ``csrc/``.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), loaded
+with ``ctypes``.  The build happens at the first launch, into
+``ir_sgmcmc_tpu_torch/build/`` (git-ignored), keyed by a hash of the
+sources; a failed build raises.  Nothing here runs at import time, so the
+package imports on hosts without CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: every entry returns cudaGetLastError() after its launches
+_SIGNATURES = {
+    "split_warp_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "split_warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "block_warp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "block_warp_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+_lib = None
+build_seconds = None  # wall time of the build in this process (None: not built)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       f"{CSRC} at first use and need the CUDA toolkit")
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = BUILD_DIR / f"libir_sgmcmc_kernels_{digest.hexdigest()[:16]}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (BUILD_DIR / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout
+                                            + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a torn file
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    build_seconds = time.perf_counter() - t0
+    _lib = lib
+    return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class Kernel:
+    """One CUDA entry point of the library, with its launch count.
+
+    ``launches`` goes up by one each time :meth:`launch` starts the kernel
+    (one call of the C entry, which may issue several grid launches); no
+    other code touches it.
+    """
+
+    def __init__(self, symbol: str, source: str, replaces: str):
+        self.symbol = symbol
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        fn = getattr(load_library(), self.symbol)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {self.symbol} failed to launch: "
+                               f"cudaError {err}")
+        self.launches += 1
+
+
+def check_operand(name: str, t: torch.Tensor, shape, dtype=torch.float32,
+                  device=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape``/``dtype``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

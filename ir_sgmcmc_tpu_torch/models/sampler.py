@@ -1,0 +1,35 @@
+"""Samplers: SGLD noise and uniform field noise (port of
+``ir_sgmcmc_tpu/models/sampler.py``).  Randomness comes from explicit
+``torch.Generator``s; tests inject the JAX draws instead."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def langevin_noise(generator: torch.Generator, sigma: torch.Tensor, tau: float,
+                   eps: torch.Tensor | None = None) -> torch.Tensor:
+    """``sqrt(2 tau) * sigma * eps`` with ``eps ~ N(0, 1)`` (or the given one)."""
+    if eps is None:
+        eps = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype,
+                          device=sigma.device)
+    return math.sqrt(2.0) * math.sqrt(tau) * sigma * eps
+
+
+def uniform_voxel_noise(generator: torch.Generator, shape, alpha: float,
+                        device=None) -> torch.Tensor:
+    """``U(-alpha, alpha)`` noise in voxel units."""
+    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    return u * (2.0 * alpha) - alpha
+
+
+def sample_q_v(generator: torch.Generator, q_v: dict) -> torch.Tensor:
+    """One draw from ``q(v) = N(mu, diag(sigma²) + u uᵀ)`` (rank-1 direction
+    scaled by a single scalar normal)."""
+    sigma = torch.exp(0.5 * q_v["log_var"])
+    eps = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype,
+                      device=sigma.device)
+    x = torch.randn((), generator=generator, dtype=sigma.dtype, device=sigma.device)
+    return q_v["mu"] + (eps * sigma + x * q_v["u"])

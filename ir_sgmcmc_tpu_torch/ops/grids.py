@@ -1,0 +1,52 @@
+"""Grid and coordinate primitives (port of ``ir_sgmcmc_tpu/ops/grids.py``).
+
+Vector fields are channel-first ``(…, 3, D, H, W)``: channel 0 is x (W
+axis), 1 is y (H axis), 2 is z (D axis).  Normalised coordinates live in
+``[-1, 1]`` with ``align_corners=True`` semantics.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def identity_grid(shape, device=None) -> torch.Tensor:
+    """Normalised identity grid ``(3, D, H, W)``; channel 0 varies along W."""
+    D, H, W = shape
+
+    def axis_coords(n: int, axis: int) -> torch.Tensor:
+        if n == 1:
+            return torch.full((D, H, W), -1.0, dtype=torch.float32, device=device)
+        i = torch.arange(n, dtype=torch.float32, device=device)
+        view = [1, 1, 1]
+        view[axis] = n
+        c = 2.0 * i / (n - 1) - 1.0
+        return c.reshape(view).expand(D, H, W)
+
+    return torch.stack([axis_coords(W, 2), axis_coords(H, 1),
+                        axis_coords(D, 0)], dim=0)
+
+
+def _axis_scale(field: torch.Tensor, numerator: bool) -> torch.Tensor:
+    D, H, W = field.shape[-3:]
+    sizes = torch.tensor([W, H, D], dtype=torch.float32, device=field.device)
+    scale = 2.0 / (sizes - 1.0) if numerator else (sizes - 1.0) / 2.0
+    return scale.reshape(3, 1, 1, 1)
+
+
+def voxel_to_normalised(field: torch.Tensor) -> torch.Tensor:
+    """Scale channel c by ``2 / (size_c - 1)`` (``(…, 3, D, H, W)``)."""
+    return field * _axis_scale(field, True)
+
+
+def normalised_to_voxel(field: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`voxel_to_normalised`."""
+    return field * _axis_scale(field, False)
+
+
+def det_jacobian(jac: torch.Tensor) -> torch.Tensor:
+    """Closed-form determinant of a ``(…, 3, 3, D, H, W)`` field Jacobian."""
+    a, b, c = jac[..., 0, 0, :, :, :], jac[..., 0, 1, :, :, :], jac[..., 0, 2, :, :, :]
+    d, e, f = jac[..., 1, 0, :, :, :], jac[..., 1, 1, :, :, :], jac[..., 1, 2, :, :, :]
+    g, h, i = jac[..., 2, 0, :, :, :], jac[..., 2, 1, :, :, :], jac[..., 2, 2, :, :, :]
+    return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)

@@ -1,0 +1,88 @@
+"""3D resampling, main-path subset (port of ``ir_sgmcmc_tpu/ops/resample.py``).
+
+* :func:`grid_sample` — torch ``grid_sample`` semantics (trilinear, border
+  padding, ``align_corners=True``); the image warp below 64³.
+* :func:`warp_block_gather` — the exact trilinear warp by a smooth bounded
+  displacement, decomposed into per-block integer means plus a clipped
+  residual; kernels B3/B4 on the card (``kernels/block_warp.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import block_warp as _bw
+
+
+def grid_sample(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of ``vol`` at normalised ``grid``.
+
+    :param vol: ``(D, H, W)`` or ``(C, D, H, W)``, shared by every grid.
+    :param grid: ``(…, 3, D', H', W')`` normalised coordinates, channel 0 =
+        x/W — the order ``F.grid_sample`` reads from its last axis.
+    :return: ``(…, [C,] D', H', W')``.
+    """
+    squeeze = vol.ndim == 3
+    v = vol[None] if squeeze else vol
+    lead = grid.shape[:-4]
+    g = grid.reshape((-1,) + tuple(grid.shape[-4:]))
+    n = g.shape[0]
+    out = F.grid_sample(v[None].expand((n,) + tuple(v.shape)),
+                        g.permute(0, 2, 3, 4, 1), mode="bilinear",
+                        padding_mode="border", align_corners=True)
+    out = out.reshape(tuple(lead) + tuple(out.shape[1:]))
+    return out.squeeze(-4) if squeeze else out
+
+
+def _block_means(disp_vox: torch.Tensor, block: int, max_disp: float) -> torch.Tensor:
+    """Per-block rounded mean displacement ``(…, 3, nbz, nby, nbx)`` int32,
+    clipped to ``±max_disp`` (``torch.round`` is half-to-even like jnp)."""
+    D, H, W = disp_vox.shape[-3:]
+    k = block
+    lead = tuple(disp_vox.shape[:-3])
+    x = disp_vox.to(torch.float32).reshape(lead + (D // k, k, H // k, k, W // k, k))
+    n = len(lead)
+    s = x.sum(dim=(n + 1, n + 3, n + 5)) / float(k ** 3)
+    return torch.clamp(torch.round(s), -max_disp, max_disp).to(torch.int32)
+
+
+def _residual(disp_vox: torch.Tensor, block: int, max_disp: float):
+    m = _block_means(disp_vox.detach(), block, max_disp)
+    return m, disp_vox - _bw._expand_blocks(m, block).to(disp_vox.dtype)
+
+
+class BlockGatherWarp(torch.autograd.Function):
+    """Forward B3; backward B4 masked where ``|r_raw| > R``.  The volume is
+    a constant (no cotangent), as in the JAX ``warp_block_gather``."""
+
+    @staticmethod
+    def forward(ctx, vol, disp_vox, max_disp, radius, block):
+        m, r_raw = _residual(disp_vox, block, max_disp)
+        r_c = torch.clamp(r_raw, -radius, radius).contiguous()
+        ctx.block = block
+        ctx.save_for_backward(vol, r_c, m, torch.abs(r_raw) <= radius)
+        return _bw.block_warp(vol, r_c, m, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, r_c, m, inside = ctx.saved_tensors
+        g_r = _bw.block_warp_dgrad(vol, r_c, m, g.contiguous(), ctx.block)
+        return None, torch.where(inside, g_r, torch.zeros_like(g_r)), None, None, None
+
+
+def warp_block_gather(vol: torch.Tensor, disp_vox: torch.Tensor, max_disp: int,
+                      radius: int = 2, block: int = 8) -> torch.Tensor:
+    """Warp ``vol (B, C, D, H, W)`` by ``disp_vox (B, 3, D, H, W)`` (voxel
+    units, ``|disp| ≤ max_disp``): exact trilinear wherever each voxel stays
+    within ``radius`` of its block's rounded mean, clamped beyond (count
+    those with :func:`block_residual_overflow`)."""
+    return BlockGatherWarp.apply(vol, disp_vox, max_disp, radius, block)
+
+
+def block_residual_overflow(disp_vox: torch.Tensor, max_disp: int,
+                            radius: int = 2, block: int = 8) -> torch.Tensor:
+    """Voxels whose block residual exceeds ``radius``, per leading batch."""
+    _, r = _residual(disp_vox, block, max_disp)
+    over = torch.any(torch.abs(r) > radius, dim=-4)
+    return torch.sum(over, dim=(-3, -2, -1))

@@ -1,0 +1,110 @@
+"""Port kernels on the card: B1-B4 against their plain versions, the
+autograd Functions end to end, and the wrappers' operand checks.
+
+Imports only torch and the port, so it runs on a GPU host without JAX:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Every test carries the ``cuda`` marker; without a CUDA card it skips
+(decided inside the fixture, never at import).  Tolerances are the JAX
+suite's for the same kernels.  Offsets avoid exact ties at u = 0 and
+|u| = 1, where autograd of the plain step and the kernels take different
+subgradients.
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _split_inputs(dev, shape=(2, 3, 16, 24, 40)):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.randn(shape, generator=gen, device=dev) * 2.0
+    u = torch.randn(shape, generator=gen, device=dev) * 0.9
+    u = torch.where(u.abs() == 1, u * 1.001, u)
+    u = torch.where(u == 0, torch.full_like(u, 1e-3), u)
+    g = torch.randn(shape, generator=gen, device=dev)
+    return d, u, g
+
+
+def _block_inputs(dev, shape=(2, 2, 16, 24, 40), bound=9, radius=2):
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.ops.resample import _block_means
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vol = torch.randn(shape, generator=gen, device=dev)
+    disp = torch.randn((shape[0], 3) + shape[2:], generator=gen, device=dev) + 3.0
+    m = _block_means(disp, 8, bound)
+    r = (disp - bw._expand_blocks(m, 8).float()).clamp(-radius, radius)
+    r.view(-1)[::5] = torch.round(r.view(-1)[::5])  # integer residuals
+    return vol, r, m, torch.randn(shape, generator=gen, device=dev)
+
+
+def test_split_kernels_match_plain(cuda):
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    d, u, g = _split_inputs(cuda)
+    torch.testing.assert_close(sw.split_warp_fwd_cuda(d, u), sw.split_compose_plain(d, u),
+                               atol=2e-5, rtol=0)
+    gd, gu = sw.split_warp_bwd_cuda(d, u, g)
+    gd_p, gu_p = sw.split_compose_vjp_plain(d, u, g)
+    torch.testing.assert_close(gd, gd_p, atol=3e-5, rtol=1e-4)
+    torch.testing.assert_close(gu + g, gu_p, atol=3e-5, rtol=1e-4)
+
+
+def test_block_kernels_match_plain(cuda):
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+
+    vol, r, m, g = _block_inputs(cuda)
+    torch.testing.assert_close(bw.block_warp_cuda(vol, r, m), bw.block_warp_plain(vol, r, m),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(bw.block_warp_dgrad_cuda(vol, r, m, g),
+                               bw.block_warp_dgrad_plain(vol, r, m, g), atol=5e-4, rtol=1e-4)
+
+
+def test_autograd_functions_on_card_match_cpu(cuda):
+    """``split_compose_step`` and ``warp_block_gather`` (forward and both
+    backward kernels, counted) on the card against the same ops on the CPU."""
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+    from ir_sgmcmc_tpu_torch.ops.resample import warp_block_gather
+    from ir_sgmcmc_tpu_torch.ops.stencil import split_compose_step
+
+    d, u, g = _split_inputs(cuda)
+    vol, _, _, gv = _block_inputs(cuda, shape=(2, 1, 16, 24, 40))
+    disp = torch.randn((2, 3, 16, 24, 40), device=cuda) * 0.8 + 2.3
+    before = [k.launches for k in all_kernels()]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        dd, uu, xx = (t.to(dev).requires_grad_(True) for t in (d, u, disp))
+        o = split_compose_step(dd, uu)
+        w = warp_block_gather(vol.to(dev), xx, 9, 2, 8)
+        grads = torch.autograd.grad((o * g.to(dev)).sum() + (w * gv.to(dev)).sum(),
+                                    (dd, uu, xx))
+        outs[dev.type] = [t.detach().cpu() for t in (o, w, *grads)]
+    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1]
+    for got, ref, atol in zip(outs["cuda"], outs["cpu"], (2e-5, 1e-5, 3e-5, 3e-5, 5e-4)):
+        torch.testing.assert_close(got, ref, atol=atol, rtol=1e-4)
+
+
+def test_wrappers_reject_bad_operands(cuda):
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    d = torch.zeros((1, 3, 8, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        sw.split_warp_fwd_cuda(d, d.transpose(-1, -2))
+    with pytest.raises(ValueError, match="dtype"):
+        sw.split_warp_fwd_cuda(d.double(), d.double())
+    with pytest.raises(ValueError, match="C must be 3"):
+        sw.split_warp_fwd_cuda(d[:, :2].contiguous(), d)
+    m = torch.zeros((1, 3, 1, 1, 1), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        bw.block_warp_cuda(d[:, :1].contiguous(), d, m)

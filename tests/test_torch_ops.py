@@ -1,0 +1,286 @@
+"""PyTorch port vs the JAX package: grids, stencils, Sobolev, the Taylor
+squaring, the split composition (B1/B2) and the block-gather warp (B3/B4).
+
+Same numpy inputs from a seed go through both packages on the CPU, in
+float32.  Where the JAX function reaches a Pallas kernel it runs in
+interpret mode, as the JAX suite runs it.  Tolerances are the JAX suite's
+own for the kernels (tests/test_pallas_split_warp.py:37,58 and
+tests/test_pallas_block_warp.py:66,93); elementwise stencils are held to
+1e-5 (a handful of f32 roundings of O(1) values).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ir_sgmcmc_tpu.ops import grids as jgrids
+from ir_sgmcmc_tpu.ops import resample as jres
+from ir_sgmcmc_tpu.ops import sobolev as jsob
+from ir_sgmcmc_tpu.ops import stencil as jst
+from ir_sgmcmc_tpu.ops.pallas_block_warp import (
+    block_warp_dgrad_pallas,
+    block_warp_pallas,
+    block_warp_pallas_applicable,
+)
+from ir_sgmcmc_tpu.ops.pallas_split_warp import split_warp_bwd_pallas, split_warp_pallas
+from ir_sgmcmc_tpu_torch.kernels import block_warp as tbw
+from ir_sgmcmc_tpu_torch.kernels import split_warp as tsw
+from ir_sgmcmc_tpu_torch.ops import grids as tgrids
+from ir_sgmcmc_tpu_torch.ops import resample as tres
+from ir_sgmcmc_tpu_torch.ops import sobolev as tsob
+from ir_sgmcmc_tpu_torch.ops import stencil as tst
+
+
+def _rand(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a, dtype=np.float32))
+
+
+def _close(port, ref, atol, rtol=0.0):
+    port = port.detach().numpy() if isinstance(port, torch.Tensor) else port
+    np.testing.assert_allclose(port, np.asarray(ref), atol=atol, rtol=rtol)
+
+
+# ---- grids ------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(5, 6, 7), (1, 4, 9)])
+def test_grids_match_jax(shape):
+    rng = np.random.default_rng(0)
+    _close(tgrids.identity_grid(shape), jgrids.identity_grid(shape), 1e-6)
+    f = _rand(rng, (3,) + shape, 3.0)
+    if 1 not in shape:
+        _close(tgrids.voxel_to_normalised(_t(f)), jgrids.voxel_to_normalised(f), 1e-6, 1e-6)
+    _close(tgrids.normalised_to_voxel(_t(f)), jgrids.normalised_to_voxel(f), 1e-6, 1e-6)
+    jac = _rand(rng, (3, 3) + shape)
+    _close(tgrids.det_jacobian(_t(jac)), jgrids.det_jacobian(jac), 1e-5, 1e-5)
+
+
+# ---- stencils -----------------------------------------------------------------
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_stencils_match_jax(batched):
+    rng = np.random.default_rng(1)
+    shape = ((2,) if batched else ()) + (3, 6, 7, 8)
+    f = _rand(rng, shape)
+    k = np.asarray([0.2, 0.5, 0.3], np.float32)
+    for axis in (-3, -2, -1):
+        _close(tst.conv1d_axis(_t(f), _t(k), axis), jst.conv1d_axis(f, k, axis), 1e-5)
+        _close(tst._fwd_diff_axis(_t(f), axis), jst._fwd_diff_axis(f, axis), 1e-5)
+    _close(tst.separable_conv3d(_t(f), _t(k)), jst.separable_conv3d(f, k), 1e-5)
+    _close(tst.box_filter3d(_t(f), 1), jst.box_filter3d(f, 1), 1e-5)
+    for ns in (False, True):
+        ref = (jax.vmap(lambda x: jst.gradient(x, normalised_spacing=ns))(f)
+               if batched else jst.gradient(f, normalised_spacing=ns))
+        _close(tst.gradient(_t(f), normalised_spacing=ns), ref, 1e-5)
+    # the energy sums 9·D·H·W squares: relative f32 summation error
+    _close(tst.reg_energy(_t(f)), jst.reg_energy(f), 0.0, 1e-5)
+
+
+def test_fwd_diff_transpose_is_adjoint():
+    rng = np.random.default_rng(2)
+    x, y = _t(_rand(rng, (3, 5, 6, 7))), _t(_rand(rng, (3, 5, 6, 7)))
+    for axis in (-3, -2, -1):
+        lhs = torch.sum(tst._fwd_diff_axis(x, axis) * y)
+        rhs = torch.sum(x * tst._fwd_diff_axis_t(y, axis))
+        assert abs(float(lhs - rhs)) < 1e-4
+
+
+def test_sobolev_matches_jax_with_identity_backward():
+    for s, lam in ((3, 0.5), (2, 1.0)):
+        k_t, ks_t = tsob.sobolev_kernel_1d(s, lam)
+        k_j, ks_j = jsob.sobolev_kernel_1d(s, lam)
+        np.testing.assert_array_equal(k_t, k_j)
+        np.testing.assert_array_equal(ks_t, ks_j)
+    rng = np.random.default_rng(3)
+    f = _rand(rng, (2, 3, 8, 8, 8))
+    kern = tsob.sobolev_kernel_1d(3, 0.5)[0].astype(np.float32)
+    x = _t(f).requires_grad_(True)
+    out = tsob.sobolev_smooth(x, _t(kern))
+    _close(out, jsob.sobolev_smooth(f, jnp.asarray(kern)), 1e-5)
+    g = _t(_rand(rng, f.shape))
+    (gx,) = torch.autograd.grad(out, x, g)
+    assert torch.equal(gx, g)
+
+
+def test_taylor_squaring_forward_and_vjp_match_jax():
+    rng = np.random.default_rng(4)
+    d = _rand(rng, (3, 8, 9, 10), 0.3)
+    g = _rand(rng, d.shape)
+    x = _t(d).requires_grad_(True)
+    out = tst.taylor_squaring_step(x)
+    ref, vjp = jax.vjp(jst.taylor_squaring_step, jnp.asarray(d))
+    _close(out, ref, 1e-5)
+    (gx,) = torch.autograd.grad(out, x, _t(g))
+    _close(gx, vjp(jnp.asarray(g))[0], 1e-5)
+    # batched (leading chain axis) equals the per-chain JAX map
+    db = _rand(rng, (2,) + d.shape, 0.3)
+    _close(tst.taylor_squaring_step(_t(db)),
+           jax.vmap(jst.taylor_squaring_step)(db), 1e-5)
+
+
+# ---- split composition (B1/B2) -------------------------------------------------
+
+@pytest.mark.parametrize("scale", [0.9, 1.8])
+def test_split_compose_matches_jax_pallas_and_xla(scale):
+    """Plain B1/B2 against the Pallas kernels (interpret) and the XLA form.
+
+    ``scale`` 1.8 saturates many offsets (|u| > 1, the clamp and its zero
+    gradient).  Random normals never hit the ties u = 0 or |u| = 1, where
+    autodiff and the kernel convention split the subgradient differently.
+    """
+    shape = (2, 3, 8, 8, 128)
+    rng = np.random.default_rng(5)
+    d, u, g = _rand(rng, shape, 2.0), _rand(rng, shape, scale), _rand(rng, shape)
+
+    out = tsw.split_compose(_t(d), _t(u))
+    ref_pallas = jax.vmap(lambda a, b: split_warp_pallas(a, b, add_u=True,
+                                                         interpret=True))(d, u)
+    ref_xla = jax.vmap(jst._split_compose_impl)(d, u)
+    _close(out, ref_pallas, 2e-5)
+    _close(out, ref_xla, 2e-5)
+
+    gd, gu = tsw.split_compose_vjp(_t(d), _t(u), _t(g))
+    gd_p, gu_p = jax.vmap(lambda a, b, c: split_warp_bwd_pallas(
+        a, b, c, interpret=True))(d, u, g)
+    _close(gd, gd_p, 3e-5, 1e-4)
+    _close(gu, gu_p + g, 3e-5, 1e-4)
+    gd_x, gu_x = jax.vmap(lambda a, b, c: jax.vjp(jst._split_compose_impl, a, b)[1](c))(d, u, g)
+    _close(gd, gd_x, 3e-5, 1e-4)
+    _close(gu, gu_x, 3e-5, 1e-4)
+
+    # the autograd Function routes CPU tensors through the same plain pair
+    dt, ut = _t(d).requires_grad_(True), _t(u).requires_grad_(True)
+    o = tst.split_compose_step(dt, ut)
+    assert torch.equal(o, out)
+    gdt, gut = torch.autograd.grad(o, (dt, ut), _t(g))
+    assert torch.equal(gdt, gd) and torch.equal(gut, gu)
+
+
+def test_split_compose_cuda_wrappers_reject_cpu_tensors():
+    x = torch.zeros((1, 3, 8, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsw.split_warp_fwd_cuda(x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsw.split_warp_bwd_cuda(x, x, x)
+
+
+# ---- block-gather warp (B3/B4) ----------------------------------------------------
+
+def _smooth_disp(shape, magnitude, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((3, 2, 2, 2)).astype(np.float32) * magnitude
+    d = jax.image.resize(jnp.asarray(c), (3,) + shape, method="cubic")
+    return np.asarray(jnp.clip(d, -magnitude, magnitude))
+
+
+def _kernel_operands(shape, bound, radius, seed, integer_every=3):
+    """vol, the clipped residual (every ``integer_every``-th value rounded to
+    an integer) and the block means, from the JAX package's own prep."""
+    rng = np.random.default_rng(seed)
+    vol = _rand(rng, (1,) + shape)
+    disp = _smooth_disp(shape, bound - 0.5, seed)
+    _, _, m, r_raw = jres._wbg_prep_pallas(jnp.asarray(vol), jnp.asarray(disp),
+                                           bound, radius, 8)
+    r_c = np.array(jnp.clip(r_raw, -radius, radius))
+    flat = r_c.reshape(-1)
+    flat[::integer_every] = np.round(flat[::integer_every])
+    return vol, r_c, np.array(m), rng
+
+
+def test_block_means_match_jax():
+    disp = _smooth_disp((16, 16, 128), 8.5, 6) + 0.25
+    ref = jres._block_means(jnp.asarray(disp), 8, 9)
+    out = tres._block_means(_t(disp)[None], 8, 9)[0]
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("bound,radius", [(9, 2), (6, 1)])
+def test_block_warp_kernels_match_jax_pallas(bound, radius):
+    """Plain B3/B4 against the Pallas kernels (interpret) at a shape they
+    accept, with a third of the residuals exactly integer: there B4's axis
+    derivative is 0 by the tap convention."""
+    shape = (16, 16, 128)
+    assert block_warp_pallas_applicable((1,) + shape, bound, radius, 8)
+    vol, r_c, m, rng = _kernel_operands(shape, bound, radius, seed=7)
+    g = _rand(rng, (1,) + shape)
+
+    out = tbw.block_warp(_t(vol)[None], _t(r_c)[None], torch.as_tensor(m)[None])
+    ref = block_warp_pallas(vol, r_c, m, bound, radius, interpret=True)
+    _close(out[0], ref, 1e-5)
+
+    dg = tbw.block_warp_dgrad(_t(vol)[None], _t(r_c)[None], torch.as_tensor(m)[None],
+                              _t(g)[None])
+    dref = block_warp_dgrad_pallas(vol, r_c, m, g, bound, radius, interpret=True)
+    _close(dg[0], dref, 5e-4, 1e-4)
+    # integer residual -> zero derivative along that axis
+    r0 = r_c[0]
+    ints = r0 == np.round(r0)
+    assert ints.any() and np.all(dg[0, 0].numpy()[ints] == 0.0)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_warp_block_gather_matches_jax_with_overflow(pallas):
+    """The whole op (block means, clip, B3, B4 and the ``|r| > R`` mask) on a
+    field rough enough that some residuals overflow the radius."""
+    shape = (16, 16, 128)
+    bound, radius = 6, 2
+    rng = np.random.default_rng(8)
+    vol = _rand(rng, shape)
+    disp = _smooth_disp(shape, bound - 1.0, seed=9) + 0.25
+    disp = disp + _rand(rng, disp.shape, 0.9)  # in-block roughness
+    disp = np.clip(disp, -bound + 0.5, bound - 0.5).astype(np.float32)
+    g = _rand(rng, shape)
+
+    jres.set_pallas_mode("interpret" if pallas else False)
+    try:
+        ref = jres.warp_block_gather(jnp.asarray(vol), jnp.asarray(disp), bound, radius, 8)
+        gref = jax.grad(lambda d: jnp.sum(jres.warp_block_gather(
+            jnp.asarray(vol), d, bound, radius, 8) * g))(jnp.asarray(disp))
+    finally:
+        jres.set_pallas_mode(None)
+    n_over = int(jres.block_residual_overflow(jnp.asarray(disp), bound, radius, 8))
+    assert n_over > 0
+
+    x = _t(disp)[None].requires_grad_(True)
+    out = tres.warp_block_gather(_t(vol)[None, None], x, bound, radius, 8)
+    _close(out[0, 0], ref, 1e-5)
+    (gx,) = torch.autograd.grad(out, x, _t(g)[None, None])
+    _close(gx[0], gref, 5e-4, 1e-4)
+    assert int(tres.block_residual_overflow(_t(disp)[None], bound, radius, 8)[0]) == n_over
+
+
+def test_block_warp_cuda_wrappers_reject_cpu_tensors():
+    vol = torch.zeros((1, 1, 8, 8, 8))
+    r = torch.zeros((1, 3, 8, 8, 8))
+    m = torch.zeros((1, 3, 1, 1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbw.block_warp_cuda(vol, r, m)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbw.block_warp_dgrad_cuda(vol, r, m, vol)
+
+
+# ---- grid_sample ------------------------------------------------------------------
+
+def test_grid_sample_matches_jax_value_and_grad():
+    shape = (6, 7, 8)
+    rng = np.random.default_rng(10)
+    vol = _rand(rng, shape)
+    grid = (1.2 * (2.0 * rng.random((2, 3) + shape) - 1.0)).astype(np.float32)
+    g = _rand(rng, (2,) + shape)
+    ref = jax.vmap(lambda t: jres.grid_sample(jnp.asarray(vol), t))(grid)
+    gref = jax.grad(lambda t: jnp.sum(jax.vmap(
+        lambda tt: jres.grid_sample(jnp.asarray(vol), tt))(t) * g))(jnp.asarray(grid))
+    x = _t(grid).requires_grad_(True)
+    out = tres.grid_sample(_t(vol), x)
+    _close(out, ref, 1e-5, 1e-5)
+    (gx,) = torch.autograd.grad(out, x, _t(g))
+    # the coordinate gradient scales by (S-1)/2 per axis: f32 rounding of
+    # the un-normalisation shows at ~1e-5 relative
+    _close(gx, gref, 1e-4, 1e-4)
