@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
+
 Phases, each of which raises on failure (exit code != 0):
 
 1. the card's name and power limit; build the CUDA kernels from
    ``ir_sgmcmc_tpu_torch/csrc`` (nvcc, sm_90a) and report the build time;
-2. each kernel B1-B4 against its plain PyTorch version on the card, at the
-   main path's shapes, with the stated tolerance, and both times;
-3. the main path: one SGLD transition over 2 chains at 128³ (the
-   ``bench.py`` configuration), 1 warm-up and 10 timed transitions through
-   ``init_chains`` -> ``make_mcmc_chunk``; the launch counters must move by
-   exactly B1 7, B2 7, B3 1, B4 1 per transition;
+2. each kernel B1-B7 against its plain PyTorch version on the card, at the
+   main paths' shapes (B5-B7 also at a general 4-channel, radius-2 shape),
+   with the stated tolerance, and both times;
+3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
+   ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
+   transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
+   counters must move by exactly B1 7, B2 7, B3 1, B4 1 per transition;
 4. the same transition at 64³ with fixed noise on the card and on the CPU
-   (plain versions) must agree.
+   (plain versions) must agree;
+5. the VI path: ``bench.py --phase vi``'s problem at 128³ on the "pre"
+   noise scheme, GMM warm-up, 1 warm-up and 10 timed VI steps through
+   ``make_vi_step`` -> ``make_vi_chunk``; the counters must move by
+   exactly B1 7, B5 9, B6 8, B7 8 (and B2-B4 0) per step; then 5 more
+   steps under ``torch.profiler``, printed as device kernel time by kind;
+6. one VI step at 64³ with fixed draws on the card and on the CPU must
+   agree.
 
-Then one JSON line of kernel results, the ``nvidia-smi`` name/power line,
-and the final status line.  Imports nothing of JAX.  Exits non-zero, with
-no result, when CUDA is unavailable.  TF32 is off for matmuls and cuDNN.
+Each path's counters are set to 0 just before its timed run and read just
+after.  Then one JSON line of kernel results, the ``nvidia-smi``
+name/power line, and the final status line.  Imports nothing of JAX.
+Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
+matmuls and cuDNN.
 """
 
 from __future__ import annotations
@@ -76,7 +87,7 @@ def _err(out, ref, atol: float, rtol: float, name: str, **inputs) -> float:
     return float(diff.max())
 
 
-def _bundle(dims):
+def _bundle(dims, noise_scheme="post"):
     from ir_sgmcmc_tpu_torch.engine import ModelBundle
     from ir_sgmcmc_tpu_torch.models import (GMM, SVF3D, DirichletPrior,
                                             LogEnergyExpGammaPrior,
@@ -92,14 +103,14 @@ def _bundle(dims):
         reg_scale_prior=LogScaleNormalPrior(loc=2.8, scale=5.0),
         transformation=SVF3D(dims, no_steps=12),
         sobolev_s=3, sobolev_lambda=0.5, uniform_noise_alpha=0.1,
-        noise_scheme="post", virtual_decimation=True)
+        noise_scheme=noise_scheme, virtual_decimation=True)
 
 
-def _problem(dims, device):
+def _problem(dims, device, noise_scheme="post"):
     from ir_sgmcmc_tpu_torch.data import sphere_pair
     from ir_sgmcmc_tpu_torch.optim import adam_decay
 
-    bundle = _bundle(dims)
+    bundle = _bundle(dims, noise_scheme)
     fixed, moving = sphere_pair(dims, offset=(0.0, 0.0, 4.0))
     fixed = {k: torch.as_tensor(v, device=device) for k, v in fixed.items()}
     moving = {k: torch.as_tensor(v, device=device) for k, v in moving.items()}
@@ -174,9 +185,63 @@ def phase_kernels(dev) -> list:
     rows.append((bw.B4, err, 5e-4, 1e-4,
                  _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv)),
                  _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv))))
+    _print_rows(rows)
+    return rows
+
+
+def _print_rows(rows) -> None:
     for k, err, atol, rtol, ms, plain_ms in rows:
         print(f"kernel {k.symbol}: max_abs_err {err:.3e} (atol {atol}, rtol "
               f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+
+
+def _bounded_operands(gen, shape, R):
+    """vol, disp, g for the bounded warp: ``disp`` uniform in ±1.4R with
+    every 7th value an integer, every 11th exactly +R and every 13th -R."""
+    dev = gen.device
+    B, C = shape[:2]
+    vol = torch.randn(shape, generator=gen, device=dev)
+    disp = (torch.rand((B, 3) + shape[2:], generator=gen, device=dev) * 2 - 1) * (1.4 * R)
+    flat = disp.view(-1)
+    flat[::7] = torch.round(flat[::7])
+    flat[1::11] = float(R)
+    flat[2::13] = -float(R)
+    return vol, disp, torch.randn(shape, generator=gen, device=dev)
+
+
+def phase_blend_kernels(dev) -> list:
+    """B5-B7 against their plain versions on the card: at the VI path's
+    ``(2, 1, 128³)``, R 1 (timed), and a general ``(2, 4, 64³)``, R 2.
+
+    The kernels and the plain versions evaluate ``tri`` and ``dtri`` by
+    the same expressions at the same points, so no tie (integer ``d``,
+    ``|d| = R``) needs avoiding: both take the zero subgradient there.
+    Tolerance atol 1e-5 (the JAX suite's for these kernels) plus rtol 1e-5
+    for the sums of up to 27·C products at C = 4."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    atol, rtol = 1e-5, 1e-5
+    errs = {wb.B5: 0.0, wb.B6: 0.0, wb.B7: 0.0}
+    timed = {}
+    for shape, R in (((CHAINS, 1) + DIMS, 1), ((CHAINS, 4) + SMALL, 2)):
+        vol, disp, g = _bounded_operands(gen, shape, R)
+        calls = {
+            wb.B5: (lambda: wb.warp_bounded_fwd_cuda(vol, disp, R),
+                    lambda: wb.warp_bounded_plain(vol, disp, R)),
+            wb.B6: (lambda: wb.warp_bounded_dgrad_cuda(vol, disp, g, R),
+                    lambda: wb.warp_bounded_dgrad_plain(vol, disp, g, R)),
+            wb.B7: (lambda: wb.warp_bounded_tblend_cuda(disp, g, R),
+                    lambda: wb.warp_bounded_tblend_plain(disp, g, R)),
+        }
+        for k, (kern, plain) in calls.items():
+            err = _err(kern(), plain(), atol, rtol, f"{k.symbol} {shape} R {R}",
+                       disp=disp if k is wb.B6 else torch.zeros(0))
+            errs[k] = max(errs[k], err)
+            if R == 1:
+                timed[k] = (_time_ms(kern), _time_ms(plain))
+    rows = [(k, errs[k], atol, rtol) + timed[k] for k in (wb.B5, wb.B6, wb.B7)]
+    _print_rows(rows)
     return rows
 
 
@@ -284,6 +349,150 @@ def phase_reference(dev) -> None:
           flush=True)
 
 
+def _vi_problem(dims, device):
+    """``bench.py:measure_vi`` on the "pre" scheme: the bundle, images,
+    the experiment-1 optimizers and the initial ``VIState``."""
+    from ir_sgmcmc_tpu_torch.engine import VIState
+    from ir_sgmcmc_tpu_torch.optim import adam_decay
+
+    bundle, fixed, moving, _, opt_reg = _problem(dims, device, "pre")
+    opt_q_v = adam_decay({"mu": 0.01, "log_var": 0.01, "u": 0.01}, 1e-3)
+    opt_gmm = adam_decay({"log_std": 0.2, "logits": 0.2}, 1e-3)
+    q_v = bundle.init_q_v(0.5, 0.1, device)
+    gmm, reg = bundle.gmm.init_params(device), bundle.reg_loss.init_params(device)
+    state = VIState(q_v=q_v, gmm=gmm, reg=reg, opt_q_v=opt_q_v.init(q_v),
+                    opt_gmm=opt_gmm.init(gmm), opt_reg=opt_reg.init(reg),
+                    key=torch.tensor([0, 0]), step=0)
+    return bundle, fixed, moving, (opt_q_v, opt_gmm, opt_reg), state
+
+
+VI_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
+               "block_warp_dgrad": 0, "warp_bounded_fwd": 9, "warp_bounded_dgrad": 8,
+               "warp_bounded_tblend": 8}
+
+
+def phase_vi(dev) -> dict:
+    """GMM warm-up, 1 warm-up and TIMED VI steps at 128³ on "pre", then a
+    profile of 5 more; returns the launch counts of the timed run."""
+    from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_vi_chunk, make_vi_step
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+
+    bundle, fixed, moving, (oq, og, orr), state = _vi_problem(DIMS, dev)
+    tr = bundle.transformation
+    print(f"vi: {DIMS} 'pre', no_taylor {tr.no_taylor}, compositions "
+          f"{tr.no_compositions}, image warps {tr.no_image_compositions}", flush=True)
+    step = make_vi_step(bundle, oq, og, orr, fixed, moving)
+    state = gmm_warmup(bundle, og, state, fixed, moving)
+    state, _ = make_vi_chunk(step, 1)(state)
+    timed = make_vi_chunk(step, TIMED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = timed(state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha"):
+        if not torch.isfinite(metrics[name]).all():
+            raise AssertionError(f"vi: non-finite {name}: {metrics[name]}")
+    if not all(torch.isfinite(t).all() for t in state.q_v.values()):
+        raise AssertionError("vi: non-finite q(v)")
+    for sym, per in VI_PER_STEP.items():
+        if launches[sym] != per * TIMED:
+            raise AssertionError(f"vi: {sym} launched {launches[sym]} times in {TIMED} "
+                                 f"steps, expected {per * TIMED}")
+    last = {k: metrics[k][-1].tolist() for k in
+            ("data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha", "ndv",
+             "sat", "max_update_mu")}
+    print(f"vi: last step {json.dumps(last)}", flush=True)
+    print(f"vi: launches {json.dumps(launches)} over {TIMED} steps", flush=True)
+    print(f"vi: {TIMED / seconds:.3f} iters/sec ({TIMED} steps in {seconds:.3f} s), "
+          f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    _profile(make_vi_chunk(step, 5), state, 5)
+    return launches
+
+
+_KINDS = (("warp_bounded_tblend", "B7"), ("warp_bounded_dgrad", "B6"),
+          ("warp_bounded_fwd", "B5"), ("split_fwd", "B1"), ("split_bwd", "B2"),
+          ("block_warp", "B3/B4"), ("direct_copy", "copies"), ("CatArray", "copies"),
+          ("Memcpy", "copies"), ("Memset", "copies"), ("reduce_kernel", "reductions"),
+          ("elementwise", "elementwise"))
+
+
+def _profile(run, state, steps: int) -> None:
+    """Device kernel time per step by kind over one run of ``steps`` steps
+    (device events only: the host-side rows would count kernels twice)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(state)
+        torch.cuda.synchronize()
+    kinds = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        kind = next((k for pat, k in _KINDS if pat in e.key), "other")
+        t, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (t + e.device_time_total, n + e.count)
+    total = sum(t for t, _ in kinds.values())
+    print(f"profile: {steps} VI steps, device kernel time {total / 1e3 / steps:.3f} ms "
+          f"per step over {sum(n for _, n in kinds.values()) / steps:.0f} launches",
+          flush=True)
+    for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        print(f"profile: {kind:12s} {t / 1e3 / steps:8.3f} ms per step "
+              f"{100 * t / total:6.2f}% {n / steps:7.1f} launches per step", flush=True)
+
+
+def phase_vi_reference(dev) -> None:
+    """One 64³ VI step with fixed draws: card (kernels) vs CPU (plain).
+
+    The GMM starts warm (spread scales, unequal logits), as in phase 4.
+    Tolerances as in tests/test_torch_vi.py: loss terms 1e-4 relative,
+    counters equal; the q(v) gradient (Adam's first moment / 0.1) within
+    1e-3 RMS of its RMS and 2% of its maximum elementwise.
+    """
+    from ir_sgmcmc_tpu_torch.engine import make_vi_step
+
+    rng = np.random.default_rng(11)
+    eps_np = rng.standard_normal((3,) + SMALL).astype(np.float32)
+    x_np = np.float32(rng.standard_normal())
+    unif_np = rng.uniform(-0.1, 0.1, (2, 3) + SMALL).astype(np.float32)
+    results = {}
+    for device in (torch.device("cpu"), dev):
+        bundle, fixed, moving, (oq, og, orr), state = _vi_problem(SMALL, device)
+        gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params(), 1.0)
+        gmm["logits"] = torch.tensor([0.3, -0.2, 0.1, -0.4])
+        state = state._replace(gmm={k: t.to(device) for k, t in gmm.items()})
+        noise = tuple(torch.as_tensor(a, device=device) for a in (eps_np, x_np, unif_np))
+        new, met = make_vi_step(bundle, oq, og, orr, fixed, moving)(state, noise=noise)
+        results[device.type] = {
+            "g": {k: (new.opt_q_v.mu[k] / 0.1).cpu() for k in new.opt_q_v.mu},
+            **{k: met[k].cpu() for k in ("data_term", "reg_term", "entropy_term",
+                                         "total_loss", "vd_alpha", "ndv", "sat")}}
+    cpu, gpu = results["cpu"], results["cuda"]
+    for k in ("ndv", "sat"):
+        if not torch.equal(cpu[k], gpu[k]):
+            raise AssertionError(f"vi reference: {k} {gpu[k]} on the card, {cpu[k]} on the CPU")
+    for k in ("data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha"):
+        _err(gpu[k], cpu[k], 0.0, 1e-4, f"vi reference {k}")
+    worst = 0.0
+    for k, ref in cpu["g"].items():
+        d = gpu["g"][k] - ref
+        rms, rms_ref = float(d.pow(2).mean().sqrt()), float(ref.pow(2).mean().sqrt())
+        if rms > 1e-3 * rms_ref:
+            raise AssertionError(f"vi reference: RMS error of the {k} gradient {rms:.3e} "
+                                 f"vs RMS {rms_ref:.3e}")
+        _err(gpu["g"][k], ref, 2e-2 * float(ref.abs().max()), 0.0, f"vi reference grad {k}")
+        worst = max(worst, rms / rms_ref)
+    print(f"vi reference: 64³ VI step, card vs CPU agree: loss terms within 1e-4, "
+          f"q(v) gradient RMS error at most {worst:.3e} of its RMS", flush=True)
+
+
 def _to(state, device):
     def mv(x):
         if isinstance(x, torch.Tensor):
@@ -324,14 +533,20 @@ def main() -> int:
     for ln in ptxas:
         print(f"ptxas: {ln}", flush=True)
 
-    rows = phase_kernels(dev)
-    launches = phase_slice(dev)
+    rows = phase_kernels(dev) + phase_blend_kernels(dev)
+    paths = {"mcmc": phase_slice(dev)}
     phase_reference(dev)
+    paths["vi"] = phase_vi(dev)
+    phase_vi_reference(dev)
 
     kernels = [{"name": k.symbol, "route": "cuda", "source": k.source,
-                "replaces": k.replaces, "launches": launches[k.symbol],
+                "replaces": k.replaces,
+                "launches": sum(p[k.symbol] for p in paths.values()),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
                for k, err, _, _, ms, plain_ms in rows]
+    unlaunched = [r["name"] for r in kernels if r["launches"] == 0]
+    if unlaunched:
+        raise AssertionError(f"kernels never launched on a main path: {unlaunched}")
     if not all(math.isfinite(r["ms"]) for r in kernels):
         raise AssertionError("kernel timing failed")
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Engines: model bundle, the shared forward chain, and SG-MCMC."""
+"""Engines: model bundle, the shared forward chain, VI and SG-MCMC."""
 
 from .bundle import ModelBundle
 from .mcmc import (
@@ -8,7 +8,8 @@ from .mcmc import (
     make_sgld_transition,
     posterior_statistics,
 )
-from .vi import count_folds, forward_sample
+from .vi import (VIState, count_folds, forward_sample, gmm_warmup, make_vi_chunk,
+                 make_vi_step)
 
 __all__ = [
     "ModelBundle",
@@ -19,4 +20,8 @@ __all__ = [
     "posterior_statistics",
     "count_folds",
     "forward_sample",
+    "VIState",
+    "make_vi_step",
+    "make_vi_chunk",
+    "gmm_warmup",
 ]

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -48,6 +49,17 @@ class ModelBundle:
     @property
     def field_dims(self) -> tuple:
         return tuple(self.dims)
+
+    def init_q_v(self, sigma_v_init: float, u_v_init: float, device=None) -> dict:
+        """Variational parameters: ``mu = 0``, ``log_var = 2 log sigma_v_init``,
+        ``u = u_v_init``, each ``(3, D, H, W)``."""
+        shape = (3,) + self.field_dims
+        return {
+            "mu": torch.zeros(shape, dtype=torch.float32, device=device),
+            "log_var": torch.full(shape, 2.0 * math.log(sigma_v_init),
+                                  dtype=torch.float32, device=device),
+            "u": torch.full(shape, float(u_v_init), dtype=torch.float32, device=device),
+        }
 
     def gmm_prior_terms(self, gmm_params: dict) -> torch.Tensor:
         """GMM hyperprior log-densities, summed over components, per chain."""

@@ -27,7 +27,7 @@ from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
 from ..optim.adam_decay import AdamDecayState, apply_updates
 from .bundle import ModelBundle
-from .vi import forward_sample, gmm_adam_step, vd_alpha
+from .vi import forward_sample, gmm_adam_step, key_generator, vd_alpha
 
 
 class WelfordState(NamedTuple):
@@ -131,19 +131,18 @@ def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
         key=words, step=0)
 
 
-def _chain_noise(state: MCMCState, alpha: float):
-    """Per-chain ``(eps, unif)`` from generators seeded by (key, step)."""
+def _chain_noise(state: MCMCState, alpha: float | None):
+    """Per-chain ``(eps, unif)`` from generators seeded by (key, step);
+    ``unif`` is None without a noise magnitude."""
     C = state.v.shape[0]
     eps = torch.empty_like(state.v)
-    unif = torch.empty_like(state.v)
+    unif = None if alpha is None else torch.empty_like(state.v)
     for c in range(C):
-        k0, k1 = (int(w) for w in state.key[c])
-        gen = torch.Generator(device=state.v.device)
-        seed = ((k0 << 32) | k1) ^ (state.step * 0x9E3779B97F4A7C15)
-        gen.manual_seed(seed & 0xFFFFFFFFFFFFFFFF)
+        gen = key_generator(state.key[c], state.step, state.v.device)
         eps[c] = torch.randn(state.v.shape[1:], generator=gen,
                              device=state.v.device)
-        unif[c] = uniform_voxel_noise(gen, state.v.shape[1:], alpha, state.v.device)
+        if unif is not None:
+            unif[c] = uniform_voxel_noise(gen, state.v.shape[1:], alpha, state.v.device)
     return eps, unif
 
 
@@ -184,7 +183,7 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
 
     def transition(state: MCMCState, collect_weight: float, noise=None):
         if noise is None:
-            noise = _chain_noise(state, float(bundle.uniform_noise_alpha))
+            noise = _chain_noise(state, bundle.uniform_noise_alpha)
         eps, unif = noise
         with torch.enable_grad():
             v_noised = (state.v + langevin_noise(None, state.sigma, tau, eps)

@@ -6,8 +6,9 @@ the dispatch between them (CPU tensor -> plain, CUDA tensor -> kernel).
 
 
 def all_kernels():
-    """The kernels of the main path, in port order (B1-B4)."""
+    """Every ported kernel, in port order (B1-B7)."""
     from .block_warp import B3, B4
     from .split_warp import B1, B2
+    from .warp_bounded import B5, B6, B7
 
-    return [B1, B2, B3, B4]
+    return [B1, B2, B3, B4, B5, B6, B7]

@@ -25,11 +25,20 @@ def uniform_voxel_noise(generator: torch.Generator, shape, alpha: float,
     return u * (2.0 * alpha) - alpha
 
 
-def sample_q_v(generator: torch.Generator, q_v: dict) -> torch.Tensor:
-    """One draw from ``q(v) = N(mu, diag(sigma²) + u uᵀ)`` (rank-1 direction
-    scaled by a single scalar normal)."""
+def sample_q_v(generator: torch.Generator, q_v: dict, antithetic: bool = False,
+               eps: torch.Tensor | None = None, x: torch.Tensor | None = None):
+    """Draw from ``q(v) = N(mu, diag(sigma²) + u uᵀ)``: ``mu + eps·sigma +
+    x·u`` with ``eps ~ N(0, I)`` over the field and ONE scalar ``x ~ N(0, 1)``
+    (the rank-1 direction).  ``eps`` and ``x`` are drawn from ``generator``
+    (in that order) unless given.  With ``antithetic=True``, returns the pair
+    ``(mu + delta, mu - delta)``."""
     sigma = torch.exp(0.5 * q_v["log_var"])
-    eps = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype,
-                      device=sigma.device)
-    x = torch.randn((), generator=generator, dtype=sigma.dtype, device=sigma.device)
-    return q_v["mu"] + (eps * sigma + x * q_v["u"])
+    if eps is None:
+        eps = torch.randn(sigma.shape, generator=generator, dtype=sigma.dtype,
+                          device=sigma.device)
+    if x is None:
+        x = torch.randn((), generator=generator, dtype=sigma.dtype, device=sigma.device)
+    delta = eps * sigma + x * q_v["u"]
+    if antithetic:
+        return q_v["mu"] + delta, q_v["mu"] - delta
+    return q_v["mu"] + delta

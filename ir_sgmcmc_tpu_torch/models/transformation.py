@@ -1,10 +1,12 @@
-"""SVF transformation model, split-composition path (port of
-``ir_sgmcmc_tpu/models/transformation.py``).
+"""SVF transformation model (port of ``ir_sgmcmc_tpu/models/transformation.py``).
 
-``SVF3D.integrate`` runs the main path's scaling and squaring: ``no_taylor``
-second-order Taylor squarings (plain stencils), then ``2^e - 1`` one-sided
-split compositions (kernels B1/B2 on the card).  See the JAX class for the
-integration plan and its measurements.
+``SVF3D.integrate`` runs scaling and squaring: ``no_taylor`` second-order
+Taylor squarings (plain stencils), the squarings above ``taylor_threshold``
+as ``d + warp_bounded(d, d, 1)`` (kernels B5-B7), then ``2^e - 1``
+compositions in the ``"split"`` form (kernels B1/B2) or the ``"warp"`` form
+(B5-B7).  With an image, the image rides the composition phase as radius-1
+blend warps (the ``"pre"`` noise scheme's cascade).  See the JAX class for
+the integration plan and its measurements.
 """
 
 from __future__ import annotations
@@ -14,11 +16,12 @@ import math
 import torch
 
 from ..ops.grids import identity_grid, voxel_to_normalised
+from ..ops.resample import warp_bounded
 from ..ops.stencil import split_compose_step, taylor_squaring_step
 
 
 class SVF3D:
-    """Stationary velocity field ``v (…, 3, D, H, W)`` in voxel units.
+    """Stationary velocity field ``v (B, 3, D, H, W)`` in voxel units.
 
     Returns ``(transformation, displacement)``: the transformation in
     normalised coordinates, the displacement in voxels.  The constructor's
@@ -69,38 +72,78 @@ class SVF3D:
             1 for k in range(self.no_squarings)
             if self.max_disp / 2 ** (self.no_steps - k) <= self.taylor_threshold
         )
-        # paths of the JAX model the port does not have yet (ROADMAP A12)
+        # paths of the JAX model the port does not have yet
         if self.use_gather:
             raise NotImplementedError(
                 "SVF3D(use_gather=True) is not ported yet (ROADMAP A12)")
-        if form != "split":
+        if form == "taylor":
             raise NotImplementedError(
-                f"taylor_compositions={form!r} needs the bounded blend warp "
-                "(kernels B5-B7, ROADMAP A12); only 'split' is ported")
-        if self.no_squarings != self.no_taylor:
-            raise NotImplementedError(
-                "squarings above taylor_threshold need the bounded blend warp "
-                "(kernels B5-B7, ROADMAP A12)")
+                "taylor_compositions='taylor' is not ported (ROADMAP rule "
+                "'Not ported'); use 'split' or 'warp'")
 
     def __call__(self, v: torch.Tensor):
         transformation, disp, _ = self.integrate(v)
         return transformation, disp
 
     def integrate(self, v: torch.Tensor, im: torch.Tensor | None = None):
-        """``(transformation, displacement, None)``; ``im`` must be None
-        (the image cascade of the 'pre' noise scheme is ROADMAP A12)."""
-        if im is not None:
-            raise NotImplementedError(
-                "integrate(im=...) (the 'pre' noise scheme's image cascade) "
-                "needs the bounded blend warp (ROADMAP A12)")
+        """Integrate ``v (B, 3, D, H, W)``; optionally warp ``im`` by the
+        transformation.
+
+        Returns ``(transformation, displacement, im_warped)``.  ``im`` is
+        ``(D, H, W)`` or ``(C, D, H, W)``, shared by the batch; the warped
+        image is ``(B, D, H, W)`` or ``(B, C, D, H, W)``.  In the ``"split"``
+        form the image takes one radius-1 warp by ``ψ = φ^m`` every
+        ``m = N // K`` split steps (``K = no_image_compositions``); in the
+        ``"warp"`` form it rides the compositions as the last channel(s) of
+        one fused ``[d | g]`` carry.
+        """
         disp = v / float(2 ** self.no_steps)
         for _ in range(self.no_taylor):
             disp = taylor_squaring_step(disp)
+        for _ in range(self.no_squarings - self.no_taylor):
+            disp = disp + warp_bounded(disp, disp, 1)
         u_phi = disp.contiguous()
-        for _ in range(self.no_compositions - 1):
-            disp = split_compose_step(disp.contiguous(), u_phi)
+        N = self.no_compositions
+
+        if self.composition_form == "split":
+            def dstep(d):
+                return split_compose_step(d.contiguous(), u_phi)
+        else:
+            def dstep(d):
+                return u_phi + warp_bounded(d, u_phi, 1)
+
+        g = None
+        if im is None:
+            for _ in range(N - 1):
+                disp = dstep(disp)
+        else:
+            vol = im if im.ndim == 4 else im[None]
+            vol = vol.expand((v.shape[0],) + tuple(vol.shape))
+            if self.composition_form == "split":
+                K = self.no_image_compositions
+                m = N // K
+                u_psi = u_phi
+                for _ in range(m - 1):
+                    u_psi = dstep(u_psi)
+                disp = u_psi
+                g = warp_bounded(vol, u_psi, 1)
+                for _ in range(K - 1):
+                    for _ in range(m):
+                        disp = dstep(disp)
+                    g = warp_bounded(g, u_psi, 1)
+            else:
+                g = warp_bounded(vol, u_phi, 1)  # g_1 = im ∘ φ
+                if N > 1:
+                    # one fused 4-channel warp and one add per step
+                    u_phi_g = torch.cat([u_phi, torch.zeros_like(g)], dim=1)
+                    state = torch.cat([u_phi, g], dim=1)
+                    for _ in range(N - 1):
+                        state = warp_bounded(state, u_phi, 1) + u_phi_g
+                    disp, g = state[:, :3], state[:, 3:]
+            if im.ndim == 3:
+                g = g[:, 0]
         transformation = identity_grid(self.dims, device=v.device) + voxel_to_normalised(disp)
-        return transformation, disp, None
+        return transformation, disp, g
 
 
 def make_transformation(kind: str, dims, no_steps: int = 12, max_disp: int = 8,

@@ -5,6 +5,8 @@
 * :func:`warp_block_gather` — the exact trilinear warp by a smooth bounded
   displacement, decomposed into per-block integer means plus a clipped
   residual; kernels B3/B4 on the card (``kernels/block_warp.py``).
+* :func:`warp_bounded` — the blend warp by a displacement clipped to ``±R``
+  voxels; kernels B5-B7 on the card (``kernels/warp_bounded.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import block_warp as _bw
+from ..kernels import warp_bounded as _wb
 
 
 def grid_sample(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -86,3 +89,36 @@ def block_residual_overflow(disp_vox: torch.Tensor, max_disp: int,
     _, r = _residual(disp_vox, block, max_disp)
     over = torch.any(torch.abs(r) > radius, dim=-4)
     return torch.sum(over, dim=(-3, -2, -1))
+
+
+class WarpBounded(torch.autograd.Function):
+    """Forward B5; backward B6 masked where ``|disp| > R`` and B7, each only
+    for an input that needs its gradient.  Saves only ``(vol, disp)``, as
+    the JAX package's custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, vol, disp, radius):
+        vol, disp = vol.contiguous(), disp.contiguous()
+        ctx.radius = radius
+        ctx.save_for_backward(vol, disp)
+        return _wb.warp_bounded_fwd(vol, disp, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, disp = ctx.saved_tensors
+        R = ctx.radius
+        g = g.contiguous()
+        g_vol = g_disp = None
+        if ctx.needs_input_grad[1]:
+            g_disp = _wb.warp_bounded_dgrad(vol, disp, g, R)
+            g_disp = torch.where(torch.abs(disp) <= R, g_disp, torch.zeros_like(g_disp))
+        if ctx.needs_input_grad[0]:
+            g_vol = _wb.warp_bounded_tblend(disp, g, R)
+        return g_vol, g_disp, None
+
+
+def warp_bounded(vol: torch.Tensor, disp_vox: torch.Tensor, radius: int) -> torch.Tensor:
+    """Warp ``vol (B, C, D, H, W)`` by ``disp_vox (B, 3, D, H, W)`` (voxels,
+    channel 0 = x): exact trilinear with border clamping where
+    ``|disp| <= radius``, the displacement clipped to ``±radius`` beyond."""
+    return WarpBounded.apply(vol, disp_vox, int(radius))

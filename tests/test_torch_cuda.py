@@ -1,4 +1,4 @@
-"""Port kernels on the card: B1-B4 against their plain versions, the
+"""Port kernels on the card: B1-B7 against their plain versions, the
 autograd Functions end to end, and the wrappers' operand checks.
 
 Imports only torch and the port, so it runs on a GPU host without JAX:
@@ -89,14 +89,69 @@ def test_autograd_functions_on_card_match_cpu(cuda):
         grads = torch.autograd.grad((o * g.to(dev)).sum() + (w * gv.to(dev)).sum(),
                                     (dd, uu, xx))
         outs[dev.type] = [t.detach().cpu() for t in (o, w, *grads)]
-    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1]
+    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1, 0, 0, 0]
     for got, ref, atol in zip(outs["cuda"], outs["cpu"], (2e-5, 1e-5, 3e-5, 3e-5, 5e-4)):
         torch.testing.assert_close(got, ref, atol=atol, rtol=1e-4)
+
+
+def _bounded_inputs(dev, shape, radius):
+    """Displacements uniform in ±1.4R, every 7th an integer, every 11th
+    exactly +R, every 13th -R."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    vol = torch.randn(shape, generator=gen, device=dev)
+    disp = (torch.rand((shape[0], 3) + shape[2:], generator=gen, device=dev) * 2 - 1) * 1.4 * radius
+    flat = disp.view(-1)
+    flat[::7] = torch.round(flat[::7])
+    flat[1::11] = radius
+    flat[2::13] = -radius
+    return vol, disp, torch.randn(shape, generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("shape,radius", [((2, 1, 16, 24, 40), 1), ((2, 4, 9, 10, 11), 2),
+                                          ((1, 3, 5, 6, 7), 3)])
+def test_bounded_kernels_match_plain(cuda, shape, radius):
+    """B5-B7 against their plain versions; atol 1e-5 (the JAX suite's for
+    these kernels) plus rtol 1e-5 for sums of up to 27·C products."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    vol, disp, g = _bounded_inputs(cuda, shape, radius)
+    torch.testing.assert_close(wb.warp_bounded_fwd_cuda(vol, disp, radius),
+                               wb.warp_bounded_plain(vol, disp, radius), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(wb.warp_bounded_dgrad_cuda(vol, disp, g, radius),
+                               wb.warp_bounded_dgrad_plain(vol, disp, g, radius),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(wb.warp_bounded_tblend_cuda(disp, g, radius),
+                               wb.warp_bounded_tblend_plain(disp, g, radius),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_warp_bounded_autograd_on_card_matches_cpu(cuda):
+    """``warp_bounded`` forward and both cotangents on the card (B5, B6, B7,
+    each counted once) against the same op on the CPU; a constant volume
+    asks for no B7 launch."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+    from ir_sgmcmc_tpu_torch.ops.resample import warp_bounded
+
+    vol, disp, g = _bounded_inputs(cuda, (2, 4, 12, 13, 14), 1)
+    before = [k.launches for k in (wb.B5, wb.B6, wb.B7)]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        v, d = (t.to(dev).clone().requires_grad_(True) for t in (vol, disp))
+        o = warp_bounded(v, d, 1)
+        outs[dev.type] = [t.detach().cpu() for t in (o, *torch.autograd.grad(o, (v, d), g.to(dev)))]
+    assert [k.launches - b for k, b in zip((wb.B5, wb.B6, wb.B7), before)] == [1, 1, 1]
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    d = disp.clone().requires_grad_(True)
+    before = wb.B7.launches
+    torch.autograd.grad(warp_bounded(vol, d, 1).sum(), d)
+    assert wb.B7.launches == before
 
 
 def test_wrappers_reject_bad_operands(cuda):
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
     from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
 
     d = torch.zeros((1, 3, 8, 8, 8), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -108,3 +163,7 @@ def test_wrappers_reject_bad_operands(cuda):
     m = torch.zeros((1, 3, 1, 1, 1), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         bw.block_warp_cuda(d[:, :1].contiguous(), d, m)
+    with pytest.raises(ValueError, match="shape"):
+        wb.warp_bounded_fwd_cuda(d, d[:, :2].contiguous(), 1)
+    with pytest.raises(ValueError, match="radius"):
+        wb.warp_bounded_tblend_cuda(d, d, 0)

@@ -22,6 +22,8 @@ from ir_sgmcmc_tpu.models.transformation import SVF3D as JSVF3D
 from ir_sgmcmc_tpu.optim import adam_decay as j_adam
 from ir_sgmcmc_tpu.optim import reinit_moments as j_reinit
 from ir_sgmcmc_tpu_torch.data import sphere_pair as t_sphere_pair
+from ir_sgmcmc_tpu_torch.engine import ModelBundle
+from ir_sgmcmc_tpu_torch.engine.vi import forward_sample, make_vi_step
 from ir_sgmcmc_tpu_torch.models import distributions as tdist
 from ir_sgmcmc_tpu_torch.models.gmm import GMM as TGMM
 from ir_sgmcmc_tpu_torch.models import reg_loss as treg
@@ -59,15 +61,36 @@ def test_svf_plan_matches_jax(kw):
 
 
 def test_svf_unported_forms_raise():
+    """The "warp" form and squarings above ``taylor_threshold`` are ported
+    (kernels B5-B7); "taylor", ``use_gather``, SVFFD, the VI step's
+    ``remat`` and the anchored residual warp still raise, naming ROADMAP."""
+    dims = (8, 8, 8)
+    assert TSVF3D(dims, taylor_compositions="warp").composition_form == "warp"
+    low = TSVF3D(dims, taylor_threshold=0.1)
+    assert low.no_squarings > low.no_taylor  # warp squarings
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSVF3D((32, 32, 32), taylor_compositions="warp")
+        TSVF3D(dims, taylor_compositions="taylor")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSVF3D((32, 32, 32), use_gather=True)
+        TSVF3D(dims, use_gather=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSVF3D((32, 32, 32), taylor_threshold=0.1)  # warp squarings
+        make_transformation("SVFFD_3D", dims)
+    assert isinstance(make_transformation("SVF_3D", dims), TSVF3D)
+    bundle = ModelBundle(dims=dims, gmm=TGMM(4, 1), scale_prior=tdist.LogScaleNormalPrior(0.0, 2.3),
+                         proportion_prior=tdist.DirichletPrior(4, 0.5),
+                         reg_loss=treg.RegLossLogNormal(dims=dims), transformation=TSVF3D(dims))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_transformation("SVFFD_3D", (32, 32, 32))
-    assert isinstance(make_transformation("SVF_3D", (32, 32, 32)), TSVF3D)
+        make_vi_step(bundle, None, None, None, {"mask": None}, {}, remat=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        forward_sample(bundle, {}, {}, torch.zeros((1, 3) + dims), None, anchor={})
+
+
+def _velocity(rng, dims, peak, batch=2, passes=6):
+    """A smooth random velocity with the given peak (voxels)."""
+    v = _rand(rng, (batch, 3) + dims)
+    for _ in range(passes):
+        for ax in (2, 3, 4):
+            v = (np.roll(v, 1, ax) + v + np.roll(v, -1, ax)) / 3.0
+    return (v * (peak / np.abs(v).max())).astype(np.float32)
 
 
 def test_svf_integrate_matches_jax_32():
@@ -79,11 +102,7 @@ def test_svf_integrate_matches_jax_32():
     algorithmic difference (which would show at the 1e-2 level)."""
     dims = (32, 32, 32)
     rng = np.random.default_rng(0)
-    v = _rand(rng, (2, 3) + dims)
-    for _ in range(6):  # smooth, then scale to a peak of ~12 voxels of velocity
-        for ax in (2, 3, 4):
-            v = (np.roll(v, 1, ax) + v + np.roll(v, -1, ax)) / 3.0
-    v = (v * (12.0 / np.abs(v).max())).astype(np.float32)
+    v = _velocity(rng, dims, 12.0)
     g = _rand(rng, v.shape)
     j, t = JSVF3D(dims), TSVF3D(dims)
 
@@ -100,6 +119,59 @@ def test_svf_integrate_matches_jax_32():
     (gx,) = torch.autograd.grad(disp_t, x, _t(g))
     gj = vjp((jnp.zeros_like(tr_j), jnp.asarray(g)))[0]
     _close(gx, gj, 1e-4, 1e-4)
+
+
+_INTEGRATE_CASES = {
+    "split_image": ({}, True),
+    "warp_image": ({"taylor_compositions": "warp"}, True),
+    "warp": ({"taylor_compositions": "warp"}, False),
+    "warp_squarings_image": ({"taylor_threshold": 0.1}, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_INTEGRATE_CASES))
+def test_svf_integrate_forms_match_jax_32(case):
+    """``integrate(v, im)`` through the bounded blend warp: the split form's
+    image cascade (8 radius-1 image warps beside 7 split steps), the "warp"
+    form with and without the fused ``[d | g]`` carry, and 3 warp squarings
+    above ``taylor_threshold`` 0.1.  32³ over 2 samples, velocity peak 12
+    (some compositions clamp).  Tolerances of
+    ``test_svf_integrate_matches_jax_32``; the image (values in [0, 1])
+    and its cotangent path are held to the same."""
+    kw, with_image = _INTEGRATE_CASES[case]
+    dims = (32, 32, 32)
+    rng = np.random.default_rng(1)
+    v = _velocity(rng, dims, 12.0)
+    g_d = _rand(rng, v.shape)
+    g_im = _rand(rng, (2,) + dims)
+    im = j_sphere_pair(dims, offset=(0.0, 0.0, 4.0))[1]["im"] if with_image else None
+    j, t = JSVF3D(dims, **kw), TSVF3D(dims, **kw)
+    assert t.no_squarings - t.no_taylor == (3 if "squarings" in case else 0)
+
+    @jax.jit
+    def jax_side(vv, gd, gi):
+        def f(x):
+            _, disp, warped = j.integrate(x, None if im is None else jnp.asarray(im))
+            return disp, warped
+
+        (disp, warped), vjp = jax.vjp(jax.vmap(f), vv)
+        return disp, warped, vjp((gd, gi if im is not None else None))[0]
+
+    disp_j, warped_j, grad_j = jax_side(v, g_d, g_im)
+    x = _t(v).requires_grad_(True)
+    _, disp_t, warped_t = t.integrate(x, None if im is None else _t(im))
+    assert float(np.abs(np.asarray(disp_j)).max()) > 1.0
+    _close(disp_t, disp_j, 1e-4)
+    outs, cots = [disp_t], [_t(g_d)]
+    if im is not None:
+        assert warped_t.shape == (2,) + dims
+        _close(warped_t, warped_j, 1e-4)
+        outs.append(warped_t)
+        cots.append(_t(g_im))
+    else:
+        assert warped_t is None
+    (gx,) = torch.autograd.grad(outs, x, cots)
+    _close(gx, grad_j, 1e-4, 1e-4)
 
 
 # ---- GMM and virtual decimation ------------------------------------------------

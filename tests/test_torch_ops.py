@@ -1,12 +1,14 @@
 """PyTorch port vs the JAX package: grids, stencils, Sobolev, the Taylor
-squaring, the split composition (B1/B2) and the block-gather warp (B3/B4).
+squaring, the split composition (B1/B2), the block-gather warp (B3/B4) and
+the bounded blend warp (B5-B7).
 
 Same numpy inputs from a seed go through both packages on the CPU, in
 float32.  Where the JAX function reaches a Pallas kernel it runs in
 interpret mode, as the JAX suite runs it.  Tolerances are the JAX suite's
 own for the kernels (tests/test_pallas_split_warp.py:37,58 and
-tests/test_pallas_block_warp.py:66,93); elementwise stencils are held to
-1e-5 (a handful of f32 roundings of O(1) values).
+tests/test_pallas_block_warp.py:66,93, tests/test_pallas_warp.py:30,68);
+elementwise stencils are held to 1e-5 (a handful of f32 roundings of O(1)
+values).
 """
 
 import numpy as np
@@ -26,8 +28,14 @@ from ir_sgmcmc_tpu.ops.pallas_block_warp import (
     block_warp_pallas_applicable,
 )
 from ir_sgmcmc_tpu.ops.pallas_split_warp import split_warp_bwd_pallas, split_warp_pallas
+from ir_sgmcmc_tpu.ops.pallas_warp import (
+    warp_bounded_dgrad_pallas,
+    warp_bounded_pallas,
+    warp_bounded_tblend_pallas,
+)
 from ir_sgmcmc_tpu_torch.kernels import block_warp as tbw
 from ir_sgmcmc_tpu_torch.kernels import split_warp as tsw
+from ir_sgmcmc_tpu_torch.kernels import warp_bounded as twb
 from ir_sgmcmc_tpu_torch.ops import grids as tgrids
 from ir_sgmcmc_tpu_torch.ops import resample as tres
 from ir_sgmcmc_tpu_torch.ops import sobolev as tsob
@@ -264,6 +272,94 @@ def test_block_warp_cuda_wrappers_reject_cpu_tensors():
         tbw.block_warp_cuda(vol, r, m)
     with pytest.raises(ValueError, match="CUDA"):
         tbw.block_warp_dgrad_cuda(vol, r, m, vol)
+
+
+# ---- bounded blend warp (B5-B7) ---------------------------------------------------
+
+def _bounded_case(rng, shape, radius):
+    """Displacements uniform in ±1.4R with every 7th value an integer, every
+    11th exactly +R and every 13th -R (the clip, the mask's ``<= R`` and the
+    zero derivative at integers)."""
+    disp = ((rng.random(shape[:1] + (3,) + shape[2:]) * 2 - 1) * radius * 1.4
+            ).astype(np.float32)
+    flat = disp.reshape(-1)
+    flat[::7] = np.round(flat[::7])
+    flat[1::11] = radius
+    flat[2::13] = -radius
+    return _rand(rng, shape), disp, _rand(rng, shape)
+
+
+@pytest.mark.parametrize("radius,chan", [(1, 1), (1, 4), (2, 1), (2, 4)])
+def test_warp_bounded_matches_jax_xla(radius, chan):
+    """Values and both cotangents of ``warp_bounded`` over a batch of 2
+    against the JAX package's custom VJP on its XLA path; the displacement
+    cotangent is zero wherever ``|d| >= R`` (masked beyond R, a zero
+    ``dtri`` sum at R)."""
+    rng = np.random.default_rng(11)
+    vol, disp, g = _bounded_case(rng, (2, chan, 6, 7, 9), radius)
+    jres.set_pallas_mode(False)
+    try:
+        @jax.jit
+        def jax_side(vv, dd, gg):
+            out, vjp = jax.vjp(jax.vmap(lambda a, b: jres.warp_bounded(a, b, radius)), vv, dd)
+            acc = jax.vmap(lambda b, c: jres._tblend_acc_xla(b, radius, c))(dd, gg)
+            dgrads = jax.vmap(lambda a, b, c: jres._bwd_dgrads_xla(a, b, radius, c))(vv, dd, gg)
+            return (out, *vjp(gg), acc, jax.vmap(lambda c: jres._fold_edge(c, 1))(gg), dgrads)
+
+        ref, gv_ref, gd_ref, acc_ref, fold_ref, dgrads_ref = jax_side(vol, disp, g)
+    finally:
+        jres.set_pallas_mode(None)
+    v, d = _t(vol).requires_grad_(True), _t(disp).requires_grad_(True)
+    out = tres.warp_bounded(v, d, radius)
+    gv, gd = torch.autograd.grad(out, (v, d), _t(g))
+    _close(out, ref, 1e-5)
+    _close(gv, gv_ref, 1e-5)
+    _close(gd, gd_ref, 1e-5)
+    assert np.all(gd.numpy()[np.abs(disp) >= radius] == 0.0)
+    # the plain pieces, one by one
+    _close(twb.tblend_acc_plain(_t(disp), _t(g), radius), acc_ref, 1e-5)
+    _close(twb.fold_edge(_t(g), 1), fold_ref, 1e-6)
+    masked = torch.where(torch.abs(_t(disp)) <= radius,
+                         twb.warp_bounded_dgrad_plain(_t(vol), _t(disp), _t(g), radius), 0.0)
+    _close(masked, dgrads_ref, 1e-5)
+
+
+@pytest.mark.parametrize("radius,chan", [(1, 1), (2, 4)])
+def test_warp_bounded_kernels_match_jax_pallas(radius, chan):
+    """Plain B5/B6/B7 against the Pallas kernels (interpret mode) at a shape
+    they accept; B7 against the TPU kernel's accumulator with the caller's
+    z/y fold applied, as ``resample.py:485-487`` does."""
+    shape = (8, 8, 128)
+    rng = np.random.default_rng(12)
+    vol, disp, g = _bounded_case(rng, (1, chan) + shape, radius)
+    vj = vol[0, 0] if chan == 1 else vol[0]
+    gj = g[0, 0] if chan == 1 else g[0]
+
+    def as_port(a):
+        return a[None, None] if chan == 1 else a[None]
+
+    out = twb.warp_bounded_fwd(_t(vol), _t(disp), radius)
+    _close(out, as_port(np.asarray(warp_bounded_pallas(vj, disp[0], radius, interpret=True))),
+           1e-5)
+    dg = twb.warp_bounded_dgrad(_t(vol), _t(disp), _t(g), radius)
+    _close(dg[0], warp_bounded_dgrad_pallas(vj, disp[0], gj, radius, interpret=True), 1e-5)
+    tb = twb.warp_bounded_tblend(_t(disp), _t(g), radius)
+    acc = warp_bounded_tblend_pallas(disp[0], gj, radius, interpret=True)
+    _close(tb, as_port(np.asarray(jres._fold_edge(acc, radius, axes=(-3, -2)))), 1e-5)
+    # integer displacement -> zero derivative along its axis (below R too)
+    ints = (disp[0, 0] == np.round(disp[0, 0])) & (np.abs(disp[0, 0]) < radius)
+    assert ints.any() and np.all(dg[0, 0].numpy()[ints] == 0.0)
+
+
+def test_warp_bounded_cuda_wrappers_reject_cpu_tensors():
+    vol = torch.zeros((1, 1, 8, 8, 8))
+    disp = torch.zeros((1, 3, 8, 8, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        twb.warp_bounded_fwd_cuda(vol, disp, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        twb.warp_bounded_dgrad_cuda(vol, disp, vol, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        twb.warp_bounded_tblend_cuda(disp, vol, 1)
 
 
 # ---- grid_sample ------------------------------------------------------------------
