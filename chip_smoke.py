@@ -9,12 +9,20 @@ Phases, each of which raises on failure (exit code != 0):
 1. the card's name and power limit; build the CUDA kernels from
    ``ir_sgmcmc_tpu_torch/csrc`` (nvcc, sm_90a) and report the build time;
 2. each kernel B1-B7 against its plain PyTorch version on the card, at the
-   main paths' shapes (B5-B7 also at a general 4-channel, radius-2 shape),
-   with the stated tolerance, and both times;
+   main paths' shapes (B1/B2 also at two ragged shapes, one with ``u``
+   saturated in a z-slab; B5-B7 also at a general 4-channel, radius-2
+   shape), with the stated tolerance; the kernel's and the plain version's
+   times, the kernel's bound (``Kernel.bound_ms``: bytes over the H100
+   SXM's HBM bandwidth or flops over its f32 rate, whichever is larger)
+   and, for B3-B7, the time of the one PyTorch call that computes the same
+   function (``F.grid_sample`` or ``aten.grid_sampler_3d_backward``),
+   checked once against the kernel away from ties;
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
    counters must move by exactly B1 7, B2 7, B3 1, B4 1 per transition;
+   then 5 more transitions under ``torch.profiler``, printed as device
+   kernel time by kind;
 4. the same transition at 64³ with fixed noise on the card and on the CPU
    (plain versions) must agree;
 5. the VI path: ``bench.py --phase vi``'s problem at 128³ on the "pre"
@@ -129,36 +137,112 @@ def _init(bundle, opt_gmm, opt_reg, device, seed=0):
                        opt_gmm, opt_reg, device=device)
 
 
+# The library calls are checked against the kernels at this tolerance: they
+# sample at normalised coordinates, whose f32 rounding moves a point by up
+# to ~1e-5 voxel at 128, times value differences of a few units.
+LIB_ATOL, LIB_RTOL = 1e-3, 1e-3
+
+
+def _row(kernel, shape, err, atol, rtol, ms, plain_ms, library_ms=None) -> dict:
+    return {"kernel": kernel, "shape": shape, "err": err, "atol": atol, "rtol": rtol,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+
+
+def _grid(disp):
+    """``grid_sample``'s ``(B, D, H, W, 3)`` normalised sample points at
+    identity + ``disp`` (voxels, ``(B, 3, D, H, W)``, channel 0 = x)."""
+    from ir_sgmcmc_tpu_torch.ops.grids import identity_grid, voxel_to_normalised
+
+    pts = identity_grid(tuple(disp.shape[-3:]), device=disp.device) + voxel_to_normalised(disp)
+    return pts.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def _grid_grad_voxels(gg):
+    """A grid gradient per normalised unit, ``(B, D, H, W, 3)``, as one per
+    voxel, ``(B, 3, D, H, W)``: × 2/(n-1) along each axis."""
+    D, H, W = gg.shape[1:4]
+    scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1), 2.0 / (D - 1)], device=gg.device)
+    return (gg * scale).permute(0, 4, 1, 2, 3).contiguous()
+
+
+def _off_ties(disp, eps: float = 1e-3):
+    """Points whose displacement is more than ``eps`` from an integer on
+    every axis, where a grid gradient is the same from either side."""
+    far = ((disp - torch.round(disp)).abs() > eps).all(dim=1, keepdim=True)
+    return far.expand_as(disp)
+
+
+def _library_ms(name: str, call, ref, mask=None) -> float:
+    """Check ``call()`` once against the kernel's ``ref`` (on ``mask``),
+    then time the call alone."""
+    out = call()
+    if mask is not None:
+        out, ref = out[mask], ref[mask]
+    _err(out, ref, LIB_ATOL, LIB_RTOL, f"library call of {name}")
+    return _time_ms(call)
+
+
+def _grid_sample(vol, grid):
+    return torch.nn.functional.grid_sample(vol, grid, mode="bilinear", padding_mode="border",
+                                           align_corners=True)
+
+
+def _grid_sample_grads(g, vol, grid, mask):
+    """``aten.grid_sampler_3d_backward`` (bilinear, border, align_corners)
+    with ``output_mask``: [input, grid]."""
+    return torch.ops.aten.grid_sampler_3d_backward(g, vol, grid, 0, 1, True, mask)
+
+
+def _split_operands(gen, shape, slab=None):
+    """d, u, g for B1/B2; no exact ties at u = 0 or |u| = 1, where autograd
+    of the plain step and the kernel take different (equally valid)
+    subgradients.  ``slab``: z-planes where u is saturated beyond ±1."""
+    dev = gen.device
+    d = torch.randn(shape, generator=gen, device=dev) * 2.0
+    u = torch.randn(shape, generator=gen, device=dev) * 0.9
+    u = torch.where(u.abs() == 1, u * 1.001, u)
+    u = torch.where(u == 0, torch.full_like(u, 1e-3), u)
+    if slab is not None:
+        z = slice(*slab)
+        u[:, :, z] = torch.where(u[:, :, z] < 0, -1.5, 1.5) + u[:, :, z]
+    return d, u, torch.randn(shape, generator=gen, device=dev)
+
+
+SPLIT_SHAPES = (((CHAINS, 3) + DIMS, None), ((1, 3, 2, 9, 33), None),
+                ((2, 3, 40, 24, 130), (14, 19)))
+
+
 def phase_kernels(dev) -> list:
-    """B1-B4 against their plain versions at the main path's shapes."""
+    """B1-B4 against their plain versions at the main path's shapes (B1/B2
+    also at ragged ones); B3/B4 against their library calls."""
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
     from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
     from ir_sgmcmc_tpu_torch.ops.resample import _block_means
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    shape = (CHAINS, 3) + DIMS
 
     def randn(shp, scale=1.0):
         return torch.randn(shp, generator=gen, device=dev) * scale
 
-    rows = []
-    d, u, g = randn(shape, 2.0), randn(shape, 0.9), randn(shape)
-    # no exact ties at u = 0 or |u| = 1, where autograd of the plain step
-    # and the kernel take different (equally valid) subgradients
-    u = torch.where(u.abs() == 1, u * 1.001, u)
-    u = torch.where(u == 0, torch.full_like(u, 1e-3), u)
-    err = _err(sw.split_warp_fwd_cuda(d, u), sw.split_compose_plain(d, u),
-               2e-5, 0.0, "B1")
-    rows.append((sw.B1, err, 2e-5, 0.0,
-                 _time_ms(lambda: sw.split_warp_fwd_cuda(d, u)),
-                 _time_ms(lambda: sw.split_compose_plain(d, u))))
-    gd_k, gu_k = sw.split_warp_bwd_cuda(d, u, g)
-    gd_p, gu_p = sw.split_compose_vjp_plain(d, u, g)
-    err = max(_err(gd_k, gd_p, 3e-5, 1e-4, "B2 gd"),
-              _err(gu_k + g, gu_p, 3e-5, 1e-4, "B2 gu", u=u, d=d))
-    rows.append((sw.B2, err, 3e-5, 1e-4,
-                 _time_ms(lambda: sw.split_warp_bwd_cuda(d, u, g)),
-                 _time_ms(lambda: sw.split_compose_vjp_plain(d, u, g))))
+    errs = {sw.B1: 0.0, sw.B2: 0.0}
+    for shape, slab in SPLIT_SHAPES:
+        d, u, g = _split_operands(gen, shape, slab)
+        errs[sw.B1] = max(errs[sw.B1], _err(sw.split_warp_fwd_cuda(d, u),
+                                            sw.split_compose_plain(d, u),
+                                            2e-5, 0.0, f"B1 {shape}"))
+        gd_k, gu_k = sw.split_warp_bwd_cuda(d, u, g)
+        gd_p, gu_p = sw.split_compose_vjp_plain(d, u, g)
+        errs[sw.B2] = max(errs[sw.B2], _err(gd_k, gd_p, 3e-5, 1e-4, f"B2 gd {shape}"),
+                          _err(gu_k + g, gu_p, 3e-5, 1e-4, f"B2 gu {shape}", u=u, d=d))
+        if slab is not None and bool(gu_k[:, :, slice(*slab)].any()):
+            raise AssertionError(f"B2 {shape}: offset gradient where |u| > 1")
+        if shape[2:] == DIMS:  # timed at the main path's shape
+            times = {sw.B1: (_time_ms(lambda: sw.split_warp_fwd_cuda(d, u)),
+                             _time_ms(lambda: sw.split_compose_plain(d, u))),
+                     sw.B2: (_time_ms(lambda: sw.split_warp_bwd_cuda(d, u, g)),
+                             _time_ms(lambda: sw.split_compose_vjp_plain(d, u, g)))}
+    rows = [_row(sw.B1, SPLIT_SHAPES[0][0], errs[sw.B1], 2e-5, 0.0, *times[sw.B1]),
+            _row(sw.B2, SPLIT_SHAPES[0][0], errs[sw.B2], 3e-5, 1e-4, *times[sw.B2])]
 
     # block warp at the path's bound 9 / radius 2 / block 8: a smooth
     # displacement (trilinear upsampling of a coarse random field) with
@@ -175,24 +259,34 @@ def phase_kernels(dev) -> list:
     flat[::7] = torch.round(flat[::7])
     r = r.contiguous()
     gv = randn((CHAINS, 1) + DIMS)
-    err = _err(bw.block_warp_cuda(vol, r, m), bw.block_warp_plain(vol, r, m),
-               1e-5, 0.0, "B3")
-    rows.append((bw.B3, err, 1e-5, 0.0,
-                 _time_ms(lambda: bw.block_warp_cuda(vol, r, m)),
-                 _time_ms(lambda: bw.block_warp_plain(vol, r, m))))
-    err = _err(bw.block_warp_dgrad_cuda(vol, r, m, gv),
-               bw.block_warp_dgrad_plain(vol, r, m, gv), 5e-4, 1e-4, "B4")
-    rows.append((bw.B4, err, 5e-4, 1e-4,
-                 _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv)),
-                 _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv))))
+    out = bw.block_warp_cuda(vol, r, m)
+    err = _err(out, bw.block_warp_plain(vol, r, m), 1e-5, 0.0, "B3")
+    at = bw._expand_blocks(m, block).float() + r
+    grid = _grid(at)
+    lib = _library_ms("B3", lambda: _grid_sample(vol, grid), out)
+    rows.append(_row(bw.B3, vol.shape, err, 1e-5, 0.0,
+                     _time_ms(lambda: bw.block_warp_cuda(vol, r, m)),
+                     _time_ms(lambda: bw.block_warp_plain(vol, r, m)), lib))
+    out = bw.block_warp_dgrad_cuda(vol, r, m, gv)
+    err = _err(out, bw.block_warp_dgrad_plain(vol, r, m, gv), 5e-4, 1e-4, "B4")
+    lib = _library_ms("B4", lambda: _grid_grad_voxels(
+        _grid_sample_grads(gv, vol, grid, [False, True])[1]), out, _off_ties(at))
+    rows.append(_row(bw.B4, vol.shape, err, 5e-4, 1e-4,
+                     _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv)),
+                     _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv)), lib))
     _print_rows(rows)
     return rows
 
 
 def _print_rows(rows) -> None:
-    for k, err, atol, rtol, ms, plain_ms in rows:
-        print(f"kernel {k.symbol}: max_abs_err {err:.3e} (atol {atol}, rtol "
-              f"{rtol}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    for r in rows:
+        k = r["kernel"]
+        bound, by = k.bound_ms(r["shape"])
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"kernel {k.symbol} {tuple(r['shape'])}: max_abs_err {r['err']:.3e} (atol "
+              f"{r['atol']}, rtol {r['rtol']}) kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}; "
+              f"{100 * bound / r['ms']:.1f}% of it), library {lib}", flush=True)
 
 
 def _bounded_operands(gen, shape, R):
@@ -239,15 +333,28 @@ def phase_blend_kernels(dev) -> list:
                        disp=disp if k is wb.B6 else torch.zeros(0))
             errs[k] = max(errs[k], err)
             if R == 1:
-                timed[k] = (_time_ms(kern), _time_ms(plain))
-    rows = [(k, errs[k], atol, rtol) + timed[k] for k in (wb.B5, wb.B6, wb.B7)]
+                timed[k] = (shape, _time_ms(kern), _time_ms(plain))
+        if R == 1:
+            # the library calls at the VI path's shape: grid at id + clip(d, ±R)
+            at = disp.clamp(-R, R)
+            grid = _grid(at)
+            library = {
+                wb.B5: (lambda: _grid_sample(vol, grid), None),
+                wb.B6: (lambda: _grid_grad_voxels(
+                    _grid_sample_grads(g, vol, grid, [False, True])[1]), _off_ties(at)),
+                wb.B7: (lambda: _grid_sample_grads(g, vol, grid, [True, False])[0], None),
+            }
+            for k, (call, mask) in library.items():
+                timed[k] += (_library_ms(k.symbol, call, calls[k][0](), mask),)
+    rows = [_row(k, timed[k][0], errs[k], atol, rtol, *timed[k][1:])
+            for k in (wb.B5, wb.B6, wb.B7)]
     _print_rows(rows)
     return rows
 
 
 def phase_slice(dev) -> dict:
-    """1 warm-up + TIMED transitions at 128³ x 2 chains on the card; returns
-    the launch counts of the timed run."""
+    """1 warm-up + TIMED transitions at 128³ x 2 chains on the card, then a
+    profile of 5 more; returns the launch counts of the timed run."""
     from ir_sgmcmc_tpu_torch.engine import make_mcmc_chunk
     from ir_sgmcmc_tpu_torch.kernels import all_kernels
 
@@ -292,6 +399,8 @@ def phase_slice(dev) -> dict:
     print(f"slice: {rate:.3f} samples/sec ({CHAINS} chains x {TIMED} "
           f"transitions in {seconds:.3f} s), peak memory {peak} bytes "
           f"({peak / 2**30:.3f} GiB)", flush=True)
+    _profile(make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed, moving,
+                             chunk=5, burn_in=0, thin=1), state, 5, "transitions")
     return launches
 
 
@@ -317,7 +426,7 @@ def phase_reference(dev) -> None:
     for device in (torch.device("cpu"), dev):
         bundle, fixed, moving, opt_gmm, opt_reg = _problem(SMALL, device)
         state = _init(bundle, opt_gmm, opt_reg, torch.device("cpu"))
-        gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params(), 1.0)
+        gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params("cpu"), 1.0)
         gmm["logits"] = torch.tensor([0.3, -0.2, 0.1, -0.4])
         state = _to(state._replace(gmm={k: t.expand(CHAINS, -1).clone()
                                         for k, t in gmm.items()}), device)
@@ -412,7 +521,7 @@ def phase_vi(dev) -> dict:
     print(f"vi: launches {json.dumps(launches)} over {TIMED} steps", flush=True)
     print(f"vi: {TIMED / seconds:.3f} iters/sec ({TIMED} steps in {seconds:.3f} s), "
           f"peak memory {peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
-    _profile(make_vi_chunk(step, 5), state, 5)
+    _profile(make_vi_chunk(step, 5), state, 5, "VI steps")
     return launches
 
 
@@ -423,7 +532,7 @@ _KINDS = (("warp_bounded_tblend", "B7"), ("warp_bounded_dgrad", "B6"),
           ("elementwise", "elementwise"))
 
 
-def _profile(run, state, steps: int) -> None:
+def _profile(run, state, steps: int, what: str) -> None:
     """Device kernel time per step by kind over one run of ``steps`` steps
     (device events only: the host-side rows would count kernels twice)."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -440,7 +549,7 @@ def _profile(run, state, steps: int) -> None:
         t, n = kinds.get(kind, (0.0, 0))
         kinds[kind] = (t + e.device_time_total, n + e.count)
     total = sum(t for t, _ in kinds.values())
-    print(f"profile: {steps} VI steps, device kernel time {total / 1e3 / steps:.3f} ms "
+    print(f"profile: {steps} {what}, device kernel time {total / 1e3 / steps:.3f} ms "
           f"per step over {sum(n for _, n in kinds.values()) / steps:.0f} launches",
           flush=True)
     for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
@@ -465,7 +574,7 @@ def phase_vi_reference(dev) -> None:
     results = {}
     for device in (torch.device("cpu"), dev):
         bundle, fixed, moving, (oq, og, orr), state = _vi_problem(SMALL, device)
-        gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params(), 1.0)
+        gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params("cpu"), 1.0)
         gmm["logits"] = torch.tensor([0.3, -0.2, 0.1, -0.4])
         state = state._replace(gmm={k: t.to(device) for k, t in gmm.items()})
         noise = tuple(torch.as_tensor(a, device=device) for a in (eps_np, x_np, unif_np))
@@ -539,11 +648,15 @@ def main() -> int:
     paths["vi"] = phase_vi(dev)
     phase_vi_reference(dev)
 
-    kernels = [{"name": k.symbol, "route": "cuda", "source": k.source,
-                "replaces": k.replaces,
-                "launches": sum(p[k.symbol] for p in paths.values()),
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-               for k, err, _, _, ms, plain_ms in rows]
+    kernels = []
+    for r in rows:
+        k = r["kernel"]
+        bound, by = k.bound_ms(r["shape"])
+        kernels.append({"name": k.symbol, "route": "cuda", "source": k.source,
+                        "replaces": k.replaces,
+                        "launches": sum(p[k.symbol] for p in paths.values()),
+                        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": bound, "bound_by": by, "library_ms": r["library_ms"]})
     unlaunched = [r["name"] for r in kernels if r["launches"] == 0]
     if unlaunched:
         raise AssertionError(f"kernels never launched on a main path: {unlaunched}")

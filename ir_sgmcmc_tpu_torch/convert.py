@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .engine.mcmc import MCMCState, WelfordState
 from .engine.vi import VIState
 from .optim.adam_decay import AdamDecayState
@@ -47,7 +48,9 @@ def _key_from(a) -> torch.Tensor:
 
 
 def mcmc_state_from_numpy(tree, device=None) -> MCMCState:
-    """Port state from the JAX package's state as numpy arrays."""
+    """Port state from the JAX package's state as numpy arrays, on
+    ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     f = _fields(tree)
     w = _fields(f["welford"])
     return MCMCState(
@@ -64,7 +67,9 @@ def mcmc_state_from_numpy(tree, device=None) -> MCMCState:
 
 
 def vi_state_from_numpy(tree, device=None) -> VIState:
-    """Port VI state from the JAX package's ``VIState`` as numpy arrays."""
+    """Port VI state from the JAX package's ``VIState`` as numpy arrays, on
+    ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     f = _fields(tree)
     return VIState(
         q_v=_f32(f["q_v"], device),

@@ -9,6 +9,7 @@ from typing import Any, Optional
 
 import torch
 
+from .._device import resolve_device
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLoss
 from ..ops.sobolev import sobolev_kernel_1d, sobolev_smooth
@@ -52,7 +53,9 @@ class ModelBundle:
 
     def init_q_v(self, sigma_v_init: float, u_v_init: float, device=None) -> dict:
         """Variational parameters: ``mu = 0``, ``log_var = 2 log sigma_v_init``,
-        ``u = u_v_init``, each ``(3, D, H, W)``."""
+        ``u = u_v_init``, each ``(3, D, H, W)``, on ``device`` (default: the
+        CUDA card)."""
+        device = resolve_device(device)
         shape = (3,) + self.field_dims
         return {
             "mu": torch.zeros(shape, dtype=torch.float32, device=device),

@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve_device
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
@@ -37,6 +38,8 @@ class WelfordState(NamedTuple):
 
 
 def welford_init(no_chains: int, shape, device=None) -> WelfordState:
+    """Zero accumulators on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
     z = torch.zeros((no_chains,) + tuple(shape), dtype=torch.float32, device=device)
     return WelfordState(torch.zeros((no_chains,), dtype=torch.float32, device=device),
                         z, z.clone())
@@ -98,9 +101,10 @@ def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
     ``mode``: ``'VI'`` (per-chain q(v) draws, sigma from the VI log-var),
     ``'identity'`` (zeros, sigma 1) or ``'noise'`` (standard normal, sigma
     1).  ``generator`` draws the initial state and the chains' keys; it
-    must live on ``device``.
+    must live on ``device`` (default: the CUDA card).
     """
-    shape = (no_chains, 3) + tuple(bundle.field_dims)
+    device = resolve_device(device)
+    shape =(no_chains, 3) + tuple(bundle.field_dims)
     if mode == "VI":
         if q_v is None:
             raise ValueError("MCMC_init='VI' requires fitted q(v) params")

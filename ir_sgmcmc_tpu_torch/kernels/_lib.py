@@ -89,19 +89,56 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM bandwidth, and the f32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
 class Kernel:
-    """One CUDA entry point of the library, with its launch count.
+    """One CUDA entry point of the library, with its launch count and the
+    least work its function needs.
 
     ``launches`` goes up by one each time :meth:`launch` starts the kernel
     (one call of the C entry, which may issue several grid launches); no
     other code touches it.
+
+    ``bytes_per_voxel(C)`` and ``flops_per_voxel(C)`` give, per voxel of
+    the main operand ``(B, C, D, H, W)``, the bytes the function must move
+    (each input read once, each output written once) and the f32
+    operations it must do (counted from its formula: the non-zero taps
+    only, clamps and selects not counted).
     """
 
-    def __init__(self, symbol: str, source: str, replaces: str):
+    def __init__(self, symbol: str, source: str, replaces: str, bytes_per_voxel,
+                 flops_per_voxel):
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
+        self.bytes_per_voxel = bytes_per_voxel
+        self.flops_per_voxel = flops_per_voxel
         self.launches = 0
+
+    def _voxels(self, shape) -> tuple[int, int]:
+        B, C, D, H, W = shape
+        return B * D * H * W, C
+
+    def bytes(self, shape) -> int:
+        """Bytes the function must move at main-operand shape ``shape``."""
+        n, C = self._voxels(shape)
+        return round(n * self.bytes_per_voxel(C))
+
+    def flops(self, shape) -> int:
+        n, C = self._voxels(shape)
+        return round(n * self.flops_per_voxel(C))
+
+    def bound_ms(self, shape) -> tuple[float, str]:
+        """The least time an H100 SXM could take, and what bounds it:
+        ``("bytes" | "operations")``, the larger of bytes over HBM bandwidth
+        and operations over the f32 rate."""
+        by_bytes = 1e3 * self.bytes(shape) / HBM_BYTES_PER_S
+        by_ops = 1e3 * self.flops(shape) / F32_FLOP_PER_S
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     def launch(self, device: torch.device, *args) -> None:
         fn = getattr(load_library(), self.symbol)

@@ -22,10 +22,20 @@ import torch
 
 from ._lib import Kernel, check_operand, ptr
 
+# Work per voxel at C channels of vol, with the path's block of 8 (m adds
+# 3 int32 per 8³ voxels): B3 reads vol and r and writes C channels, from 8
+# taps (18 flops of weights and coordinates per voxel, 15 per channel); B4
+# reads vol, r and g and writes 3 channels (per tap a C-channel dot
+# product, then ~64 flops of weight combinations).
+_M_BYTES = 12 / 8 ** 3
 B3 = Kernel("block_warp_fwd", "ir_sgmcmc_tpu_torch/csrc/block_warp.cu",
-            "ir_sgmcmc_tpu/ops/pallas_block_warp.py:420")
+            "ir_sgmcmc_tpu/ops/pallas_block_warp.py:420",
+            bytes_per_voxel=lambda C: 4 * (2 * C + 3) + _M_BYTES,
+            flops_per_voxel=lambda C: 24 + 15 * C)
 B4 = Kernel("block_warp_dgrad", "ir_sgmcmc_tpu_torch/csrc/block_warp.cu",
-            "ir_sgmcmc_tpu/ops/pallas_block_warp.py:445")
+            "ir_sgmcmc_tpu/ops/pallas_block_warp.py:445",
+            bytes_per_voxel=lambda C: 4 * (2 * C + 6) + _M_BYTES,
+            flops_per_voxel=lambda C: 64 + 16 * C)
 
 
 # ---- plain versions ------------------------------------------------------------

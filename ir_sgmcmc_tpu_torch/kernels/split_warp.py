@@ -16,10 +16,16 @@ import torch
 from ..ops.stencil import _split_compose_impl
 from ._lib import Kernel, check_operand, ptr
 
+# Work per voxel at C channels of d: B1 reads d and u and writes d'; each
+# channel is three lerps (6 flops each) plus the +u.  B2 reads d, u, g and
+# writes gd, gu; each channel is three transposes (6), the A and B stages
+# (12), three offset differences and three accumulations (9).
 B1 = Kernel("split_warp_fwd", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
-            "ir_sgmcmc_tpu/ops/pallas_split_warp.py:373")
+            "ir_sgmcmc_tpu/ops/pallas_split_warp.py:373",
+            bytes_per_voxel=lambda C: 4 * (2 * C + 3), flops_per_voxel=lambda C: 19 * C)
 B2 = Kernel("split_warp_bwd", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
-            "ir_sgmcmc_tpu/ops/pallas_split_warp.py:436")
+            "ir_sgmcmc_tpu/ops/pallas_split_warp.py:436",
+            bytes_per_voxel=lambda C: 4 * (3 * C + 6), flops_per_voxel=lambda C: 39 * C)
 
 
 # ---- plain versions ------------------------------------------------------------

@@ -28,12 +28,20 @@ import torch.nn.functional as F
 
 from ._lib import Kernel, check_operand, ptr
 
+# Work per voxel at C channels of vol (or g): B5 reads vol and disp and
+# writes C channels; B6 reads vol, disp and g and writes 3; B7 reads disp
+# and g and writes C.  Of the (2R+1)³ blend taps only the 8 of the
+# trilinear stencil have a non-zero weight, so the flops are B3's and B4's
+# (B7: 8 weighted adds per channel).
 B5 = Kernel("warp_bounded_fwd", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
-            "ir_sgmcmc_tpu/ops/pallas_warp.py:458")
+            "ir_sgmcmc_tpu/ops/pallas_warp.py:458",
+            bytes_per_voxel=lambda C: 4 * (2 * C + 3), flops_per_voxel=lambda C: 24 + 15 * C)
 B6 = Kernel("warp_bounded_dgrad", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
-            "ir_sgmcmc_tpu/ops/pallas_warp.py:211")
+            "ir_sgmcmc_tpu/ops/pallas_warp.py:211",
+            bytes_per_voxel=lambda C: 4 * (2 * C + 6), flops_per_voxel=lambda C: 64 + 16 * C)
 B7 = Kernel("warp_bounded_tblend", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
-            "ir_sgmcmc_tpu/ops/pallas_warp.py:372")
+            "ir_sgmcmc_tpu/ops/pallas_warp.py:372",
+            bytes_per_voxel=lambda C: 4 * (2 * C + 3), flops_per_voxel=lambda C: 18 + 16 * C)
 
 
 # ---- plain versions ------------------------------------------------------------

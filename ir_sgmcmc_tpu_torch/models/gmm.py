@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from .._device import resolve_device
 from ..ops.stencil import box_filter3d
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -32,7 +33,9 @@ class GMM:
         self.window = float((2 * self.radius + 1) ** 3)
 
     def init_params(self, device=None) -> dict:
+        """Equal logits and unit scales on ``device`` (default: the CUDA card)."""
         K = self.no_components
+        device = resolve_device(device)
         return {"logits": torch.zeros((K,), dtype=torch.float32, device=device),
                 "log_std": torch.zeros((K,), dtype=torch.float32, device=device)}
 

@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from .._device import resolve_device
 from ..ops.stencil import reg_energy
 from .distributions import expgamma_expectation, gamma_log_pdf
 
@@ -38,6 +39,8 @@ class RegLoss:
         return torch.sum(v * v, dim=tuple(range(1, v.ndim)))
 
     def init_params(self, device=None) -> dict:
+        """Learnable parameters on ``device`` (default: the CUDA card)."""
+        resolve_device(device)
         return {}
 
     def __call__(self, params: dict, v: torch.Tensor):
@@ -58,7 +61,7 @@ class RegLossL2(RegLoss):
 
     def init_params(self, device=None):
         return {"log_w_reg": torch.tensor(math.log(self.w_reg), dtype=torch.float32,
-                                          device=device)}
+                                          device=resolve_device(device))}
 
     def _loss(self, params, y):
         lw = params["log_w_reg"]
@@ -103,6 +106,7 @@ class RegLossLogNormal(RegLossEnergyBased):
 
     def init_params(self, device=None):
         loc0 = expgamma_expectation(0.5 * self.dof, 0.5 * self.w_reg)
+        device = resolve_device(device)
         return {"loc": loc0.to(device),
                 "log_scale": (math.log(4.0) + torch.log(loc0)).to(device)}
 

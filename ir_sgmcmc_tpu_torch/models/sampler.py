@@ -8,6 +8,8 @@ import math
 
 import torch
 
+from .._device import resolve_device
+
 
 def langevin_noise(generator: torch.Generator, sigma: torch.Tensor, tau: float,
                    eps: torch.Tensor | None = None) -> torch.Tensor:
@@ -20,8 +22,12 @@ def langevin_noise(generator: torch.Generator, sigma: torch.Tensor, tau: float,
 
 def uniform_voxel_noise(generator: torch.Generator, shape, alpha: float,
                         device=None) -> torch.Tensor:
-    """``U(-alpha, alpha)`` noise in voxel units."""
-    u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+    """``U(-alpha, alpha)`` noise in voxel units, on ``device`` (default: the
+    generator's, else the CUDA card)."""
+    if device is None and generator is not None:
+        device = generator.device
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=resolve_device(device))
     return u * (2.0 * alpha) - alpha
 
 

@@ -9,10 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from .._device import resolve_device
+
 
 def identity_grid(shape, device=None) -> torch.Tensor:
-    """Normalised identity grid ``(3, D, H, W)``; channel 0 varies along W."""
+    """Normalised identity grid ``(3, D, H, W)``; channel 0 varies along W.
+    On ``device`` (default: the CUDA card)."""
     D, H, W = shape
+    device = resolve_device(device)
 
     def axis_coords(n: int, axis: int) -> torch.Tensor:
         if n == 1:

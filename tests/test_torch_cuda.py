@@ -48,16 +48,27 @@ def _block_inputs(dev, shape=(2, 2, 16, 24, 40), bound=9, radius=2):
     return vol, r, m, torch.randn(shape, generator=gen, device=dev)
 
 
-def test_split_kernels_match_plain(cuda):
+@pytest.mark.parametrize("shape,slab", [
+    ((2, 3, 16, 24, 40), None), ((1, 3, 2, 9, 33), None), ((3, 3, 17, 10, 70), None),
+    ((2, 3, 40, 24, 130), None), ((2, 3, 40, 24, 130), (14, 19))])
+def test_split_kernels_match_plain(cuda, shape, slab):
+    """B1/B2 on shapes that straddle the kernels' 32 x 8 (x, y) tiles and
+    16-plane z-chunks; ``slab`` saturates ``u`` beyond ±1 (by 0.5 or more)
+    everywhere in those z-planes, where the offset gradient must be 0."""
     from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
 
-    d, u, g = _split_inputs(cuda)
+    d, u, g = _split_inputs(cuda, shape)
+    if slab is not None:
+        z = slice(*slab)
+        u[:, :, z] = torch.where(u[:, :, z] < 0, -1.5, 1.5) + u[:, :, z]
     torch.testing.assert_close(sw.split_warp_fwd_cuda(d, u), sw.split_compose_plain(d, u),
                                atol=2e-5, rtol=0)
     gd, gu = sw.split_warp_bwd_cuda(d, u, g)
     gd_p, gu_p = sw.split_compose_vjp_plain(d, u, g)
     torch.testing.assert_close(gd, gd_p, atol=3e-5, rtol=1e-4)
     torch.testing.assert_close(gu + g, gu_p, atol=3e-5, rtol=1e-4)
+    if slab is not None:
+        assert torch.equal(gu[:, :, z], torch.zeros_like(gu[:, :, z]))
 
 
 def test_block_kernels_match_plain(cuda):

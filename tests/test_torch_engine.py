@@ -149,7 +149,7 @@ def test_transition_matches_jax(dims, tau, scheme):
     moment_rtol = 3e-4 if scheme == "pre" else 1e-4
     bundle, fixed, moving, og, orr, state_j = _jax_state(dims, scheme=scheme)
     tree = _np_tree(state_j)
-    state_t = mcmc_state_from_numpy(tree)
+    state_t = mcmc_state_from_numpy(tree, device="cpu")
     eps, noise_j, unif = _jax_draws(tree.key, dims, tree.sigma, tau)
 
     run = j_make_chunk(bundle, og, orr, tau, fixed, moving, chunk=1, burn_in=0, thin=1)
@@ -246,7 +246,7 @@ def _assert_same(a, b, path="state"):
 def test_convert_round_trip():
     *_, state_j = _jax_state((16, 16, 16))
     tree = _np_tree(state_j)
-    back = mcmc_state_to_numpy(mcmc_state_from_numpy(tree))
+    back = mcmc_state_to_numpy(mcmc_state_from_numpy(tree, device="cpu"))
     _assert_same(_plain(tree), back)
     # the numpy tree rebuilds a JAX state of the same structure
     rebuilt = JState(**{**back, "opt_gmm": JAdam(**back["opt_gmm"]),
@@ -261,7 +261,7 @@ def test_welford_matches_jax():
     ws = [1.0, 0.0, 1.0, 1.0, 1.0]
     wj = jax.vmap(lambda _: JWelford(jnp.zeros(()), jnp.zeros((3, 4, 4, 4)),
                                      jnp.zeros((3, 4, 4, 4))))(jnp.arange(2))
-    wt = tmcmc.welford_init(2, (3, 4, 4, 4))
+    wt = tmcmc.welford_init(2, (3, 4, 4, 4), device="cpu")
     for x, w in zip(xs, ws):
         wj = jax.vmap(j_wupd, in_axes=(0, 0, None))(wj, x, w)
         wt = tmcmc.welford_update(wt, torch.as_tensor(x), w)
@@ -277,7 +277,8 @@ def test_mcmc_chunk_runs_and_collects():
     dims = (16, 16, 16)
     b, f, m, og, orr = _port_problem(dims)
     state = teng.init_chains(b, torch.Generator().manual_seed(0), 2, "noise", None,
-                             b.gmm.init_params(), b.reg_loss.init_params(), og, orr)
+                             b.gmm.init_params("cpu"), b.reg_loss.init_params("cpu"), og, orr,
+                             device="cpu")
     run = teng.make_mcmc_chunk(b, og, orr, 1e-5, f, m, chunk=4, burn_in=1, thin=2)
     state, met = run(state)
     assert state.step == 4
@@ -287,7 +288,8 @@ def test_mcmc_chunk_runs_and_collects():
     assert mean.shape == (3,) + dims and torch.isfinite(std).all()
     # the same state and step draw the same noise: the run is reproducible
     s0 = teng.init_chains(b, torch.Generator().manual_seed(0), 2, "noise", None,
-                          b.gmm.init_params(), b.reg_loss.init_params(), og, orr)
+                          b.gmm.init_params("cpu"), b.reg_loss.init_params("cpu"), og, orr,
+                          device="cpu")
     s1, _ = run(s0)
     assert torch.equal(s1.v, state.v)
 
@@ -301,7 +303,8 @@ def test_init_chains_modes(mode):
     q_v = {"mu": torch.full((3,) + dims, 0.5), "log_var": torch.full((3,) + dims, -2.0),
            "u": torch.full((3,) + dims, 0.1)}
     s = teng.init_chains(b, torch.Generator().manual_seed(3), 3, mode, q_v,
-                         b.gmm.init_params(), b.reg_loss.init_params(), og, orr)
+                         b.gmm.init_params("cpu"), b.reg_loss.init_params("cpu"), og, orr,
+                         device="cpu")
     assert s.v.shape == s.sigma.shape == (3, 3) + dims and s.key.shape == (3, 2)
     assert s.gmm["log_std"].shape == (3, 4) and s.opt_gmm.step.shape == (3,)
     if mode == "identity":
@@ -311,8 +314,8 @@ def test_init_chains_modes(mode):
         assert not torch.equal(s.v[0], s.v[1])  # independent draws per chain
         assert abs(float(s.v.mean()) - 0.5) < 0.1
     with pytest.raises(ValueError):
-        teng.init_chains(b, torch.Generator(), 2, "VI", None, b.gmm.init_params(),
-                         b.reg_loss.init_params(), og, orr)
+        teng.init_chains(b, torch.Generator(), 2, "VI", None, b.gmm.init_params("cpu"),
+                         b.reg_loss.init_params("cpu"), og, orr, device="cpu")
 
 
 def test_port_never_imports_jax():
@@ -335,7 +338,8 @@ def test_port_never_imports_jax():
         "m = {k: torch.as_tensor(v) for k, v in m.items()}\n"
         "og, orr = adam_decay(0.2, 1e-3), adam_decay({'loc': .01, 'log_scale': .01}, 1e-3)\n"
         "s = engine.init_chains(b, torch.Generator().manual_seed(0), 2, 'noise', None,\n"
-        "    b.gmm.init_params(), b.reg_loss.init_params(), og, orr)\n"
+        "    b.gmm.init_params('cpu'), b.reg_loss.init_params('cpu'), og, orr,\n"
+        "    device='cpu')\n"
         "s, met = engine.make_mcmc_chunk(b, og, orr, 1e-5, f, m, 1, 0, 1)(s)\n"
         "assert torch.isfinite(met['data_term']).all()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib',\n"

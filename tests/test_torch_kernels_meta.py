@@ -1,0 +1,138 @@
+"""What the port counts without a card: each kernel's least work and bound
+at the main paths' shapes, and the device on which the entry points that
+create state put it.
+
+The byte counts are those of PERF.md's kernel table (each input read once,
+each output written once, f32); the bound is the larger of bytes over the
+H100 SXM's 3.35 TB/s and flops over its 67 TFLOP/s f32 rate.  With no
+``device`` argument, state goes to the CUDA card or the call raises: there
+is no CPU fallback.  The CPU tests pass ``device="cpu"``.
+"""
+
+import pytest
+import torch
+
+from ir_sgmcmc_tpu_torch.kernels import all_kernels
+
+N128 = (128, 128, 128)
+
+# symbol: (main operand shape on its path, MB the function must move)
+MAIN_PATH = {
+    "split_warp_fwd": ((2, 3) + N128, 151),
+    "split_warp_bwd": ((2, 3) + N128, 252),
+    "block_warp_fwd": ((2, 1) + N128, 84),
+    "block_warp_dgrad": ((2, 1) + N128, 134),
+    "warp_bounded_fwd": ((2, 1) + N128, 84),
+    "warp_bounded_dgrad": ((2, 1) + N128, 134),
+    "warp_bounded_tblend": ((2, 1) + N128, 84),
+}
+
+
+def test_kernel_table_covers_every_kernel():
+    assert [k.symbol for k in all_kernels()] == list(MAIN_PATH)
+
+
+@pytest.mark.parametrize("symbol", list(MAIN_PATH))
+def test_kernel_bytes_and_bound(symbol):
+    kernel = next(k for k in all_kernels() if k.symbol == symbol)
+    shape, mb = MAIN_PATH[symbol]
+    nbytes = kernel.bytes(shape)
+    assert round(nbytes / 1e6) == mb
+    ms, by = kernel.bound_ms(shape)
+    assert by == "bytes"  # every kernel here is far below the f32 rate's ratio
+    assert ms == pytest.approx(1e3 * nbytes / 3.35e12, rel=1e-12)
+    assert kernel.flops(shape) / 67e12 < nbytes / 3.35e12 / 5
+    # the counts scale with the voxels
+    B, C, D, H, W = shape
+    assert kernel.bytes((2 * B, C, D, H, W)) == pytest.approx(2 * nbytes, rel=1e-9)
+
+
+def _bundle():
+    from ir_sgmcmc_tpu_torch.engine import ModelBundle
+    from ir_sgmcmc_tpu_torch.models import (GMM, SVF3D, DirichletPrior,
+                                            LogScaleNormalPrior, RegLossLogNormal)
+
+    dims = (8, 8, 8)
+    return ModelBundle(dims=dims, gmm=GMM(4, 1),
+                       scale_prior=LogScaleNormalPrior(0.0, 2.3),
+                       proportion_prior=DirichletPrior(4, 0.5),
+                       reg_loss=RegLossLogNormal(w_reg=1.4, dims=dims, learnable=True),
+                       transformation=SVF3D(dims))
+
+
+def _init_chains(b, **kw):
+    from ir_sgmcmc_tpu_torch.engine import init_chains
+    from ir_sgmcmc_tpu_torch.optim import adam_decay
+
+    dev = kw.get("device", "cuda" if torch.cuda.is_available() else "cpu")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return init_chains(b, gen, 2, "noise", None, b.gmm.init_params(dev),
+                       b.reg_loss.init_params(dev), adam_decay(0.2, 1e-3),
+                       adam_decay({"loc": 0.01, "log_scale": 0.01}, 1e-3), **kw).v
+
+
+def _entry_points():
+    """name -> call(**kw) returning one tensor of the state it creates."""
+    from ir_sgmcmc_tpu_torch.engine.mcmc import welford_init
+    from ir_sgmcmc_tpu_torch.models import RegLossL2
+    from ir_sgmcmc_tpu_torch.ops.grids import identity_grid
+
+    return {
+        "init_chains": lambda **kw: _init_chains(_bundle(), **kw),
+        "welford_init": lambda **kw: welford_init(2, (3, 4, 4, 4), **kw).mean,
+        "init_q_v": lambda **kw: _bundle().init_q_v(0.5, 0.1, **kw)["mu"],
+        "gmm_init_params": lambda **kw: _bundle().gmm.init_params(**kw)["logits"],
+        "reg_lognormal_init_params":
+            lambda **kw: _bundle().reg_loss.init_params(**kw)["loc"],
+        "reg_l2_init_params":
+            lambda **kw: RegLossL2(1.4, dims=(4, 4, 4)).init_params(**kw)["log_w_reg"],
+        "identity_grid": lambda **kw: identity_grid((4, 5, 6), **kw),
+    }
+
+
+ENTRY_POINTS = list(_entry_points())
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_state_defaults_to_the_card(name):
+    """No device: on the card where there is one, else a RuntimeError that
+    says how to ask for the CPU."""
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_state_on_the_cpu_when_asked(name):
+    assert _entry_points()[name](device="cpu").device.type == "cpu"
+
+
+def test_convert_and_noise_follow_the_device():
+    """The state converters take the same default; the uniform noise
+    takes its generator's device."""
+    import numpy as np
+
+    from ir_sgmcmc_tpu_torch.convert import (mcmc_state_from_numpy, mcmc_state_to_numpy,
+                                             vi_state_from_numpy)
+    from ir_sgmcmc_tpu_torch.engine import init_chains
+    from ir_sgmcmc_tpu_torch.models.sampler import uniform_voxel_noise
+    from ir_sgmcmc_tpu_torch.optim import adam_decay
+
+    noise = uniform_voxel_noise(torch.Generator().manual_seed(1), (3, 4, 4, 4), 0.1)
+    assert noise.device.type == "cpu" and float(noise.abs().max()) <= 0.1
+    b = _bundle()
+    state = init_chains(b, torch.Generator().manual_seed(0), 2, "identity", None,
+                        b.gmm.init_params("cpu"), b.reg_loss.init_params("cpu"),
+                        adam_decay(0.2, 1e-3),
+                        adam_decay({"loc": 0.01, "log_scale": 0.01}, 1e-3), device="cpu")
+    tree = mcmc_state_to_numpy(state)
+    back = mcmc_state_from_numpy(tree, device="cpu")
+    assert back.v.device.type == "cpu"
+    np.testing.assert_array_equal(back.v.numpy(), tree["v"])
+    if not torch.cuda.is_available():
+        for convert in (mcmc_state_from_numpy, vi_state_from_numpy):
+            with pytest.raises(RuntimeError, match='device="cpu"'):
+                convert(tree)

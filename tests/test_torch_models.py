@@ -265,7 +265,7 @@ def test_reg_loss_matches_jax(kind):
     j = getattr(jreg, name)(dims=dims, **kw)
     t = getattr(treg, name)(dims=dims, **kw)
     pj = j.init_params()
-    pt = t.init_params()
+    pt = t.init_params("cpu")
     for k in pj:
         _close(pt[k], pj[k], 1e-6, 1e-6)
     loss_j, logy_j = j(pj, v)

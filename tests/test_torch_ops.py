@@ -60,7 +60,7 @@ def _close(port, ref, atol, rtol=0.0):
 @pytest.mark.parametrize("shape", [(5, 6, 7), (1, 4, 9)])
 def test_grids_match_jax(shape):
     rng = np.random.default_rng(0)
-    _close(tgrids.identity_grid(shape), jgrids.identity_grid(shape), 1e-6)
+    _close(tgrids.identity_grid(shape, device="cpu"), jgrids.identity_grid(shape), 1e-6)
     f = _rand(rng, (3,) + shape, 3.0)
     if 1 not in shape:
         _close(tgrids.voxel_to_normalised(_t(f)), jgrids.voxel_to_normalised(f), 1e-6, 1e-6)

@@ -149,7 +149,7 @@ def test_sample_q_v_antithetic_and_entropies_match_jax():
         np.asarray(ref)[0], rtol=1e-5)
 
     jb, tb, _, _ = _bundles(dims, "pre")
-    q_j, q_t = jb.init_q_v(0.5, 0.1), tb.init_q_v(0.5, 0.1)
+    q_j, q_t = jb.init_q_v(0.5, 0.1), tb.init_q_v(0.5, 0.1, device="cpu")
     for k in q_j:
         np.testing.assert_allclose(q_t[k].numpy(), np.asarray(q_j[k]), rtol=1e-7)
 
@@ -246,7 +246,7 @@ def test_gmm_warmup_matches_jax(vi_case):
     lr 0.2 (tolerances: :func:`_assert_gmm_close`)."""
     tb, (tf, tm) = vi_case["tb"], vi_case["timg"]
     oq, og, orr = _port_opts()
-    state = vi_state_from_numpy(vi_case["state0"])
+    state = vi_state_from_numpy(vi_case["state0"], device="cpu")
     warm = teng.gmm_warmup(tb, og, state, tf, tm, noise=_inject(vi_case["warm_draws"]))
     ref = vi_case["warm"]
     _assert_gmm_close(warm.gmm, ref.gmm, warm.opt_gmm, ref.opt_gmm)
@@ -292,7 +292,7 @@ def test_vi_step_matches_jax(vi_case):
     """
     tb, (tf, tm) = vi_case["tb"], vi_case["timg"]
     oq, og, orr = _port_opts()
-    warm = vi_state_from_numpy(vi_case["warm"])
+    warm = vi_state_from_numpy(vi_case["warm"], device="cpu")
     step = teng.make_vi_step(tb, oq, og, orr, tf, tm)
     new, met = step(warm, noise=_inject(vi_case["step_draws"]))
     ref, met_j = vi_case["new"], vi_case["met"]
@@ -337,7 +337,7 @@ def test_vi_state_convert_round_trip():
     jb, _, _, _ = _bundles((8, 8, 8), "pre")
     state, _ = _jax_state(jb, (8, 8, 8))
     tree = _np(state)
-    back = vi_state_to_numpy(vi_state_from_numpy(tree))
+    back = vi_state_to_numpy(vi_state_from_numpy(tree, device="cpu"))
     flat_ref, treedef = jax.tree.flatten(tree)
     rebuilt = JVIState(**{**back, **{k: JAdam(**back[k])
                                      for k in ("opt_q_v", "opt_gmm", "opt_reg")}})
@@ -355,12 +355,12 @@ def test_vi_chunk_runs_on_its_own_draws():
     dims = (16, 16, 16)
     _, tb, _, (tf, tm) = _bundles(dims, "pre")
     oq, og, orr = _port_opts()
-    q_v = tb.init_q_v(0.5, 0.1)
+    q_v = tb.init_q_v(0.5, 0.1, device="cpu")
 
     def start():
-        return teng.VIState(q_v=q_v, gmm=tb.gmm.init_params(), reg=tb.reg_loss.init_params(),
-                            opt_q_v=oq.init(q_v), opt_gmm=og.init(tb.gmm.init_params()),
-                            opt_reg=orr.init(tb.reg_loss.init_params()),
+        gmm, reg = tb.gmm.init_params("cpu"), tb.reg_loss.init_params("cpu")
+        return teng.VIState(q_v=q_v, gmm=gmm, reg=reg, opt_q_v=oq.init(q_v),
+                            opt_gmm=og.init(gmm), opt_reg=orr.init(reg),
                             key=torch.tensor([0, 7]), step=0)
 
     run = teng.make_vi_chunk(teng.make_vi_step(tb, oq, og, orr, tf, tm), 3)
