@@ -11,7 +11,8 @@ Phases, each of which raises on failure (exit code != 0):
 2. each kernel B1-B7 against its plain PyTorch version on the card, at the
    main paths' shapes (B1/B2 also at two ragged shapes, one with ``u``
    saturated in a z-slab; B5-B7 also at a general 4-channel, radius-2
-   shape), with the stated tolerance; the kernel's and the plain version's
+   shape, two shapes that straddle B6's and B7's tiles and z-chunks, and
+   dims of 1 and 2 at radius 3), with the stated tolerance; the kernel's and the plain version's
    times, the kernel's bound (``Kernel.bound_ms``: bytes over the H100
    SXM's HBM bandwidth or flops over its f32 rate, whichever is larger)
    and, for B3-B7, the time of the one PyTorch call that computes the same
@@ -303,9 +304,15 @@ def _bounded_operands(gen, shape, R):
     return vol, disp, torch.randn(shape, generator=gen, device=dev)
 
 
+BOUNDED_SHAPES = (((CHAINS, 1) + DIMS, 1), ((CHAINS, 4) + SMALL, 2), ((2, 1, 40, 24, 130), 1),
+                  ((1, 2, 17, 10, 70), 2), ((1, 3, 2, 1, 9), 3))
+
+
 def phase_blend_kernels(dev) -> list:
     """B5-B7 against their plain versions on the card: at the VI path's
-    ``(2, 1, 128³)``, R 1 (timed), and a general ``(2, 4, 64³)``, R 2.
+    ``(2, 1, 128³)``, R 1 (timed), a general ``(2, 4, 64³)``, R 2, two
+    shapes that straddle B6's and B7's 32 x 8 tiles and 16-plane z-chunks,
+    and dims of 1 and 2 at R 3.
 
     The kernels and the plain versions evaluate ``tri`` and ``dtri`` by
     the same expressions at the same points, so no tie (integer ``d``,
@@ -318,7 +325,8 @@ def phase_blend_kernels(dev) -> list:
     atol, rtol = 1e-5, 1e-5
     errs = {wb.B5: 0.0, wb.B6: 0.0, wb.B7: 0.0}
     timed = {}
-    for shape, R in (((CHAINS, 1) + DIMS, 1), ((CHAINS, 4) + SMALL, 2)):
+    for shape, R in BOUNDED_SHAPES:
+        main = shape == BOUNDED_SHAPES[0][0]
         vol, disp, g = _bounded_operands(gen, shape, R)
         calls = {
             wb.B5: (lambda: wb.warp_bounded_fwd_cuda(vol, disp, R),
@@ -332,9 +340,9 @@ def phase_blend_kernels(dev) -> list:
             err = _err(kern(), plain(), atol, rtol, f"{k.symbol} {shape} R {R}",
                        disp=disp if k is wb.B6 else torch.zeros(0))
             errs[k] = max(errs[k], err)
-            if R == 1:
+            if main:
                 timed[k] = (shape, _time_ms(kern), _time_ms(plain))
-        if R == 1:
+        if main:
             # the library calls at the VI path's shape: grid at id + clip(d, ±R)
             at = disp.clamp(-R, R)
             grid = _grid(at)
@@ -525,7 +533,7 @@ def phase_vi(dev) -> dict:
     return launches
 
 
-_KINDS = (("warp_bounded_tblend", "B7"), ("warp_bounded_dgrad", "B6"),
+_KINDS = (("tblend_", "B7"), ("dgrad_tile", "B6"), ("dgrad_gather", "B6"),
           ("warp_bounded_fwd", "B5"), ("split_fwd", "B1"), ("split_bwd", "B2"),
           ("block_warp", "B3/B4"), ("direct_copy", "copies"), ("CatArray", "copies"),
           ("Memcpy", "copies"), ("Memset", "copies"), ("reduce_kernel", "reductions"),

@@ -118,11 +118,21 @@ def _bounded_inputs(dev, shape, radius):
     return vol, disp, torch.randn(shape, generator=gen, device=dev)
 
 
-@pytest.mark.parametrize("shape,radius", [((2, 1, 16, 24, 40), 1), ((2, 4, 9, 10, 11), 2),
-                                          ((1, 3, 5, 6, 7), 3)])
+BOUNDED_SHAPES = [((2, 1, 16, 24, 40), 1), ((2, 4, 9, 10, 11), 2), ((1, 3, 5, 6, 7), 3),
+                  ((2, 1, 40, 24, 130), 1), ((1, 2, 17, 10, 70), 2), ((1, 3, 2, 1, 9), 3),
+                  ((2, 5, 10, 9, 35), 1), ((1, 2, 9, 12, 40), 4), ((1, 13, 5, 6, 7), 3)]
+
+
+@pytest.mark.parametrize("shape,radius", BOUNDED_SHAPES)
 def test_bounded_kernels_match_plain(cuda, shape, radius):
     """B5-B7 against their plain versions; atol 1e-5 (the JAX suite's for
-    these kernels) plus rtol 1e-5 for sums of up to 27·C products."""
+    these kernels) plus rtol 1e-5 for sums of up to 27·C products.
+
+    The shapes straddle the 32 x 8 (x, y) tiles and 16-plane z-chunks of
+    B6 and B7, have dims of 1 and 2 at R 3 (the fold covers more than the
+    volume), 5 channels (two channel chunks of B7), R 4 (B7's run-time-R
+    kernel, B6's per-voxel gather) and 13 channels at R 3 (a B6 ring over
+    the shared memory: the per-voxel gather)."""
     from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
 
     vol, disp, g = _bounded_inputs(cuda, shape, radius)
@@ -134,6 +144,20 @@ def test_bounded_kernels_match_plain(cuda, shape, radius):
     torch.testing.assert_close(wb.warp_bounded_tblend_cuda(disp, g, radius),
                                wb.warp_bounded_tblend_plain(disp, g, radius),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,radius", [((2, 1, 40, 24, 130), 1), ((1, 4, 17, 10, 70), 2),
+                                          ((1, 2, 9, 12, 40), 4)])
+def test_bounded_backward_kernels_are_deterministic(cuda, shape, radius):
+    """Two launches of B6, and of B7, on the same inputs are bitwise equal
+    (both are gathers: no atomics)."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    vol, disp, g = _bounded_inputs(cuda, shape, radius)
+    for run in (lambda: wb.warp_bounded_dgrad_cuda(vol, disp, g, radius),
+                lambda: wb.warp_bounded_tblend_cuda(disp, g, radius)):
+        first = run()
+        assert torch.equal(first, run())
 
 
 def test_warp_bounded_autograd_on_card_matches_cpu(cuda):

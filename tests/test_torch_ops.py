@@ -351,6 +351,73 @@ def test_warp_bounded_kernels_match_jax_pallas(radius, chan):
     assert ints.any() and np.all(dg[0, 0].numpy()[ints] == 0.0)
 
 
+def _folded_weights(d, p, n, radius):
+    """B7's per-source folded weights along one axis, ``[..., R + δ]`` for
+    ``δ`` in ``[-R, R]``: the taps ``k = min(floor(d~), R-1)`` and ``k+1``,
+    each at the border-clamped target ``clamp(p + o) - p``."""
+    d = np.clip(d, -radius, radius)
+    k = np.minimum(np.floor(d), radius - 1)
+    w0 = np.maximum(0.0, 1.0 - np.abs(d - k))
+    w1 = np.maximum(0.0, 1.0 - np.abs(d - (k + 1)))
+    t0 = np.clip(p + k.astype(np.int64), 0, n - 1) - p
+    t1 = np.clip(p + k.astype(np.int64) + 1, 0, n - 1) - p
+    # both targets inside [-R, R], and the second at t0 or t0 + 1
+    assert t0.min() >= -radius and t1.max() <= radius
+    assert np.all((t1 == t0) | (t1 == t0 + 1))
+    wf = np.zeros(d.shape + (2 * radius + 1,), np.float32)
+    for j, delta in enumerate(range(-radius, radius + 1)):
+        wf[..., j] = np.where(t0 == delta, w0, 0.0) + np.where(t1 == delta, w1, 0.0)
+    return wf
+
+
+def _tblend_gather(disp, g, radius):
+    """``out(q) = Σ_δ Wf_z(p, δz) Wf_y(p, δy) Wf_x(p, δx) g(p)`` over the
+    sources ``p = q - δ`` inside the volume; ``disp (3, D, H, W)``,
+    ``g (C, D, H, W)``."""
+    dims = g.shape[1:]
+    z, y, x = np.meshgrid(*(np.arange(n) for n in dims), indexing="ij")
+    wz, wy, wx = (_folded_weights(disp[a], c, n, radius)
+                  for a, c, n in ((2, z, dims[0]), (1, y, dims[1]), (0, x, dims[2])))
+
+    def window(n, delta):  # target and source slices of a shift by delta
+        m = max(n - abs(delta), 0)
+        return slice(max(delta, 0), max(delta, 0) + m), slice(max(-delta, 0), max(-delta, 0) + m)
+
+    out = np.zeros_like(g)
+    offsets = range(-radius, radius + 1)
+    for iz, dz in enumerate(offsets):
+        for iy, dy in enumerate(offsets):
+            for ix, dx in enumerate(offsets):
+                w = wz[..., iz] * wy[..., iy] * wx[..., ix]
+                # weights onto a target outside the volume are zero: the
+                # gather over sources inside misses nothing
+                tz, sz = window(dims[0], dz)
+                ty, sy = window(dims[1], dy)
+                tx, sx = window(dims[2], dx)
+                inside = np.zeros(dims, bool)
+                inside[sz, sy, sx] = True
+                assert np.all(w[~inside] == 0.0)
+                out[:, tz, ty, tx] += (w * g)[:, sz, sy, sx]
+    return out
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("chan", [1, 4])
+@pytest.mark.parametrize("shape", ["thin", "ragged"])
+def test_tblend_folded_gather_matches_jax(radius, chan, shape):
+    """B7's CUDA formulation (per-source folded weights, a (2R+1)³ gather)
+    in numpy against the JAX package's ``_tblend_acc_xla`` + ``_fold_edge``,
+    on dims of 1, 2 and 2R+1 (the fold covers more than the volume) and a
+    ragged 9 x 10 x 11."""
+    dims = (1, 2, 2 * radius + 1) if shape == "thin" else (9, 10, 11)
+    rng = np.random.default_rng(13 + radius)
+    _, disp, g = _bounded_case(rng, (1, chan) + dims, radius)
+    disp, g = disp[0], g[0]
+    ref = jres._fold_edge(jres._tblend_acc_xla(jnp.asarray(disp), radius, jnp.asarray(g)),
+                          radius)
+    _close(_tblend_gather(disp, g, radius), ref, 1e-5)
+
+
 def test_warp_bounded_cuda_wrappers_reject_cpu_tensors():
     vol = torch.zeros((1, 1, 8, 8, 8))
     disp = torch.zeros((1, 3, 8, 8, 8))
