@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What holds the bounded-warp backward kernels B6 and B7 below their HBM
-bounds: a probe on one CUDA card, beside the smoke run (``chip_smoke.py``).
+"""What holds the bounded-warp kernels B5, B6 and B7 below their HBM bounds:
+a probe on one CUDA card, beside the smoke run (``chip_smoke.py``).
 
     python3 chip_probe_blend.py
 
@@ -9,8 +9,18 @@ f32, R 1, it times, in turns, these kernels, all built from
 ``ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu`` (included whole into one probe
 source, so they share its tiling and staging code):
 
-- ``B7`` (``warp_bounded_tblend``) and ``B6`` (``warp_bounded_dgrad``), and
-  ``B5`` (``warp_bounded_fwd``) for reference;
+- ``B7`` (``warp_bounded_tblend``), ``B6`` (``warp_bounded_dgrad``) and
+  ``B5`` (``warp_bounded_fwd``);
+- ``B5 4B``: B5 with every staged point copied by 4 bytes (its path for a
+  tile that crosses the x-border) instead of 16-byte rows;
+- ``B5 voxel``: B5's per-voxel gather (one thread per voxel, 8 taps
+  through L1/L2), its kernel before the ring and its path above R 3;
+- ``B5 stage`` / ``B5 stage 4B``: B5's schedule without the taps (and with
+  its register cap): the same ring of haloed vol planes (16-byte rows, or
+  4-byte points), one barrier per plane, disp read one plane ahead and one
+  output word per voxel;
+- ``B5 sched``: that schedule with no copies at all (the barriers, disp
+  and out only): the floor of any staging, a TMA copy's included;
 - ``B7 stage``: B7's schedule without the arithmetic: the same haloed
   source planes of disp and g loaded one plane ahead into registers, stored
   to the same double buffer with one barrier per plane, and one output word
@@ -18,13 +28,20 @@ source, so they share its tiling and staging code):
 - ``B6 stage``: B6's schedule without the taps: the same ring of haloed vol
   planes by 4-byte ``cp.async``, one barrier per plane, disp and g read per
   voxel and its 3 output words written;
-- ``B7 copy`` / ``B6 copy``: a plain vectorised kernel that reads each
-  kernel's input words and writes its output words once per voxel, i.e.
-  what the card's HBM delivers for that kernel's bytes;
+- ``B7 copy`` / ``B6 copy`` / ``B5 copy``: a plain vectorised kernel that
+  reads each kernel's input words and writes its output words once per
+  voxel, i.e. what the card's HBM delivers for that kernel's bytes (B5's
+  are B7's with vol in place of g);
 - ``B7 ry1``: B7 with one row of targets per thread (a 32 x 8 tile)
   instead of the source's two at R 1 (32 x 16);
-- ``B7``/``B6`` with z-chunks of 8 and 32 planes instead of the source's
-  16 (the same source with its ``TZ`` constant replaced).
+- ``B7``/``B6``/``B5`` with z-chunks of 8 and 32 planes instead of the
+  source's 16 (the same source with its ``TZ`` constant replaced);
+- ``B5 mb1`` / ``mb6`` / ``mb8`` and their ``stage`` rows: B5 and its
+  staging schedule compiled for 1, 6 and 8 blocks per SM instead of the
+  source's 5 (``kFwdMinBlocks``; at 1 the compiler takes the registers it
+  wants).
+
+The variants build in parallel (one ``nvcc`` each).
 
 Prints each time with its share of the kernel's HBM bound
 (``Kernel.bound_ms``), the card's name and power limit, and exits non-zero
@@ -164,6 +181,52 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <int R, bool COPY>
+__global__ void __launch_bounds__(NT, kFwdMinBlocks)
+    fwd_stage_kernel(const float* __restrict__ vol, const float* __restrict__ disp,
+                     float* __restrict__ out, Geom g) {
+  using F = FwdRing<R>;
+  constexpr int HPP = F::HPP, RING = F::RING;
+  extern __shared__ __align__(16) float fwd_ring[];
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int C = g.C, D = g.D, H = g.H, W = g.W;
+  const Place pl = place(g, C, TY);
+  const int P = H * W, V = D * P;
+  const float* vb = vol + (long long)pl.b * C * V;
+  const FwdStage<R> copies(pl, H, W);
+  const bool wide = g.vec && pl.x0 + TX <= W;
+  auto stage = [&](int rel) {
+    if (COPY)
+      copies(fwd_ring + (rel % RING) * C * HPP, vb + clampi(pl.z0 - R + rel, D) * P, V, C,
+             W, wide);
+  };
+  for (int rel = 0; rel <= 2 * R; ++rel) {
+    stage(rel);
+    cp_async_commit();
+  }
+  const int x = pl.x0 + tx, y = pl.y0 + ty;
+  const bool live = x < W && y < H;
+  const int here = pl.z0 * P + y * W + x;
+  const float* db = disp + (long long)pl.b * 3 * V + here;
+  float* ob = out + (long long)pl.b * C * V + here;
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (live)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) d[a] = db[a * V];
+  for (int k = 0; k < pl.nz; ++k) {
+    if (k + 1 < pl.nz) stage(k + 2 * R + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    if (!live) continue;
+    const float* own = fwd_ring + (k + R) % RING * C * HPP + (ty + R) * F::FP + 4 + tx;
+    for (int c = 0; c < C; ++c) ob[c * V + k * P] = own[c * HPP] * (d[0] + d[1] + d[2]);
+    if (k + 1 < pl.nz)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) d[a] = db[a * V + (k + 1) * P];
+  }
+}
+
 // per group of 4 voxels (C = 1): B7 reads disp (3) and g, writes 1;
 // B6 also reads vol and writes 3
 template <bool DGRAD>
@@ -214,6 +277,43 @@ extern "C" int probe_tblend_ry1(const float* disp, const float* g_in, float* out
   return tblend_tile_launch<1, 1, 1>(disp, g_in, out, g, (cudaStream_t)stream);
 }
 
+// B5's staging schedule alone at R 1: 16-byte rows (wide 1), 4-byte points
+// (wide 0), or no copies at all (wide -1: the barriers, disp and out only)
+template <bool COPY>
+int fwd_stage_launch(const float* vol, const float* disp, float* out, const Geom& g,
+                     cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(fwd_stage_kernel<1, COPY>);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = sizeof(float) * FwdRing<1>::RING * g.C * FwdRing<1>::HPP;
+  fwd_stage_kernel<1, COPY><<<tile_grid(g, g.C, TY), NT, smem, stream>>>(vol, disp, out, g);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_fwd_stage(const float* vol, const float* disp, float* out, int B, int C,
+                               int D, int H, int W, int wide, void* stream) {
+  Geom g{B, C, D, H, W, 1.0f};
+  g.vec = wide > 0;
+  return wide < 0 ? fwd_stage_launch<false>(vol, disp, out, g, (cudaStream_t)stream)
+                  : fwd_stage_launch<true>(vol, disp, out, g, (cudaStream_t)stream);
+}
+
+// B5 with every staged point copied by 4 bytes
+extern "C" int probe_fwd_4byte(const float* vol, const float* disp, float* out, int B, int C,
+                               int D, int H, int W, int R, void* stream) {
+  const Geom g{B, C, D, H, W, (float)R};  // vec = 0
+  return fwd_launch(vol, disp, out, g, (cudaStream_t)stream);
+}
+
+// B5's per-voxel gather
+extern "C" int probe_fwd_voxel(const float* vol, const float* disp, float* out, int B, int C,
+                               int D, int H, int W, int R, void* stream) {
+  const Geom g{B, C, D, H, W, (float)R};
+  const dim3 threads(32, 8);
+  warp_bounded_fwd_kernel<<<grid_for(g, threads), threads, 0, (cudaStream_t)stream>>>(
+      vol, disp, out, g);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int probe_copy(const float* vol, const float* disp, const float* g_in,
                           float* out, int B, int C, int D, int H, int W, int dgrad,
                           void* stream) {
@@ -227,35 +327,34 @@ extern "C" int probe_copy(const float* vol, const float* disp, const float* g_in
 
 
 TZ_LINE = "constexpr int TZ = 16;"
+# variants of warp_bounded.cu: z-chunks, and B5 compiled for fewer blocks per
+# SM (kFwdMinBlocks 1 leaves its registers to the compiler)
+VARIANTS = {"base": {}, "tz8": {"TZ": 8}, "tz32": {"TZ": 32},
+            "fwd_mb1": {"kFwdMinBlocks": 1}, "fwd_mb6": {"kFwdMinBlocks": 6},
+            "fwd_mb8": {"kFwdMinBlocks": 8}}
 
 
-def _build(tz: int = 16):
-    """The probe library over ``warp_bounded.cu`` with z-chunks of ``tz``."""
+def _build() -> dict:
+    """The probe library over each variant of ``warp_bounded.cu``; prints
+    the registers and spills of B5's kernels in each."""
     from ir_sgmcmc_tpu_torch.kernels import _lib
 
-    work = _lib.BUILD_DIR / f"probe_blend_tz{tz}"
-    work.mkdir(parents=True, exist_ok=True)
-    kernel_src = (_lib.CSRC / "warp_bounded.cu").read_text()
-    if TZ_LINE not in kernel_src:
+    if TZ_LINE not in (_lib.CSRC / "warp_bounded.cu").read_text():
         raise RuntimeError(f"warp_bounded.cu no longer declares {TZ_LINE!r}")
-    (work / "warp_bounded.cu").write_text(kernel_src.replace(TZ_LINE,
-                                                             f"constexpr int TZ = {tz};"))
-    src = work / "probe_blend.cu"
-    so = work / "libprobe_blend.so"
-    src.write_text(PROBE_CU)
-    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(work), "-o", str(so), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(so))
+    libs, logs = _lib.build_variants("warp_bounded.cu", PROBE_CU, VARIANTS)
+    for name, log in logs.items():
+        for row in _lib.ptxas_summary(log):
+            if row.startswith(("fwd_tile_kernel<1>", "fwd_stage_kernel<1, 1>")):
+                print(f"ptxas {name}: {row}", flush=True)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.warp_bounded_tblend.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.probe_tblend_stage.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.probe_tblend_ry1.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.warp_bounded_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    for name in ("warp_bounded_dgrad", "probe_dgrad_stage", "probe_copy"):
-        getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    return lib
+    for lib in libs.values():
+        for name in ("warp_bounded_tblend", "probe_tblend_stage", "probe_tblend_ry1",
+                     "warp_bounded_fwd", "probe_fwd_stage", "probe_fwd_4byte",
+                     "probe_fwd_voxel"):
+            getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, i, p]
+        for name in ("warp_bounded_dgrad", "probe_dgrad_stage", "probe_copy"):
+            getattr(lib, name).argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    return libs
 
 
 def _time_ms(fn, reps: int = 50) -> float:
@@ -277,8 +376,8 @@ def main() -> int:
         return 1
     from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
 
-    lib = _build()
-    tz_libs = {tz: _build(tz) for tz in (8, 32)}
+    libs = _build()
+    lib = libs["base"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, C = SHAPE[:2]
     vol, g = (torch.randn(SHAPE, generator=gen, device="cuda") for _ in range(2))
@@ -300,13 +399,27 @@ def main() -> int:
             "B6": (call("warp_bounded_dgrad", pv, pd, pg, po3, *SHAPE, RADIUS), wb.B6),
             "B6 stage": (call("probe_dgrad_stage", pv, pd, pg, po3, *SHAPE, RADIUS), wb.B6),
             "B6 copy": (call("probe_copy", pv, pd, pg, po3, *SHAPE, 1), wb.B6),
+            "B7 ry1": (call("probe_tblend_ry1", pd, pg, po, *SHAPE, RADIUS), wb.B7),
             "B5": (call("warp_bounded_fwd", pv, pd, po, *SHAPE, RADIUS), wb.B5),
-            "B7 ry1": (call("probe_tblend_ry1", pd, pg, po, *SHAPE, RADIUS), wb.B7)}
-    for tz, tz_lib in tz_libs.items():
+            "B5 4B": (call("probe_fwd_4byte", pv, pd, po, *SHAPE, RADIUS), wb.B5),
+            "B5 voxel": (call("probe_fwd_voxel", pv, pd, po, *SHAPE, RADIUS), wb.B5),
+            "B5 stage": (call("probe_fwd_stage", pv, pd, po, *SHAPE, 1), wb.B5),
+            "B5 stage 4B": (call("probe_fwd_stage", pv, pd, po, *SHAPE, 0), wb.B5),
+            "B5 sched": (call("probe_fwd_stage", pv, pd, po, *SHAPE, -1), wb.B5),
+            "B5 copy": (call("probe_copy", pv, pd, pv, po, *SHAPE, 0), wb.B5)}
+    for tz in (8, 32):
+        tz_lib = libs[f"tz{tz}"]
         runs[f"B7 tz{tz}"] = (call("warp_bounded_tblend", pd, pg, po, *SHAPE, RADIUS,
                                    lib=tz_lib), wb.B7)
         runs[f"B6 tz{tz}"] = (call("warp_bounded_dgrad", pv, pd, pg, po3, *SHAPE, RADIUS,
                                    lib=tz_lib), wb.B6)
+        runs[f"B5 tz{tz}"] = (call("warp_bounded_fwd", pv, pd, po, *SHAPE, RADIUS,
+                                   lib=tz_lib), wb.B5)
+    for mb in (1, 6, 8):
+        runs[f"B5 mb{mb}"] = (call("warp_bounded_fwd", pv, pd, po, *SHAPE, RADIUS,
+                                   lib=libs[f"fwd_mb{mb}"]), wb.B5)
+        runs[f"B5 stage mb{mb}"] = (call("probe_fwd_stage", pv, pd, po, *SHAPE, 1,
+                                         lib=libs[f"fwd_mb{mb}"]), wb.B5)
     times = {k: [] for k in runs}
     order = list(runs)
     for rep in range(REPS):
@@ -318,7 +431,7 @@ def main() -> int:
     for k, ts in times.items():
         bound = runs[k][1].bound_ms(SHAPE)[0]
         best = min(ts)
-        print(f"probe {k:8s}: " + " ".join(f"{t:.4f}" for t in ts) + f" ms; best {best:.4f} "
+        print(f"probe {k:11s}: " + " ".join(f"{t:.4f}" for t in ts) + f" ms; best {best:.4f} "
               f"ms = {100 * bound / best:.1f}% of the {bound:.4f} ms HBM bound", flush=True)
     print(smi)
     return 0

@@ -118,30 +118,21 @@ extern "C" int probe_copy(const float* d, const float* u, const float* g_in,
 TZ_LINE = "constexpr int TZ = 16;"
 
 
-def _build(tz: int = 16):
-    """The probe library over ``split_warp.cu`` with z-chunks of ``tz``."""
+def _build() -> dict:
+    """The probe library over ``split_warp.cu`` with z-chunks of 16 (the
+    source's), 8 and 32, built in parallel: ``{tz: CDLL}``."""
     from ir_sgmcmc_tpu_torch.kernels import _lib
 
-    work = _lib.BUILD_DIR / f"probe_split_tz{tz}"
-    work.mkdir(parents=True, exist_ok=True)
-    kernel_src = (_lib.CSRC / "split_warp.cu").read_text()
-    if TZ_LINE not in kernel_src:
+    if TZ_LINE not in (_lib.CSRC / "split_warp.cu").read_text():
         raise RuntimeError(f"split_warp.cu no longer declares {TZ_LINE!r}")
-    (work / "split_warp.cu").write_text(kernel_src.replace(TZ_LINE,
-                                                           f"constexpr int TZ = {tz};"))
-    src = work / "probe_split.cu"
-    so = work / "libprobe_split.so"
-    src.write_text(PROBE_CU)
-    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(work), "-o", str(so), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr[-4000:]}")
-    lib = ctypes.CDLL(str(so))
+    libs, _ = _lib.build_variants("split_warp.cu", PROBE_CU,
+                                  {tz: {"TZ": tz} for tz in (16, 8, 32)})
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("split_warp_bwd", "probe_stage_only", "probe_copy"):
-        getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-    lib.split_warp_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
-    return lib
+    for lib in libs.values():
+        for name in ("split_warp_bwd", "probe_stage_only", "probe_copy"):
+            getattr(lib, name).argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        lib.split_warp_fwd.argtypes = [p, p, p, i, i, i, i, i, p]
+    return libs
 
 
 def _time_ms(fn, reps: int = 50) -> float:
@@ -163,8 +154,9 @@ def main() -> int:
         return 1
     from ir_sgmcmc_tpu_torch.kernels.split_warp import B1, B2
 
-    lib = _build()
-    tz_libs = {tz: _build(tz) for tz in (8, 32)}
+    libs = _build()
+    lib = libs[16]
+    tz_libs = {tz: libs[tz] for tz in (8, 32)}
     gen = torch.Generator(device="cuda").manual_seed(0)
     d, u, g = (torch.randn(SHAPE, generator=gen, device="cuda") for _ in range(3))
     gd, gu, out = torch.empty_like(d), torch.empty_like(u), torch.empty_like(d)

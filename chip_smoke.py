@@ -10,10 +10,12 @@ Phases, each of which raises on failure (exit code != 0):
    ``ir_sgmcmc_tpu_torch/csrc`` (nvcc, sm_90a) and report the build time;
 2. each kernel B1-B7 against its plain PyTorch version on the card, at the
    main paths' shapes (B1/B2 also at two ragged shapes, one with ``u``
-   saturated in a z-slab; B5-B7 also at a general 4-channel, radius-2
-   shape, two shapes that straddle B6's and B7's tiles and z-chunks, and
-   dims of 1 and 2 at radius 3), with the stated tolerance; the kernel's and the plain version's
-   times, the kernel's bound (``Kernel.bound_ms``: bytes over the H100
+   saturated in a z-slab; B3/B4 also at two ragged shapes with block means
+   saturated at ±bound next to the borders, at R 1 and 2; B5-B7 also at a
+   general 4-channel, radius-2 shape, two shapes that straddle the tiles
+   and z-chunks of B5-B7, and dims of 1 and 2 at radius 3), with the
+   stated tolerance; the kernel's and the plain version's times, the
+   kernel's bound (``Kernel.bound_ms``: bytes over the H100
    SXM's HBM bandwidth or flops over its f32 rate, whichever is larger)
    and, for B3-B7, the time of the one PyTorch call that computes the same
    function (``F.grid_sample`` or ``aten.grid_sampler_3d_backward``),
@@ -212,19 +214,51 @@ def _split_operands(gen, shape, slab=None):
 SPLIT_SHAPES = (((CHAINS, 3) + DIMS, None), ((1, 3, 2, 9, 33), None),
                 ((2, 3, 40, 24, 130), (14, 19)))
 
+# (shape, bound, radius) of the block warp: the path's (bound 9, R 2,
+# block 8), then ragged shapes whose dims divide by 8 but are neither cubes
+# nor multiples of the window kernel's 32-wide tile
+BLOCK_SHAPES = (((CHAINS, 1) + DIMS, 9, 2), ((1, 4, 16, 24, 136), 6, 1), ((2, 2, 24, 8, 40), 9, 2))
 
-def phase_kernels(dev) -> list:
-    """B1-B4 against their plain versions at the main path's shapes (B1/B2
-    also at ragged ones); B3/B4 against their library calls."""
+
+def _block_operands(gen, shape, bound, radius, saturate=False, block=8):
+    """vol, r, m, g for B3/B4: a smooth displacement (trilinear upsampling
+    of a coarse random field), its block means and clipped residual, every
+    7th residual an integer.  ``saturate``: the blocks next to the z and x
+    borders get means of ±bound, whose windows clamp at the border; the
+    field gets in-block roughness, and every 11th residual is exactly +R,
+    every 13th -R."""
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
-    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
     from ir_sgmcmc_tpu_torch.ops.resample import _block_means
 
+    dev = gen.device
+    B, C, D, H, W = shape
+    vol = torch.randn(shape, generator=gen, device=dev)
+    coarse = torch.randn((B, 3, 3, 3, 3), generator=gen, device=dev) * (bound - 1.0)
+    disp = torch.nn.functional.interpolate(coarse, size=(D, H, W), mode="trilinear",
+                                           align_corners=True)
+    disp = disp.clamp(-(bound - 0.5), bound - 0.5)
+    if saturate:
+        disp[:, :, :block] = bound + 0.4
+        disp[:, :, -block:] = -bound - 0.4
+        disp[..., -block:] = torch.where(disp[..., -block:] < 0, -bound - 0.4, bound + 0.4)
+        disp += torch.randn(disp.shape, generator=gen, device=dev) * 0.8
+    m = _block_means(disp, block, bound)
+    r = (disp - bw._expand_blocks(m, block).float()).clamp(-radius, radius)
+    flat = r.view(-1)
+    flat[::7] = torch.round(flat[::7])
+    if saturate:
+        flat[1::11] = radius
+        flat[2::13] = -radius
+    return vol, r.contiguous(), m, torch.randn(shape, generator=gen, device=dev)
+
+
+def phase_kernels(dev) -> list:
+    """B1-B4 against their plain versions at the main path's shapes and at
+    ragged ones; B3/B4 against their library calls."""
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
     gen = torch.Generator(device=dev).manual_seed(1234)
-
-    def randn(shp, scale=1.0):
-        return torch.randn(shp, generator=gen, device=dev) * scale
-
     errs = {sw.B1: 0.0, sw.B2: 0.0}
     for shape, slab in SPLIT_SHAPES:
         d, u, g = _split_operands(gen, shape, slab)
@@ -245,36 +279,30 @@ def phase_kernels(dev) -> list:
     rows = [_row(sw.B1, SPLIT_SHAPES[0][0], errs[sw.B1], 2e-5, 0.0, *times[sw.B1]),
             _row(sw.B2, SPLIT_SHAPES[0][0], errs[sw.B2], 3e-5, 1e-4, *times[sw.B2])]
 
-    # block warp at the path's bound 9 / radius 2 / block 8: a smooth
-    # displacement (trilinear upsampling of a coarse random field) with
-    # every 7th residual set to an integer (the zero-derivative convention)
-    bound, radius, block = 9, 2, 8
-    vol = randn((CHAINS, 1) + DIMS)
-    coarse = randn((CHAINS, 3, 3, 3, 3), bound - 1.0)
-    disp = torch.nn.functional.interpolate(coarse, size=DIMS, mode="trilinear",
-                                           align_corners=True)
-    disp = disp.clamp(-(bound - 0.5), bound - 0.5)
-    m = _block_means(disp, block, bound)
-    r = (disp - bw._expand_blocks(m, block).float()).clamp(-radius, radius)
-    flat = r.view(-1)
-    flat[::7] = torch.round(flat[::7])
-    r = r.contiguous()
-    gv = randn((CHAINS, 1) + DIMS)
-    out = bw.block_warp_cuda(vol, r, m)
-    err = _err(out, bw.block_warp_plain(vol, r, m), 1e-5, 0.0, "B3")
-    at = bw._expand_blocks(m, block).float() + r
-    grid = _grid(at)
-    lib = _library_ms("B3", lambda: _grid_sample(vol, grid), out)
-    rows.append(_row(bw.B3, vol.shape, err, 1e-5, 0.0,
-                     _time_ms(lambda: bw.block_warp_cuda(vol, r, m)),
-                     _time_ms(lambda: bw.block_warp_plain(vol, r, m)), lib))
-    out = bw.block_warp_dgrad_cuda(vol, r, m, gv)
-    err = _err(out, bw.block_warp_dgrad_plain(vol, r, m, gv), 5e-4, 1e-4, "B4")
-    lib = _library_ms("B4", lambda: _grid_grad_voxels(
-        _grid_sample_grads(gv, vol, grid, [False, True])[1]), out, _off_ties(at))
-    rows.append(_row(bw.B4, vol.shape, err, 5e-4, 1e-4,
-                     _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv)),
-                     _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv)), lib))
+    errs = {bw.B3: 0.0, bw.B4: 0.0}
+    for shape, bound, radius in BLOCK_SHAPES:
+        vol, r, m, gv = _block_operands(gen, shape, bound, radius,
+                                        saturate=shape != BLOCK_SHAPES[0][0])
+        out = bw.block_warp_cuda(vol, r, m)
+        errs[bw.B3] = max(errs[bw.B3], _err(out, bw.block_warp_plain(vol, r, m), 1e-5, 0.0,
+                                            f"B3 {shape} bound {bound} R {radius}"))
+        dout = bw.block_warp_dgrad_cuda(vol, r, m, gv, radius)
+        errs[bw.B4] = max(errs[bw.B4], _err(dout, bw.block_warp_dgrad_plain(vol, r, m, gv),
+                                            5e-4, 1e-4, f"B4 {shape} bound {bound} R {radius}"))
+        if shape != BLOCK_SHAPES[0][0]:
+            continue
+        # timed, and held to the library calls, at the path's shape
+        at = bw._expand_blocks(m, 8).float() + r
+        grid = _grid(at)
+        lib3 = _library_ms("B3", lambda: _grid_sample(vol, grid), out)
+        lib4 = _library_ms("B4", lambda: _grid_grad_voxels(
+            _grid_sample_grads(gv, vol, grid, [False, True])[1]), dout, _off_ties(at))
+        timed = [(bw.B3, _time_ms(lambda: bw.block_warp_cuda(vol, r, m)),
+                  _time_ms(lambda: bw.block_warp_plain(vol, r, m)), lib3),
+                 (bw.B4, _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv, radius)),
+                  _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv)), lib4)]
+    tol = {bw.B3: (1e-5, 0.0), bw.B4: (5e-4, 1e-4)}
+    rows += [_row(k, BLOCK_SHAPES[0][0], errs[k], *tol[k], *t) for k, *t in timed]
     _print_rows(rows)
     return rows
 
@@ -534,8 +562,9 @@ def phase_vi(dev) -> dict:
 
 
 _KINDS = (("tblend_", "B7"), ("dgrad_tile", "B6"), ("dgrad_gather", "B6"),
-          ("warp_bounded_fwd", "B5"), ("split_fwd", "B1"), ("split_bwd", "B2"),
-          ("block_warp", "B3/B4"), ("direct_copy", "copies"), ("CatArray", "copies"),
+          ("fwd_tile", "B5"), ("warp_bounded_fwd", "B5"), ("split_fwd", "B1"),
+          ("split_bwd", "B2"), ("block_warp_fwd", "B3"), ("dgrad_window", "B4"),
+          ("block_warp_dgrad", "B4"), ("direct_copy", "copies"), ("CatArray", "copies"),
           ("Memcpy", "copies"), ("Memset", "copies"), ("reduce_kernel", "reductions"),
           ("elementwise", "elementwise"))
 
@@ -645,9 +674,8 @@ def main() -> int:
     _lib.load_library()
     print(f"build: {_lib.build_seconds:.2f} s (nvcc, sm_90a) -> {_lib.BUILD_DIR}",
           flush=True)
-    ptxas = [ln.strip() for ln in (_lib.BUILD_DIR / "nvcc.log").read_text().splitlines()
-             if "registers" in ln] if (_lib.BUILD_DIR / "nvcc.log").exists() else []
-    for ln in ptxas:
+    log = _lib.BUILD_DIR / "nvcc.log"
+    for ln in _lib.ptxas_summary(log.read_text()) if log.exists() else []:
         print(f"ptxas: {ln}", flush=True)
 
     rows = phase_kernels(dev) + phase_blend_kernels(dev)

@@ -9,26 +9,51 @@
 //    d(sum_c g_c warp_c)/dr per axis, channels summed; the caller zeroes it
 //    where |r_raw| > R.
 //
-// Design: the Pallas kernels stage padded (8+2p)^2 x W windows and shift
+// Taps: the Pallas kernels stage padded (8+2p)^2 x W windows and shift
 // them with lane gathers and barrel selects only because Mosaic has no fast
-// per-element gather.  Here each thread gathers directly: along each axis
-// the blend sum_o tri(r - o) V[p + m + o] over o in [-R, R] has at most two
-// non-zero taps, k = floor(r) and k + 1, so the warp is 8 clamped loads per
-// channel.  Indices clamp to [0, S-1], which is the edge padding of the
-// Pallas/XLA windows.  The weights use the same expressions as the tap sum
-// (tri(t) = max(0, 1-|t|) and dtri(t) = -sign(t) 1{|t|<1} at t = r - o), so
-// an integer r gives a zero derivative on its axis, as the Pallas gradient
-// does, and the order of the non-zero terms is the Pallas order.
+// per-element gather.  Along each axis the blend sum_o tri(r - o)
+// V[p + m + o] over o in [-R, R] has at most two non-zero taps, k and
+// k + 1, so the warp is 8 clamped loads per channel.  Indices clamp to
+// [0, S-1], which is the edge padding of the Pallas/XLA windows.  The
+// weights use the same expressions as the tap sum (tri(t) = max(0, 1-|t|)
+// and dtri(t) = -sign(t) 1{|t|<1} at t = r - o), so an integer r gives a
+// zero derivative on its axis, as the Pallas gradient does, and the order
+// of the non-zero terms is the Pallas order.
 //
-// What bounds it on the card: memory traffic.  Per output voxel it reads 3
-// residuals, 3 block means (cached: one 8^3 block shares them) and 8
-// volume values per channel from a window that neighbouring threads share
-// in L1/L2, and writes C (fwd) or 3 (dgrad) floats: at 2x1x128^3 that is
-// ~84 MB (fwd: 3 residuals, 1 volume value and 1 output per voxel), ~25 us
-// at the 3.35 TB/s of the H100 SXM data sheet (700 W).  Measured times are
-// in PERF.md.
+// B3, and B4 outside the window kernel's shapes: one thread per voxel
+// gathers its taps at k = floor(r) through L1/L2.  A warp's 32 x-lanes span
+// four 8^3 blocks with four shifts, so each tap load splits into four
+// unaligned segments.
+//
+// B4 at block 8 and 1 <= R <= 3 (the path's R 2): every tap of an 8^3 block
+// lies in one (8+2R)^3 source window at the block's integer shift, once the
+// lower tap is capped, k = min(floor(r), R-1) (at r = R the pair (R-1, R)
+// has weights (0, 1), as (R, R+1) had).  A thread block of 32 x 8 threads
+// owns a 32 x 8 x 8 tile, four blocks along x, one per 8 lanes of each
+// warp; it stages the four windows of each channel (4 x 12^3 floats, 27 KB
+// at R 2, C 1) by 4-byte cp.async (stage_windows, which B3 can share), then
+// each thread marches its 8 z-planes, reads r and g coalesced, takes its
+// taps from shared memory and writes its 3 words coalesced.  The window
+// coordinate is clamped into the window, so an r beyond +-R (outside the
+// contract) reads no memory outside it.  Several blocks per SM overlap one
+// block's staging with another's arithmetic.  Other block sizes, R > 3, R 0,
+// windows over 227 KB and batch elements of 2^31 words or more take the
+// per-voxel gather (shape dispatch).
+//
+// What bounds them on the card: memory traffic.  Per output voxel they read
+// 3 residuals, 3 block means per 8^3 voxels, 1 volume value per channel,
+// and write C (fwd) or 3 (dgrad) floats: at 2x1x128^3 that is ~84 MB for
+// B3 and ~134 MB for B4 (g too), ~25 and ~40 us at the 3.35 TB/s of the
+// H100 SXM data sheet (700 W).  The windows re-read ~3.4x the vol bytes
+// (12^3 / 8^3 at R 2) from L2.  On an H100 at 700 W, chip_probe_block.py
+// measures the window kernel at ~57% of B4's bound (the per-voxel gather
+// ~42%): its window staging alone reaches ~76% and a copy of its bytes
+// ~82%, so the taps take the rest; at 64 registers (4 blocks per SM) it
+// read ~52%, hence kWindowMinBlocks.  Times are in PERF.md.
 
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -61,6 +86,8 @@ __device__ __forceinline__ Taps taps(float r, int base, int n) {
 struct Geom {
   int B, C, D, H, W, block;
 };
+
+__device__ __forceinline__ int clampi(int i, int n) { return min(max(i, 0), n - 1); }
 
 // per-thread setup shared by both kernels: the three axes' taps
 __device__ __forceinline__ bool setup(const Geom& g, const float* r,
@@ -147,6 +174,165 @@ __global__ void block_warp_dgrad_kernel(const float* __restrict__ vol,
   ob[2 * V] = acc_z;
 }
 
+// ---- B4: the window kernel (block 8, 1 <= R <= 3) ----------------------------
+
+constexpr int BK = 8;              // block edge the windows serve
+constexpr int TXB = 32, TYB = 8;   // a tile: 32 x 8 x 8 voxels, four blocks along x
+constexpr int NTB = TXB * TYB;     // threads per thread block
+constexpr int NBX = TXB / BK;      // blocks per tile
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may opt into
+// Blocks per SM the window kernel is compiled for: it caps its registers at
+// 40, where it spills nothing (at 7 blocks, 32 registers, it spills)
+constexpr int kWindowMinBlocks = 6;
+
+// One block's source window per channel: E^3 voxels, E = 8 + 2R, padded to
+// NP so that the tile's four windows start 8 banks apart.
+template <int R>
+struct Window {
+  static constexpr int E = BK + 2 * R;
+  static constexpr int N = E * E * E;
+  static constexpr int NP = N + ((8 - N % 32) % 32 + 32) % 32;
+};
+
+template <int R>
+size_t window_bytes(int C) {
+  return sizeof(float) * (size_t)C * NBX * Window<R>::NP;
+}
+
+// The tile (x0, y0, z0) of batch element b that thread block (bx, by, bz)
+// owns: grid (ceil(W/32), H/8, B*D/8).
+struct BlockTile {
+  int b, x0, y0, z0;
+};
+
+__device__ __forceinline__ BlockTile block_tile(const Geom& g) {
+  const int nbz = g.D / BK;
+  return BlockTile{(int)blockIdx.z / nbz, (int)blockIdx.x * TXB, (int)blockIdx.y * TYB,
+                   ((int)blockIdx.z % nbz) * BK};
+}
+
+// Start copying, by 4-byte cp.async, the source windows of the tile's
+// blocks inside the volume: window (c, i) at win + (c NBX + i) NP holds
+// vol_c[clamp(o + j)] for j in [0, E)^3, where o = p_b + m_b - R is the
+// origin of block i (index clamping is the edge padding).  Then every tap
+// of the block, at p + m_b + {k, k+1} with k in [-R, R-1], is window point
+// p - p_b + R + {k, k+1}.  Each thread takes window columns (i, jy, jx),
+// consecutive threads neighbouring x, and copies their E z-points, so its
+// index arithmetic is done once per column.  Offsets are 32-bit inside one
+// batch element (the host keeps max(C, 3) V < 2^31).  The caller commits,
+// waits and synchronises.
+template <int R>
+__device__ __forceinline__ void stage_windows(float* win, const float* vol, const int* m,
+                                              const BlockTile& t, const Geom& g) {
+  using Wn = Window<R>;
+  constexpr int E = Wn::E;
+  const int P = g.H * g.W, V = g.D * P;
+  const int nby = g.H / BK, nbx = g.W / BK, NB = g.D / BK * nby * nbx;
+  const int* mb = m + (long long)t.b * 3 * NB + (t.z0 / BK * nby + t.y0 / BK) * nbx + t.x0 / BK;
+  const float* vb = vol + (long long)t.b * g.C * V;
+  for (int q = threadIdx.x; q < NBX * E * E; q += NTB) {
+    const int i = q / (E * E), jy = q / E % E, jx = q % E;
+    if (t.x0 + i * BK >= g.W) break;  // i only grows with q
+    const int ox = t.x0 + i * BK + mb[i] - R, oy = t.y0 + mb[NB + i] - R,
+              oz = t.z0 + mb[2 * NB + i] - R;
+    const int col = clampi(oy + jy, g.H) * g.W + clampi(ox + jx, g.W);
+    for (int c = 0; c < g.C; ++c) {
+      float* dst = win + (c * NBX + i) * Wn::NP + jy * E + jx;
+      const float* src = vb + c * V + col;
+#pragma unroll
+      for (int jz = 0; jz < E; ++jz) cp_async4(dst + jz * E * E, src + clampi(oz + jz, g.D) * P);
+    }
+  }
+}
+
+// Each thread owns column (x0 + tx, y0 + ty) of the tile and marches its 8
+// z-planes: r and g read coalesced (the next plane's r once this plane's
+// taps are summed), the 8 taps per channel from its block's window, 3
+// output words written coalesced.
+template <int R>
+__global__ void __launch_bounds__(NTB, kWindowMinBlocks)
+    dgrad_window_kernel(const float* __restrict__ vol, const float* __restrict__ r,
+                        const int* __restrict__ m, const float* __restrict__ gin,
+                        float* __restrict__ out, Geom g) {
+  using Wn = Window<R>;
+  constexpr int E = Wn::E;
+  extern __shared__ float win[];  // [C][NBX][NP]
+  const BlockTile t = block_tile(g);
+  stage_windows<R>(win, vol, m, t, g);
+  cp_async_commit();
+  const int tid = threadIdx.x, tx = tid % TXB, ty = tid / TXB;
+  const int C = g.C, x = t.x0 + tx;
+  const int P = g.H * g.W, V = g.D * P;  // 32-bit offsets inside one batch element
+  const int here = t.z0 * P + (t.y0 + ty) * g.W + x;
+  const float* rb = r + (long long)t.b * 3 * V + here;
+  const float* gb = gin + (long long)t.b * C * V + here;
+  float* ob = out + (long long)t.b * 3 * V + here;
+  // window point of this column's lower taps at k = 0
+  const float* wb = win + (tx / BK) * Wn::NP + (R * E + ty + R) * E + tx % BK + R;
+  float rc[3] = {0.0f, 0.0f, 0.0f};  // r of the current plane
+  const bool live = x < g.W;
+  if (live)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) rc[a] = rb[a * V];
+  cp_async_wait_all();
+  __syncthreads();
+  if (!live) return;
+  for (int lz = 0; lz < BK; ++lz) {
+    const int zo = lz * P;
+    int off = 0;  // window offset of the lower taps, kept inside the window
+    float w0[3], w1[3], dw[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int k = min((int)floorf(rc[a]), R - 1);
+      const float t0 = rc[a] - (float)k, t1 = rc[a] - (float)(k + 1);
+      const int lo = a == 2 ? lz : (a == 1 ? ty : tx % BK);  // p - p_b along axis a
+      off += (min(max(lo + R + k, 0), E - 2) - (lo + R)) * (a == 0 ? 1 : (a == 1 ? E : E * E));
+      w0[a] = tri(t0);
+      w1[a] = tri(t1);
+      dw[a] = dtri(t0);  // dtri(t1) = -dtri(t0): t1 = t0 - 1 with t0 in [0, 1]
+    }
+    const float* tap = wb + lz * E * E + off;
+    float acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float* row = tap + (a * E + e) * E;
+        // sg_k = sum_c g_c V_c[tap k]: channels first, as the Pallas kernel
+        float sg0 = 0.0f, sg1 = 0.0f;
+        for (int c = 0; c < C; ++c) {
+          const float gc = gb[c * V + zo];
+          sg0 += gc * row[c * NBX * Wn::NP];
+          sg1 += gc * row[c * NBX * Wn::NP + 1];
+        }
+        const float wz = a ? w1[2] : w0[2], wy = e ? w1[1] : w0[1];
+        const float dwz = a ? -dw[2] : dw[2], dwy = e ? -dw[1] : dw[1];
+        const float a_sum = dw[0] * sg0 + -dw[0] * sg1;
+        const float b_sum = w0[0] * sg0 + w1[0] * sg1;
+        acc_x += (wz * wy) * a_sum;
+        acc_y += (wz * dwy) * b_sum;
+        acc_z += (dwz * wy) * b_sum;
+      }
+    ob[zo] = acc_x;
+    ob[V + zo] = acc_y;
+    ob[2 * V + zo] = acc_z;
+    if (lz + 1 < BK)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) rc[a] = rb[a * V + zo + P];
+  }
+}
+
+template <int R>
+int dgrad_window(const float* vol, const float* r, const int* m, const float* g_in,
+                 float* out, const Geom& g, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dgrad_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((g.W + TXB - 1) / TXB, g.H / TYB, g.B * (g.D / BK));
+  dgrad_window_kernel<R><<<grid, NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, g_in, out, g);
+  return (int)cudaGetLastError();
+}
+
 dim3 grid_for(const Geom& g, dim3 block) {
   return dim3((g.W + block.x - 1) / block.x, (g.H + block.y - 1) / block.y,
               g.B * g.D);
@@ -164,12 +350,22 @@ extern "C" int block_warp_fwd(const float* vol, const float* r, const int* m,
   return (int)cudaGetLastError();
 }
 
+// radius: the R to which the caller clipped r (|r| <= R)
 extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
                                 const float* g_in, float* out, int B, int C,
-                                int D, int H, int W, int block, void* stream) {
+                                int D, int H, int W, int block, int radius,
+                                void* stream) {
   const Geom g{B, C, D, H, W, block};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (block == BK && (C > 3 ? C : 3) * ((long long)D * H * W) < (1LL << 31)) {
+    if (radius == 1 && window_bytes<1>(C) <= (size_t)kSmemMax)
+      return dgrad_window<1>(vol, r, m, g_in, out, g, st);
+    if (radius == 2 && window_bytes<2>(C) <= (size_t)kSmemMax)
+      return dgrad_window<2>(vol, r, m, g_in, out, g, st);
+    if (radius == 3 && window_bytes<3>(C) <= (size_t)kSmemMax)
+      return dgrad_window<3>(vol, r, m, g_in, out, g, st);
+  }
   const dim3 threads(32, 8);
-  block_warp_dgrad_kernel<<<grid_for(g, threads), threads, 0,
-                            (cudaStream_t)stream>>>(vol, r, m, g_in, out, g);
+  block_warp_dgrad_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, g_in, out, g);
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int TX = 32;             // tile width (x): one warp per row
@@ -84,19 +86,6 @@ __device__ __forceinline__ float lerp2_t(float c0, float cm, float cp,
   if (i == 0) t += -neg(w0) * c0;
   if (i == n - 1) t += pos(w0) * c0;
   return t;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most one committed group (the plane in flight) is pending
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 struct Geom {

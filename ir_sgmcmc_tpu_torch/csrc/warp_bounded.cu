@@ -24,8 +24,19 @@
 // displacement takes the same zero derivative as the Pallas and XLA
 // gradients.  Clamping a source index to [0, n-1] is the edge padding.
 //
-// B5: one thread per voxel gathers its 8 clamped taps per channel through
-// L1/L2 (~47% of its HBM bound on an H100).
+// B5 (R <= 3, ring fits in shared memory) marches z over B6's 32 x 8 tile
+// and 2R+3-plane ring (below), without g and the derivative weights.  Its
+// staging is cheaper than B6's: a staged row is 40 floats with the tile's
+// 32-float interior at column 4, so where the interior lies inside the
+// volume (W % 4 == 0, vol 16-byte aligned, x0 + 32 <= W) each row enters
+// by eight 16-byte cp.async.cg copies plus 2R 4-byte ones for the clamped
+// halo columns: (8 + 2R)(8 + 2R) copies per plane instead of (32 + 2R)(8 +
+// 2R).  A clamped y-row or z-plane is still a contiguous interior; a tile
+// that crosses the x-border, W % 4 != 0, or a misaligned vol, copies every
+// point by 4 bytes from clamped indices.  Shape dispatch: R > 3, a ring
+// (2R+3) C 40 (8+2R) x 4 bytes over 227 KB, or a batch element of 2^31
+// words or more, takes the per-voxel gather (one thread per voxel, its 8
+// taps through L1/L2; it needs no cap on k).
 //
 // B6 (R <= 3, ring fits in shared memory): a block of 32 x 8 threads owns a
 // 32 x 8 (x, y) tile of one batch element and marches through TZ z-planes.
@@ -78,9 +89,16 @@
 // B6 gather is bound by its taps' L1/L2 traffic (three blocks read each vol
 // plane, ~42%); the ring reads each plane once per block and lands at
 // ~52%, its staging schedule alone at ~70% and a copy of its bytes at ~82%.
+// B5's ring lands at ~60% (the per-voxel gather ~48%): its staging schedule
+// alone reaches ~66%, the same schedule with no copies ~78%, as a copy of
+// its bytes does; 16-byte instead of 4-byte copies gain ~1% of that.
 // Times are in PERF.md (kernel table).
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -115,6 +133,7 @@ __device__ __forceinline__ Taps taps(float d, int base, int n) {
 struct Geom {
   int B, C, D, H, W;
   float R;
+  int vec;  // B5: W % 4 == 0 and vol 16-byte aligned, so rows may go by 16 bytes
 };
 
 // thread -> (b, z, y, x); false outside the volume
@@ -212,19 +231,6 @@ struct Halo {
   static constexpr int HP = HX * HY;           // floats per haloed plane
   static constexpr int LPT = (HP + NT - 1) / NT;  // haloed points per thread
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most one committed group (the plane in flight) is pending
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // One block's place: (x, y) tile of TX x tile_h, batch element, chunk of
 // `chunk` channels, z-chunk.
@@ -394,6 +400,141 @@ __global__ void __launch_bounds__(NT)
     }
 #pragma unroll
     for (int a = 0; a < 3; ++a) dc[a] = dn[a];
+  }
+}
+
+// ---- B5: the forward z-march ----------------------------------------------
+
+constexpr int kFwdPitch = 40;  // floats per staged row: 4 + TX + R <= 40, a multiple of 4
+// Blocks per SM the ring kernel is compiled for: it caps its registers at
+// 48, where it spills nothing (at 6 and 8 blocks, 40 and 32 registers, it
+// spills and reads slower; uncapped it takes ~90)
+constexpr int kFwdMinBlocks = 5;
+
+// B5's ring of haloed vol planes.  A staged row is FP floats: the tile's
+// TX-float interior at column 4 (16-byte aligned), its R left halo columns
+// just before and its R right ones just after.
+template <int R>
+struct FwdRing {
+  static constexpr int HY = TY + 2 * R;
+  static constexpr int FP = kFwdPitch;     // row pitch
+  static constexpr int HPP = FP * HY;      // floats per staged plane
+  static constexpr int RING = 2 * R + 3;
+  static constexpr int NV = TX / 4 * HY;   // quarter-rows of the interiors
+  static constexpr int NH = 2 * R * HY;    // points of the halo columns
+  static_assert(4 + TX + R <= FP && NV + NH <= NT, "one quarter-row or halo point per thread");
+};
+
+// One thread's share of staging a haloed plane: a quarter-row of the
+// interior (n = 4 points from column x) or one halo point (n = 1) of staged
+// row `row`, into slot offset dst.  A quarter-row goes by one 16-byte copy
+// where the tile's interior lies inside the volume (`wide`), else by four
+// 4-byte copies from clamped columns.  Clamping indices in device memory is
+// the edge padding.
+template <int R>
+struct FwdStage {
+  using F = FwdRing<R>;
+  int src, x, dst, n;  // clamped row offset, first column, slot offset, points
+
+  __device__ __forceinline__ FwdStage(const Place& pl, int H, int W) {
+    const int tid = threadIdx.x, h = tid - F::NV;
+    const int row = tid < F::NV ? tid / (TX / 4) : h / (2 * R);
+    src = clampi(pl.y0 - R + row, H) * W;
+    if (tid < F::NV) {
+      x = pl.x0 + 4 * (tid % (TX / 4));
+      n = 4;
+    } else {
+      x = pl.x0 - R + (h % (2 * R) < R ? h % (2 * R) : TX + h % (2 * R));
+      n = h < F::NH ? 1 : 0;
+    }
+    dst = row * F::FP + 4 + x - pl.x0;
+  }
+
+  // start copying `plane` (C channels, V apart) into `slot` (C x HPP)
+  __device__ __forceinline__ void operator()(float* slot, const float* plane, int V, int C,
+                                             int W, bool wide) const {
+    for (int c = 0; c < C; ++c) {
+      float* d = slot + c * F::HPP + dst;
+      const float* s = plane + c * V + src;
+      if (n == 4 && wide) {
+        cp_async16(d, s + x);
+      } else {
+        for (int j = 0; j < n; ++j) cp_async4(d + j, s + clampi(x + j, W));
+      }
+    }
+  }
+};
+
+template <int R>
+__global__ void __launch_bounds__(NT, kFwdMinBlocks)
+    fwd_tile_kernel(const float* __restrict__ vol, const float* __restrict__ disp,
+                    float* __restrict__ out, Geom g) {
+  using F = FwdRing<R>;
+  constexpr int FP = F::FP, HPP = F::HPP, RING = F::RING;
+  extern __shared__ __align__(16) float fwd_ring[];  // [RING][C][HPP]
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int C = g.C, D = g.D, H = g.H, W = g.W;
+  const Place pl = place(g, C, TY);
+  // 32-bit offsets inside one batch element: the host keeps max(C, 3) V < 2^31
+  const int P = H * W, V = D * P;
+  const float* vb = vol + (long long)pl.b * C * V;
+  const FwdStage<R> copies(pl, H, W);
+  // 16-byte rows where the tile's interior lies inside the volume
+  const bool wide = g.vec && pl.x0 + TX <= W;
+  // start copying staged plane `rel` (z = z0 - R + rel, clamped) into its slot
+  auto stage = [&](int rel) {
+    copies(fwd_ring + (rel % RING) * C * HPP, vb + clampi(pl.z0 - R + rel, D) * P, V, C, W,
+           wide);
+  };
+  for (int rel = 0; rel <= 2 * R; ++rel) {
+    stage(rel);
+    cp_async_commit();
+  }
+  const int x = pl.x0 + tx, y = pl.y0 + ty;
+  const bool live = x < W && y < H;
+  const int here = pl.z0 * P + y * W + x;
+  const float* db = disp + (long long)pl.b * 3 * V + here;
+  float* ob = out + (long long)pl.b * C * V + here;
+  // disp of the current plane: read after the previous plane's taps, so its
+  // latency hides behind the next barrier
+  float d[3] = {0.0f, 0.0f, 0.0f};
+  if (live)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) d[a] = db[a * V];
+  const float Rf = (float)R;
+  for (int k = 0; k < pl.nz; ++k) {
+    if (k + 1 < pl.nz) stage(k + 2 * R + 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    if (!live) continue;
+    int kk[3];
+    float w0[3], w1[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float da = clipf(d[a], Rf);
+      kk[a] = min((int)floorf(da), R - 1);
+      w0[a] = tri(da - (float)kk[a]);
+      w1[a] = tri(da - (float)(kk[a] + 1));
+    }
+    // ring slots of the two z taps; the y and x taps are +0/+FP and +0/+1
+    const int slot[2] = {(k + R + kk[2]) % RING * C, (k + R + kk[2] + 1) % RING * C};
+    const int tap = (ty + R + kk[1]) * FP + 4 + tx + kk[0];
+    const float wz[2] = {w0[2], w1[2]}, wy[2] = {w0[1], w1[1]};
+    for (int c = 0; c < C; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* rc = fwd_ring + (slot[a] + c) * HPP + tap + e * FP;
+          acc += (wz[a] * wy[e]) * (w0[0] * rc[0] + w1[0] * rc[1]);
+        }
+      ob[c * V + k * P] = acc;
+    }
+    if (k + 1 < pl.nz)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) d[a] = db[a * V + (k + 1) * P];
   }
 }
 
@@ -637,16 +778,47 @@ size_t dgrad_ring_bytes(int R, int C) {
   return sizeof(float) * (size_t)(2 * R + 3) * C * (TX + 2 * R) * (TY + 2 * R);
 }
 
+template <int R>
+int fwd_tile(const float* vol, const float* disp, float* out, const Geom& g,
+             cudaStream_t stream) {
+  static const cudaError_t attr = allow_smem(fwd_tile_kernel<R>);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = sizeof(float) * FwdRing<R>::RING * g.C * FwdRing<R>::HPP;
+  fwd_tile_kernel<R><<<tile_grid(g, g.C, TY), NT, smem, stream>>>(vol, disp, out, g);
+  return (int)cudaGetLastError();
+}
+
+// B5's ring: 2R+3 haloed planes of every channel
+size_t fwd_ring_bytes(int R, int C) {
+  return sizeof(float) * (size_t)(2 * R + 3) * C * kFwdPitch * (TY + 2 * R);
+}
+
+// B5 for any geometry: the ring where R <= 3, it fits and a batch element's
+// offsets fit in 32 bits, else the per-voxel gather
+int fwd_launch(const float* vol, const float* disp, float* out, const Geom& g,
+               cudaStream_t stream) {
+  const int R = (int)g.R;
+  const long long V = (long long)g.D * g.H * g.W;
+  if (R <= 3 && fwd_ring_bytes(R, g.C) <= (size_t)kSmemMax && (g.C > 3 ? g.C : 3) * V < (1LL << 31)) {
+    switch (R) {
+      case 1: return fwd_tile<1>(vol, disp, out, g, stream);
+      case 2: return fwd_tile<2>(vol, disp, out, g, stream);
+      case 3: return fwd_tile<3>(vol, disp, out, g, stream);
+    }
+  }
+  const dim3 threads(32, 8);
+  warp_bounded_fwd_kernel<<<grid_for(g, threads), threads, 0, stream>>>(vol, disp, out, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int warp_bounded_fwd(const float* vol, const float* disp, float* out,
                                 int B, int C, int D, int H, int W, int R,
                                 void* stream) {
-  const Geom g{B, C, D, H, W, (float)R};
-  const dim3 threads(32, 8);
-  warp_bounded_fwd_kernel<<<grid_for(g, threads), threads, 0,
-                            (cudaStream_t)stream>>>(vol, disp, out, g);
-  return (int)cudaGetLastError();
+  Geom g{B, C, D, H, W, (float)R};
+  g.vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(vol) % 16 == 0;
+  return fwd_launch(vol, disp, out, g, (cudaStream_t)stream);
 }
 
 extern "C" int warp_bounded_dgrad(const float* vol, const float* disp,

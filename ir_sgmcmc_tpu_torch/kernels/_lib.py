@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -33,7 +34,7 @@ _SIGNATURES = {
     "split_warp_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "split_warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "block_warp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "block_warp_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "block_warp_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_tblend": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -83,6 +84,59 @@ def load_library() -> ctypes.CDLL:
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib
+
+
+def build_variants(kernel: str, probe_src: str, variants: dict) -> tuple:
+    """Build, in parallel, one library per variant for the chip probes:
+    ``probe_src`` (which ``#include``\\ s ``kernel``, a file of ``csrc/``)
+    over a copy of ``kernel`` whose lines ``constexpr int NAME = <v>;`` take
+    the variant's ``{NAME: value}``.  Returns ``{variant: CDLL}`` and
+    ``{variant: nvcc log}``; raises if a constant is not declared or a
+    build fails."""
+    src = (CSRC / kernel).read_text()
+    procs = {}
+    for name, consts in variants.items():
+        work = BUILD_DIR / f"probe_{Path(kernel).stem}_{name}"
+        work.mkdir(parents=True, exist_ok=True)
+        text = src
+        for const, value in consts.items():
+            decl = re.search(rf"constexpr int {const} = (\d+);", text)
+            if decl is None:
+                raise RuntimeError(f"{kernel} no longer declares constexpr int {const}")
+            text = text.replace(decl.group(0), f"constexpr int {const} = {value};")
+        (work / kernel).write_text(text)
+        (work / "probe.cu").write_text(probe_src)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(work), "-I", str(CSRC), "-o",
+               str(work / "libprobe.so"), str(work / "probe.cu")]
+        procs[name] = (work, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+    libs, logs = {}, {}
+    for name, (work, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        (work / "nvcc.log").write_text(logs[name])
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for probe variant {name}:\n{logs[name][-4000:]}")
+        libs[name] = ctypes.CDLL(str(work / "libprobe.so"))
+    return libs, logs
+
+
+def ptxas_summary(log: str) -> list:
+    """``name<template args>: N registers, S bytes spill stores`` for each
+    kernel of an ``nvcc -Xptxas -v`` log."""
+    rows, name, spill = [], None, "?"
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function .*?\d+([a-z][a-z_]*_kernel)(I(?:L[ib]\d+E)+E)?",
+                          ln)
+        if entry:
+            args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
+            name = entry.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif name and "spill stores" in ln:
+            spill = re.search(r"(\d+) bytes spill stores", ln).group(1)
+        elif name and "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            rows.append(f"{name}: {regs} registers, {spill} bytes spill stores")
+            name, spill = None, "?"
+    return rows
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

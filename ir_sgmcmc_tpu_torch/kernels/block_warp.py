@@ -5,8 +5,9 @@ CUDA source: ``csrc/block_warp.cu``.  Replaces the Pallas kernels
 ``ir_sgmcmc_tpu/ops/pallas_block_warp.py::block_warp_pallas`` (B3) and
 ``::block_warp_dgrad_pallas`` (B4).
 
-Operands (batched over chains): ``vol (B, C, D, H, W)`` f32, the clipped
-residual ``r (B, 3, D, H, W)`` f32 (channel 0 = x), the block means
+Operands (batched over chains): ``vol (B, C, D, H, W)`` f32, the
+residual ``r (B, 3, D, H, W)`` f32 clipped to ``±radius`` (channel 0 = x),
+the block means
 ``m (B, 3, D/k, H/k, W/k)`` int32 for block edge ``k``.  Both versions
 evaluate ``Σ_o tri(r-o) V[clamp(p+m+o)]`` through its two non-zero taps
 per axis, with the derivative-of-triangle weights ``-sign(t)·1{|t|<1}``
@@ -138,13 +139,18 @@ def block_warp_cuda(vol, r, m, block: int = 8) -> torch.Tensor:
     return out
 
 
-def block_warp_dgrad_cuda(vol, r, m, g, block: int = 8) -> torch.Tensor:
-    """B4 on the card."""
+def block_warp_dgrad_cuda(vol, r, m, g, radius: int, block: int = 8) -> torch.Tensor:
+    """B4 on the card.  ``r`` arrives clipped to ``±radius``: the kernel
+    stages each block's ``(block + 2·radius)³`` source window and takes the
+    taps from it (an ``r`` beyond that stays inside the window but reads
+    wrong taps)."""
     B, C, D, H, W = _check(vol, r, m, block)
+    if int(radius) != radius or radius < 0:
+        raise ValueError(f"radius must be a non-negative integer, got {radius!r}")
     check_operand("g", g, (B, C, D, H, W), device=vol.device)
     out = torch.empty_like(r)
     B4.launch(vol.device, ptr(vol), ptr(r), ptr(m), ptr(g), ptr(out),
-              B, C, D, H, W, block)
+              B, C, D, H, W, block, int(radius))
     return out
 
 
@@ -156,7 +162,8 @@ def block_warp(vol, r, m, block: int = 8) -> torch.Tensor:
     return block_warp_plain(vol, r, m, block)
 
 
-def block_warp_dgrad(vol, r, m, g, block: int = 8) -> torch.Tensor:
+def block_warp_dgrad(vol, r, m, g, radius: int, block: int = 8) -> torch.Tensor:
+    """B4; ``radius`` is the clip of ``r``, which only the kernel needs."""
     if vol.is_cuda:
-        return block_warp_dgrad_cuda(vol, r, m, g, block)
+        return block_warp_dgrad_cuda(vol, r, m, g, radius, block)
     return block_warp_dgrad_plain(vol, r, m, g, block)

@@ -63,14 +63,14 @@ class BlockGatherWarp(torch.autograd.Function):
     def forward(ctx, vol, disp_vox, max_disp, radius, block):
         m, r_raw = _residual(disp_vox, block, max_disp)
         r_c = torch.clamp(r_raw, -radius, radius).contiguous()
-        ctx.block = block
+        ctx.block, ctx.radius = block, radius
         ctx.save_for_backward(vol, r_c, m, torch.abs(r_raw) <= radius)
         return _bw.block_warp(vol, r_c, m, block)
 
     @staticmethod
     def backward(ctx, g):
         vol, r_c, m, inside = ctx.saved_tensors
-        g_r = _bw.block_warp_dgrad(vol, r_c, m, g.contiguous(), ctx.block)
+        g_r = _bw.block_warp_dgrad(vol, r_c, m, g.contiguous(), ctx.radius, ctx.block)
         return None, torch.where(inside, g_r, torch.zeros_like(g_r)), None, None, None
 
 

@@ -35,17 +35,36 @@ def _split_inputs(dev, shape=(2, 3, 16, 24, 40)):
     return d, u, g
 
 
-def _block_inputs(dev, shape=(2, 2, 16, 24, 40), bound=9, radius=2):
+def _block_inputs(dev, shape=(2, 2, 16, 24, 40), bound=9, radius=2, block=8, saturate=False):
+    """vol, r, m, g; every 5th residual an integer.  ``saturate``: block
+    means of ±bound in the blocks next to the z and x borders, whose source
+    windows clamp, and every 9th residual exactly +R, every 11th -R."""
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
     from ir_sgmcmc_tpu_torch.ops.resample import _block_means
 
     gen = torch.Generator(device=dev).manual_seed(1)
     vol = torch.randn(shape, generator=gen, device=dev)
     disp = torch.randn((shape[0], 3) + shape[2:], generator=gen, device=dev) + 3.0
-    m = _block_means(disp, 8, bound)
-    r = (disp - bw._expand_blocks(m, 8).float()).clamp(-radius, radius)
-    r.view(-1)[::5] = torch.round(r.view(-1)[::5])  # integer residuals
+    if saturate:
+        disp[:, :, :block] = bound + 0.4
+        disp[:, :, -block:] = -bound - 0.4
+        disp[..., -block:] = torch.where(disp[..., -block:] < 0, -bound - 0.4, bound + 0.4)
+    m = _block_means(disp, block, bound)
+    r = (disp - bw._expand_blocks(m, block).float()).clamp(-radius, radius)
+    flat = r.view(-1)
+    flat[::5] = torch.round(flat[::5])  # integer residuals
+    if saturate:
+        flat[1::9] = radius
+        flat[2::11] = -radius
     return vol, r, m, torch.randn(shape, generator=gen, device=dev)
+
+
+# (shape, bound, radius, block, saturate): the path's shape, ragged shapes
+# whose dims divide by 8 but are neither cubes nor multiples of the window
+# kernel's 32-wide tile, R 3, and block 4 (B4's per-voxel gather)
+BLOCK_SHAPES = [((2, 2, 16, 24, 40), 9, 2, 8, False), ((2, 1, 128, 128, 128), 9, 2, 8, False),
+                ((1, 4, 16, 24, 136), 6, 1, 8, True), ((2, 2, 24, 8, 40), 9, 2, 8, True),
+                ((1, 2, 16, 16, 72), 9, 3, 8, True), ((2, 2, 12, 8, 20), 5, 2, 4, True)]
 
 
 @pytest.mark.parametrize("shape,slab", [
@@ -71,14 +90,30 @@ def test_split_kernels_match_plain(cuda, shape, slab):
         assert torch.equal(gu[:, :, z], torch.zeros_like(gu[:, :, z]))
 
 
-def test_block_kernels_match_plain(cuda):
+@pytest.mark.parametrize("shape,bound,radius,block,saturate", BLOCK_SHAPES)
+def test_block_kernels_match_plain(cuda, shape, bound, radius, block, saturate):
+    """B3 and B4 against their plain versions; B4's window kernel at block
+    8 and R 1-3, its per-voxel gather at block 4."""
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
 
-    vol, r, m, g = _block_inputs(cuda)
-    torch.testing.assert_close(bw.block_warp_cuda(vol, r, m), bw.block_warp_plain(vol, r, m),
-                               atol=1e-5, rtol=0)
-    torch.testing.assert_close(bw.block_warp_dgrad_cuda(vol, r, m, g),
-                               bw.block_warp_dgrad_plain(vol, r, m, g), atol=5e-4, rtol=1e-4)
+    vol, r, m, g = _block_inputs(cuda, shape, bound, radius, block, saturate)
+    if saturate:
+        assert int(m.abs().max()) == bound
+    torch.testing.assert_close(bw.block_warp_cuda(vol, r, m, block),
+                               bw.block_warp_plain(vol, r, m, block), atol=1e-5, rtol=0)
+    torch.testing.assert_close(bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block),
+                               bw.block_warp_dgrad_plain(vol, r, m, g, block),
+                               atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,bound,radius,block,saturate", BLOCK_SHAPES[2:4])
+def test_block_dgrad_is_deterministic(cuda, shape, bound, radius, block, saturate):
+    """Two launches of B4 on the same inputs are bitwise equal."""
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+
+    vol, r, m, g = _block_inputs(cuda, shape, bound, radius, block, saturate)
+    first = bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block)
+    assert torch.equal(first, bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block))
 
 
 def test_autograd_functions_on_card_match_cpu(cuda):
@@ -120,7 +155,8 @@ def _bounded_inputs(dev, shape, radius):
 
 BOUNDED_SHAPES = [((2, 1, 16, 24, 40), 1), ((2, 4, 9, 10, 11), 2), ((1, 3, 5, 6, 7), 3),
                   ((2, 1, 40, 24, 130), 1), ((1, 2, 17, 10, 70), 2), ((1, 3, 2, 1, 9), 3),
-                  ((2, 5, 10, 9, 35), 1), ((1, 2, 9, 12, 40), 4), ((1, 13, 5, 6, 7), 3)]
+                  ((2, 5, 10, 9, 35), 1), ((1, 2, 9, 12, 40), 4), ((1, 13, 5, 6, 7), 3),
+                  ((2, 2, 20, 12, 100), 2), ((1, 1, 18, 9, 64), 3)]
 
 
 @pytest.mark.parametrize("shape,radius", BOUNDED_SHAPES)
@@ -129,10 +165,13 @@ def test_bounded_kernels_match_plain(cuda, shape, radius):
     these kernels) plus rtol 1e-5 for sums of up to 27·C products.
 
     The shapes straddle the 32 x 8 (x, y) tiles and 16-plane z-chunks of
-    B6 and B7, have dims of 1 and 2 at R 3 (the fold covers more than the
+    B5-B7, have dims of 1 and 2 at R 3 (the fold covers more than the
     volume), 5 channels (two channel chunks of B7), R 4 (B7's run-time-R
-    kernel, B6's per-voxel gather) and 13 channels at R 3 (a B6 ring over
-    the shared memory: the per-voxel gather)."""
+    kernel, the per-voxel gathers of B5 and B6) and 13 channels at R 3
+    (rings of B5 and B6 over the shared memory: the per-voxel gathers).
+    B5 stages 16-byte rows where W % 4 == 0 (widths 40, 100, 64) except in
+    the tile that crosses the x-border, and 4-byte points at widths 130,
+    70, 11, 35 and 7."""
     from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
 
     vol, disp, g = _bounded_inputs(cuda, shape, radius)
@@ -158,6 +197,22 @@ def test_bounded_backward_kernels_are_deterministic(cuda, shape, radius):
                 lambda: wb.warp_bounded_tblend_cuda(disp, g, radius)):
         first = run()
         assert torch.equal(first, run())
+
+
+@pytest.mark.parametrize("shape,radius", [((2, 1, 40, 24, 128), 1), ((1, 3, 17, 10, 100), 2)])
+def test_warp_bounded_fwd_is_deterministic_on_both_stagings(cuda, shape, radius):
+    """Two launches of B5 are bitwise equal, and equal to B5 on a copy of
+    vol that is 4 bytes off 16-byte alignment (every point staged by 4
+    bytes: the same taps in the same order)."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    vol, disp, _ = _bounded_inputs(cuda, shape, radius)
+    first = wb.warp_bounded_fwd_cuda(vol, disp, radius)
+    assert torch.equal(first, wb.warp_bounded_fwd_cuda(vol, disp, radius))
+    shifted = torch.empty(vol.numel() + 1, device=cuda)[1:].view(shape)
+    shifted.copy_(vol)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(first, wb.warp_bounded_fwd_cuda(shifted, disp, radius))
 
 
 def test_warp_bounded_autograd_on_card_matches_cpu(cuda):

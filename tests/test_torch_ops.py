@@ -224,7 +224,7 @@ def test_block_warp_kernels_match_jax_pallas(bound, radius):
     _close(out[0], ref, 1e-5)
 
     dg = tbw.block_warp_dgrad(_t(vol)[None], _t(r_c)[None], torch.as_tensor(m)[None],
-                              _t(g)[None])
+                              _t(g)[None], radius)
     dref = block_warp_dgrad_pallas(vol, r_c, m, g, bound, radius, interpret=True)
     _close(dg[0], dref, 5e-4, 1e-4)
     # integer residual -> zero derivative along that axis
@@ -264,6 +264,127 @@ def test_warp_block_gather_matches_jax_with_overflow(pallas):
     assert int(tres.block_residual_overflow(_t(disp)[None], bound, radius, 8)[0]) == n_over
 
 
+def _tri_np(t):
+    return np.maximum(0.0, 1.0 - np.abs(t))
+
+
+def _dtri_np(t):
+    return -np.sign(t) * (np.abs(t) < 1.0)
+
+
+def _window_form(vol, r, m, g, radius, block=8):
+    """B4's CUDA formulation (and B3's, which will share its staging) in
+    numpy: per block, the ``(block + 2R)³`` source window at origin
+    ``p_b + m_b − R`` with each index clamped to the volume, and the taps
+    at window points ``l + R + k`` and ``+1``, ``l = p − p_b``,
+    ``k = min(floor(r), R − 1)``.  ``vol, g (C, D, H, W)``, ``r (3, D, H,
+    W)`` clipped to ±R, ``m (3, nbz, nby, nbx)``.  Returns the warp and
+    ``∂(Σ_c g_c·warp_c)/∂r``, summed in the kernel's order."""
+    C, D, H, W = vol.shape
+    E = block + 2 * radius
+    dims = (D, H, W)
+    # per block and axis: the clamped source index of each window point
+    idx = []
+    for a, n in enumerate(dims):  # a: 0 = z, 1 = y, 2 = x
+        nb = [1, 1, 1]
+        nb[a] = n // block
+        p_b = (np.arange(n // block) * block).reshape(nb)
+        o = p_b + m[2 - a] - radius  # m's channel 0 is x
+        idx.append(np.clip(o[..., None] + np.arange(E), 0, n - 1))
+    win = vol[:, idx[0][..., :, None, None], idx[1][..., None, :, None],
+              idx[2][..., None, None, :]]  # (C, nbz, nby, nbx, E, E, E)
+    p = np.meshgrid(*(np.arange(n) for n in dims), indexing="ij")
+    j, w, dw = [], [], []
+    for a in range(3):
+        ra = r[2 - a]
+        k = np.minimum(np.floor(ra), radius - 1)
+        ja = p[a] % block + radius + k.astype(np.int64)
+        # both taps inside the window: staging it once serves the block
+        assert ja.min() >= 0 and ja.max() + 1 <= E - 1
+        j.append(ja)
+        w.append([_tri_np(ra - (k + s)) for s in (0, 1)])
+        dw.append([_dtri_np(ra - (k + s)) for s in (0, 1)])
+    bz, by, bx = (q // block for q in p)
+
+    def tap(a, e, f):
+        return win[:, bz, by, bx, j[0] + a, j[1] + e, j[2] + f]
+
+    out = np.zeros_like(vol)
+    acc = np.zeros((3,) + dims, np.float32)
+    for a in (0, 1):
+        for e in (0, 1):
+            t0, t1 = tap(a, e, 0), tap(a, e, 1)
+            out += (w[0][a] * w[1][e]) * (w[2][0] * t0 + w[2][1] * t1)
+            sg0, sg1 = np.sum(g * t0, axis=0), np.sum(g * t1, axis=0)
+            a_sum = dw[2][0] * sg0 + dw[2][1] * sg1
+            b_sum = w[2][0] * sg0 + w[2][1] * sg1
+            acc[0] += (w[0][a] * w[1][e]) * a_sum
+            acc[1] += (w[0][a] * dw[1][e]) * b_sum
+            acc[2] += (dw[0][a] * w[1][e]) * b_sum
+    return out, acc
+
+
+@pytest.mark.parametrize("bound,radius", [(9, 2), (6, 1)])
+def test_block_window_form_matches_jax_pallas(bound, radius):
+    """B4's window formulation in numpy against the Pallas kernels
+    (interpret) on a field whose block means reach ±bound in the blocks
+    next to the z and x borders (their windows clamp), with residuals
+    exactly ±R and at integers (the capped lower tap)."""
+    shape = (16, 16, 128)
+    rng = np.random.default_rng(14 + radius)
+    vol = _rand(rng, (1,) + shape)
+    disp = np.array(_smooth_disp(shape, bound - 0.5, 15))
+    disp[:, :8] = bound + 0.4
+    disp[:, -8:] = -bound - 0.4
+    disp[..., -8:] = np.where(disp[..., -8:] < 0, -bound - 0.4, bound + 0.4)
+    disp = (disp + _rand(rng, disp.shape, 0.8)).astype(np.float32)
+    _, _, m, r_raw = jres._wbg_prep_pallas(jnp.asarray(vol), jnp.asarray(disp), bound, radius, 8)
+    m = np.array(m)
+    assert np.abs(m).max() == bound
+    r_c = np.array(jnp.clip(r_raw, -radius, radius))
+    flat = r_c.reshape(-1)
+    flat[::7] = np.round(flat[::7])
+    flat[1::11] = radius
+    flat[2::13] = -radius
+    g = _rand(rng, (1,) + shape)
+
+    out, dg = _window_form(vol, r_c, m, g, radius)
+    _close(out, block_warp_pallas(vol, r_c, m, bound, radius, interpret=True), 1e-5)
+    _close(dg, block_warp_dgrad_pallas(vol, r_c, m, g, bound, radius, interpret=True), 5e-4, 1e-4)
+
+
+def _capped_taps(d, p, n, radius):
+    """B5's taps along one axis: ``k = min(floor(d~), R − 1)`` and ``k + 1``
+    at the border-clamped sources ``clamp(p + k + s)``, with their weights."""
+    d = np.clip(d, -radius, radius)
+    k = np.minimum(np.floor(d), radius - 1)
+    # both taps inside [-R, R]: a ring of the 2R+1 planes around p serves them
+    assert k.min() >= -radius and k.max() + 1 <= radius
+    return [(np.clip(p + k.astype(np.int64) + s, 0, n - 1), _tri_np(d - (k + s)))
+            for s in (0, 1)]
+
+
+@pytest.mark.parametrize("radius", [1, 2, 3])
+@pytest.mark.parametrize("dims", ["thin", "deep", "ragged"])
+def test_warp_capped_taps_match_jax_pallas(radius, dims):
+    """B5's CUDA formulation (8 taps per voxel at the capped lower tap) in
+    numpy against the Pallas kernel (interpret) on dims of 1, 2 and 2R+1
+    and a ragged 9 x 10 x 11, with displacements at integers and ±R."""
+    dims = {"thin": (1, 2, 2 * radius + 1), "deep": (2 * radius + 1, 1, 2),
+            "ragged": (9, 10, 11)}[dims]
+    rng = np.random.default_rng(16 + radius)
+    vol, disp, _ = _bounded_case(rng, (1, 2) + dims, radius)
+    vol, disp = vol[0], disp[0]
+    p = np.meshgrid(*(np.arange(n) for n in dims), indexing="ij")
+    tz, ty, tx = (_capped_taps(disp[2 - a], p[a], dims[a], radius) for a in range(3))
+    out = np.zeros_like(vol)
+    for iz, wz in tz:
+        for iy, wy in ty:
+            out += (wz * wy) * (tx[0][1] * vol[:, iz, iy, tx[0][0]]
+                                + tx[1][1] * vol[:, iz, iy, tx[1][0]])
+    _close(out, warp_bounded_pallas(vol, disp, radius, interpret=True), 1e-5)
+
+
 def test_block_warp_cuda_wrappers_reject_cpu_tensors():
     vol = torch.zeros((1, 1, 8, 8, 8))
     r = torch.zeros((1, 3, 8, 8, 8))
@@ -271,7 +392,7 @@ def test_block_warp_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tbw.block_warp_cuda(vol, r, m)
     with pytest.raises(ValueError, match="CUDA"):
-        tbw.block_warp_dgrad_cuda(vol, r, m, vol)
+        tbw.block_warp_dgrad_cuda(vol, r, m, vol, 2)
 
 
 # ---- bounded blend warp (B5-B7) ---------------------------------------------------
