@@ -11,7 +11,10 @@ Phases, each of which raises on failure (exit code != 0):
 2. each kernel B1-B7 against its plain PyTorch version on the card, at the
    main paths' shapes (B1/B2 also at two ragged shapes, one with ``u``
    saturated in a z-slab; B3/B4 also at two ragged shapes with block means
-   saturated at ±bound next to the borders, at R 1 and 2; B5-B7 also at a
+   saturated at ±bound next to the borders, at R 1 and 2, all three shapes
+   through B3's and B4's window kernels (block 8, R 1-3; the per-voxel
+   kernels they keep for other shapes are checked by
+   ``tests/test_torch_cuda.py``); B5-B7 also at a
    general 4-channel, radius-2 shape, two shapes that straddle the tiles
    and z-chunks of B5-B7, and dims of 1 and 2 at radius 3), with the
    stated tolerance; the kernel's and the plain version's times, the
@@ -25,14 +28,15 @@ Phases, each of which raises on failure (exit code != 0):
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
    counters must move by exactly B1 7, B2 7, B3 1, B4 1 per transition;
    then 5 more transitions under ``torch.profiler``, printed as device
-   kernel time by kind;
+   kernel time by kind (the hand-written kernels by name: B3 as
+   ``fwd_window_kernel<2>``);
 4. the same transition at 64³ with fixed noise on the card and on the CPU
    (plain versions) must agree;
 5. the VI path: ``bench.py --phase vi``'s problem at 128³ on the "pre"
    noise scheme, GMM warm-up, 1 warm-up and 10 timed VI steps through
    ``make_vi_step`` -> ``make_vi_chunk``; the counters must move by
    exactly B1 7, B5 9, B6 8, B7 8 (and B2-B4 0) per step; then 5 more
-   steps under ``torch.profiler``, printed as device kernel time by kind;
+   steps under ``torch.profiler``, printed as in phase 3;
 6. one VI step at 64³ with fixed draws on the card and on the CPU must
    agree.
 
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -216,7 +221,8 @@ SPLIT_SHAPES = (((CHAINS, 3) + DIMS, None), ((1, 3, 2, 9, 33), None),
 
 # (shape, bound, radius) of the block warp: the path's (bound 9, R 2,
 # block 8), then ragged shapes whose dims divide by 8 but are neither cubes
-# nor multiples of the window kernel's 32-wide tile
+# nor multiples of the window kernels' 32-wide tile; all three take B3's and
+# B4's window kernels (fwd_window_kernel<R>, dgrad_window_kernel<R>)
 BLOCK_SHAPES = (((CHAINS, 1) + DIMS, 9, 2), ((1, 4, 16, 24, 136), 6, 1), ((2, 2, 24, 8, 40), 9, 2))
 
 
@@ -283,7 +289,7 @@ def phase_kernels(dev) -> list:
     for shape, bound, radius in BLOCK_SHAPES:
         vol, r, m, gv = _block_operands(gen, shape, bound, radius,
                                         saturate=shape != BLOCK_SHAPES[0][0])
-        out = bw.block_warp_cuda(vol, r, m)
+        out = bw.block_warp_cuda(vol, r, m, radius)
         errs[bw.B3] = max(errs[bw.B3], _err(out, bw.block_warp_plain(vol, r, m), 1e-5, 0.0,
                                             f"B3 {shape} bound {bound} R {radius}"))
         dout = bw.block_warp_dgrad_cuda(vol, r, m, gv, radius)
@@ -297,7 +303,7 @@ def phase_kernels(dev) -> list:
         lib3 = _library_ms("B3", lambda: _grid_sample(vol, grid), out)
         lib4 = _library_ms("B4", lambda: _grid_grad_voxels(
             _grid_sample_grads(gv, vol, grid, [False, True])[1]), dout, _off_ties(at))
-        timed = [(bw.B3, _time_ms(lambda: bw.block_warp_cuda(vol, r, m)),
+        timed = [(bw.B3, _time_ms(lambda: bw.block_warp_cuda(vol, r, m, radius)),
                   _time_ms(lambda: bw.block_warp_plain(vol, r, m)), lib3),
                  (bw.B4, _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv, radius)),
                   _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv)), lib4)]
@@ -562,7 +568,7 @@ def phase_vi(dev) -> dict:
 
 
 _KINDS = (("tblend_", "B7"), ("dgrad_tile", "B6"), ("dgrad_gather", "B6"),
-          ("fwd_tile", "B5"), ("warp_bounded_fwd", "B5"), ("split_fwd", "B1"),
+          ("fwd_window", "B3"), ("fwd_tile", "B5"), ("warp_bounded_fwd", "B5"), ("split_fwd", "B1"),
           ("split_bwd", "B2"), ("block_warp_fwd", "B3"), ("dgrad_window", "B4"),
           ("block_warp_dgrad", "B4"), ("direct_copy", "copies"), ("CatArray", "copies"),
           ("Memcpy", "copies"), ("Memset", "copies"), ("reduce_kernel", "reductions"),
@@ -578,20 +584,23 @@ def _profile(run, state, steps: int, what: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(state)
         torch.cuda.synchronize()
-    kinds = {}
+    kinds, names = {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         kind = next((k for pat, k in _KINDS if pat in e.key), "other")
         t, n = kinds.get(kind, (0.0, 0))
         kinds[kind] = (t + e.device_time_total, n + e.count)
+        if kind.startswith("B"):  # a hand-written kernel: name it
+            names.setdefault(kind, set()).update(re.findall(r"\w+_kernel(?:<[^>]*>)?", e.key))
     total = sum(t for t, _ in kinds.values())
     print(f"profile: {steps} {what}, device kernel time {total / 1e3 / steps:.3f} ms "
           f"per step over {sum(n for _, n in kinds.values()) / steps:.0f} launches",
           flush=True)
     for kind, (t, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
         print(f"profile: {kind:12s} {t / 1e3 / steps:8.3f} ms per step "
-              f"{100 * t / total:6.2f}% {n / steps:7.1f} launches per step", flush=True)
+              f"{100 * t / total:6.2f}% {n / steps:7.1f} launches per step "
+              f"{' '.join(sorted(names.get(kind, ())))}".rstrip(), flush=True)
 
 
 def phase_vi_reference(dev) -> None:

@@ -20,36 +20,43 @@
 // zero derivative on its axis, as the Pallas gradient does, and the order
 // of the non-zero terms is the Pallas order.
 //
-// B3, and B4 outside the window kernel's shapes: one thread per voxel
-// gathers its taps at k = floor(r) through L1/L2.  A warp's 32 x-lanes span
-// four 8^3 blocks with four shifts, so each tap load splits into four
-// unaligned segments.
+// The per-voxel kernels: one thread per voxel gathers its taps at
+// k = floor(r) through L1/L2.  A warp's 32 x-lanes span four 8^3 blocks
+// with four shifts, so each tap load splits into four unaligned segments.
 //
-// B4 at block 8 and 1 <= R <= 3 (the path's R 2): every tap of an 8^3 block
-// lies in one (8+2R)^3 source window at the block's integer shift, once the
-// lower tap is capped, k = min(floor(r), R-1) (at r = R the pair (R-1, R)
-// has weights (0, 1), as (R, R+1) had).  A thread block of 32 x 8 threads
-// owns a 32 x 8 x 8 tile, four blocks along x, one per 8 lanes of each
-// warp; it stages the four windows of each channel (4 x 12^3 floats, 27 KB
-// at R 2, C 1) by 4-byte cp.async (stage_windows, which B3 can share), then
-// each thread marches its 8 z-planes, reads r and g coalesced, takes its
-// taps from shared memory and writes its 3 words coalesced.  The window
-// coordinate is clamped into the window, so an r beyond +-R (outside the
-// contract) reads no memory outside it.  Several blocks per SM overlap one
-// block's staging with another's arithmetic.  Other block sizes, R > 3, R 0,
-// windows over 227 KB and batch elements of 2^31 words or more take the
-// per-voxel gather (shape dispatch).
+// The window kernels, B3 and B4 at block 8 and 1 <= R <= 3 (the path's
+// R 2): every tap of an 8^3 block lies in one (8+2R)^3 source window at the
+// block's integer shift, once the lower tap is capped,
+// k = min(floor(r), R-1) (at r = R the pair (R-1, R) has weights (0, 1), as
+// (R, R+1) had, so the sums are the per-voxel kernels' to the bit).  A
+// thread block of 32 x 8 threads owns a 32 x 8 x 8 tile, four blocks along
+// x, one per 8 lanes of each warp; it stages the four windows of each
+// channel (4 x 12^3 floats, 27 KB at R 2, C 1) by 4-byte cp.async
+// (stage_windows), so the four-way split costs one pass of the staging over
+// each window column instead of every tap load.  Then each thread marches
+// its 8 z-planes, reads r (and B4's g) coalesced, takes its taps from
+// shared memory and writes its C (B3) or 3 (B4) words coalesced; B3 reads
+// all 8 planes' r beside the staging (kFwdRAhead), B4 one plane ahead.  The
+// window coordinate is clamped into the window, so an r beyond +-R
+// (outside the contract) reads no memory outside it.  Several blocks per SM
+// overlap one block's staging with another's arithmetic.  Other block
+// sizes, R > 3, R 0, windows over 227 KB and batch elements of 2^31 words
+// or more take the per-voxel kernels (shape dispatch).
 //
 // What bounds them on the card: memory traffic.  Per output voxel they read
 // 3 residuals, 3 block means per 8^3 voxels, 1 volume value per channel,
 // and write C (fwd) or 3 (dgrad) floats: at 2x1x128^3 that is ~84 MB for
 // B3 and ~134 MB for B4 (g too), ~25 and ~40 us at the 3.35 TB/s of the
 // H100 SXM data sheet (700 W).  The windows re-read ~3.4x the vol bytes
-// (12^3 / 8^3 at R 2) from L2.  On an H100 at 700 W, chip_probe_block.py
-// measures the window kernel at ~57% of B4's bound (the per-voxel gather
-// ~42%): its window staging alone reaches ~76% and a copy of its bytes
-// ~82%, so the taps take the rest; at 64 registers (4 blocks per SM) it
-// read ~52%, hence kWindowMinBlocks.  Times are in PERF.md.
+// (12^3 / 8^3 at R 2) from L2.  On an NVIDIA H100 80GB HBM3 at 700 W,
+// chip_probe_block.py measures B4's window kernel at ~57% of its bound (the
+// per-voxel gather ~42%): its window staging alone reaches ~76% and a copy
+// of its bytes ~82%, so the taps take the rest; at 64 registers (4 blocks
+// per SM) it read ~52%, hence kWindowMinBlocks.  B3's window kernel reads
+// ~63% of its bound (its per-voxel kernel ~37%): its schedule without the
+// taps reaches ~71% and a copy of its bytes ~81%.  Reading r one plane
+// ahead, as B4 does, it read ~54-56% at 40-64 registers: with little work
+// per plane, each plane waited out a memory latency.  Times are in PERF.md.
 
 #include <cuda_runtime.h>
 
@@ -174,16 +181,23 @@ __global__ void block_warp_dgrad_kernel(const float* __restrict__ vol,
   ob[2 * V] = acc_z;
 }
 
-// ---- B4: the window kernel (block 8, 1 <= R <= 3) ----------------------------
+// ---- B3 and B4: the window kernels (block 8, 1 <= R <= 3) -------------------
 
 constexpr int BK = 8;              // block edge the windows serve
 constexpr int TXB = 32, TYB = 8;   // a tile: 32 x 8 x 8 voxels, four blocks along x
 constexpr int NTB = TXB * TYB;     // threads per thread block
 constexpr int NBX = TXB / BK;      // blocks per tile
 constexpr int kSmemMax = 232448;   // dynamic shared memory a block may opt into
-// Blocks per SM the window kernel is compiled for: it caps its registers at
+// Blocks per SM B4's window kernel is compiled for: it caps its registers at
 // 40, where it spills nothing (at 7 blocks, 32 registers, it spills)
 constexpr int kWindowMinBlocks = 6;
+// B3's window kernel reads the r of its first kFwdRAhead planes beside the
+// staging and each later plane kFwdRAhead planes ahead: all 8 at once keeps
+// 24 loads per thread in flight, where reading one plane ahead exposed a
+// memory latency per plane.  Its 24 registers of r fit at 64 registers
+// (4 blocks per SM) without spills; at 48 it spills.
+constexpr int kFwdRAhead = 8;
+constexpr int kFwdWindowMinBlocks = 4;
 
 // One block's source window per channel: E^3 voxels, E = 8 + 2R, padded to
 // NP so that the tile's four windows start 8 banks apart.
@@ -245,10 +259,85 @@ __device__ __forceinline__ void stage_windows(float* win, const float* vol, cons
   }
 }
 
-// Each thread owns column (x0 + tx, y0 + ty) of the tile and marches its 8
-// z-planes: r and g read coalesced (the next plane's r once this plane's
-// taps are summed), the 8 taps per channel from its block's window, 3
-// output words written coalesced.
+// Window offset, from a column's lower taps at k = 0, of its lower taps at
+// the capped k = min(floor(r), R-1) per axis, kept inside the window, and
+// the tri weights of the taps k and k+1 (t0 = r - k in [0, 1] within the
+// contract).  lo: p - p_b per axis (x, y, z).
+template <int R>
+__device__ __forceinline__ int window_taps(const float (&rc)[3], const int (&lo)[3],
+                                           float (&w0)[3], float (&w1)[3], float (&t0)[3]) {
+  constexpr int E = Window<R>::E;
+  int off = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int k = min((int)floorf(rc[a]), R - 1);
+    t0[a] = rc[a] - (float)k;
+    const float t1 = rc[a] - (float)(k + 1);
+    off += (min(max(lo[a] + R + k, 0), E - 2) - (lo[a] + R)) * (a == 0 ? 1 : (a == 1 ? E : E * E));
+    w0[a] = tri(t0[a]);
+    w1[a] = tri(t1);
+  }
+  return off;
+}
+
+// B3: each thread owns column (x0 + tx, y0 + ty) of the tile and marches
+// its 8 z-planes: r read coalesced, kFwdRAhead planes ahead, the 8 taps per
+// channel from its block's window, summed in the per-voxel kernel's order,
+// C output words written coalesced.
+template <int R>
+__global__ void __launch_bounds__(NTB, kFwdWindowMinBlocks)
+    fwd_window_kernel(const float* __restrict__ vol, const float* __restrict__ r,
+                      const int* __restrict__ m, float* __restrict__ out, Geom g) {
+  using Wn = Window<R>;
+  constexpr int E = Wn::E;
+  extern __shared__ float win[];  // [C][NBX][NP]
+  const BlockTile t = block_tile(g);
+  stage_windows<R>(win, vol, m, t, g);
+  cp_async_commit();
+  const int tid = threadIdx.x, tx = tid % TXB, ty = tid / TXB;
+  const int C = g.C, x = t.x0 + tx;
+  const int P = g.H * g.W, V = g.D * P;  // 32-bit offsets inside one batch element
+  const int here = t.z0 * P + (t.y0 + ty) * g.W + x;
+  const float* rb = r + (long long)t.b * 3 * V + here;
+  float* ob = out + (long long)t.b * C * V + here;
+  // window point of this column's lower taps at k = 0
+  const float* wb = win + (tx / BK) * Wn::NP + (R * E + ty + R) * E + tx % BK + R;
+  float rz[BK][3];  // r per plane: registers, every loop over planes unrolled
+  const bool live = x < g.W;
+#pragma unroll
+  for (int lz = 0; lz < kFwdRAhead; ++lz)
+#pragma unroll
+    for (int a = 0; a < 3; ++a) rz[lz][a] = live ? rb[a * V + lz * P] : 0.0f;
+  cp_async_wait_all();
+  __syncthreads();
+  if (!live) return;
+#pragma unroll
+  for (int lz = 0; lz < BK; ++lz) {
+    const int zo = lz * P;
+    float w0[3], w1[3], t0[3];  // t0: unused here
+    const int lo[3] = {tx % BK, ty, lz};
+    const float* tap = wb + lz * E * E + window_taps<R>(rz[lz], lo, w0, w1, t0);
+    if (lz + kFwdRAhead < BK)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) rz[(lz + kFwdRAhead) % BK][a] = rb[a * V + zo + kFwdRAhead * P];
+    for (int c = 0; c < C; ++c) {
+      const float* tc = tap + c * NBX * Wn::NP;
+      float acc = 0.0f;
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* row = tc + (a * E + e) * E;
+          const float inner = w0[0] * row[0] + w1[0] * row[1];
+          acc += ((a ? w1[2] : w0[2]) * (e ? w1[1] : w0[1])) * inner;
+        }
+      ob[c * V + zo] = acc;
+    }
+  }
+}
+
+// B4: as B3, with g read coalesced beside r, the channel sum taken per tap,
+// and 3 output words written per voxel.
 template <int R>
 __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
     dgrad_window_kernel(const float* __restrict__ vol, const float* __restrict__ r,
@@ -279,19 +368,11 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
   if (!live) return;
   for (int lz = 0; lz < BK; ++lz) {
     const int zo = lz * P;
-    int off = 0;  // window offset of the lower taps, kept inside the window
     float w0[3], w1[3], dw[3];
+    const int lo[3] = {tx % BK, ty, lz};
+    const float* tap = wb + lz * E * E + window_taps<R>(rc, lo, w0, w1, dw);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int k = min((int)floorf(rc[a]), R - 1);
-      const float t0 = rc[a] - (float)k, t1 = rc[a] - (float)(k + 1);
-      const int lo = a == 2 ? lz : (a == 1 ? ty : tx % BK);  // p - p_b along axis a
-      off += (min(max(lo + R + k, 0), E - 2) - (lo + R)) * (a == 0 ? 1 : (a == 1 ? E : E * E));
-      w0[a] = tri(t0);
-      w1[a] = tri(t1);
-      dw[a] = dtri(t0);  // dtri(t1) = -dtri(t0): t1 = t0 - 1 with t0 in [0, 1]
-    }
-    const float* tap = wb + lz * E * E + off;
+    for (int a = 0; a < 3; ++a) dw[a] = dtri(dw[a]);  // dtri(t1) = -dtri(t0): t1 = t0 - 1
     float acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f;
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -322,14 +403,38 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
   }
 }
 
+// The window kernels take block 8, 1 <= R <= 3, windows that fit in shared
+// memory, and batch elements of fewer than 2^31 words (32-bit offsets).
+bool window_fits(const Geom& g, int radius) {
+  if (g.block != BK || (g.C > 3 ? g.C : 3) * ((long long)g.D * g.H * g.W) >= (1LL << 31))
+    return false;
+  const size_t bytes = radius == 1   ? window_bytes<1>(g.C)
+                       : radius == 2 ? window_bytes<2>(g.C)
+                       : radius == 3 ? window_bytes<3>(g.C)
+                                     : 0;
+  return bytes > 0 && bytes <= (size_t)kSmemMax;
+}
+
+dim3 window_grid(const Geom& g) { return dim3((g.W + TXB - 1) / TXB, g.H / TYB, g.B * (g.D / BK)); }
+
+template <int R>
+int fwd_window(const float* vol, const float* r, const int* m, float* out, const Geom& g,
+               cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fwd_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return (int)attr;
+  fwd_window_kernel<R><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, out, g);
+  return (int)cudaGetLastError();
+}
+
 template <int R>
 int dgrad_window(const float* vol, const float* r, const int* m, const float* g_in,
                  float* out, const Geom& g, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       dgrad_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((g.W + TXB - 1) / TXB, g.H / TYB, g.B * (g.D / BK));
-  dgrad_window_kernel<R><<<grid, NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, g_in, out, g);
+  dgrad_window_kernel<R><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, g_in,
+                                                                               out, g);
   return (int)cudaGetLastError();
 }
 
@@ -340,30 +445,33 @@ dim3 grid_for(const Geom& g, dim3 block) {
 
 }  // namespace
 
+// radius: the R to which the caller clipped r (|r| <= R)
 extern "C" int block_warp_fwd(const float* vol, const float* r, const int* m,
                               float* out, int B, int C, int D, int H, int W,
-                              int block, void* stream) {
+                              int block, int radius, void* stream) {
   const Geom g{B, C, D, H, W, block};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (window_fits(g, radius)) {
+    if (radius == 1) return fwd_window<1>(vol, r, m, out, g, st);
+    if (radius == 2) return fwd_window<2>(vol, r, m, out, g, st);
+    return fwd_window<3>(vol, r, m, out, g, st);
+  }
   const dim3 threads(32, 8);
-  block_warp_fwd_kernel<<<grid_for(g, threads), threads, 0,
-                          (cudaStream_t)stream>>>(vol, r, m, out, g);
+  block_warp_fwd_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, out, g);
   return (int)cudaGetLastError();
 }
 
-// radius: the R to which the caller clipped r (|r| <= R)
+// radius: as for block_warp_fwd
 extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
                                 const float* g_in, float* out, int B, int C,
                                 int D, int H, int W, int block, int radius,
                                 void* stream) {
   const Geom g{B, C, D, H, W, block};
   const cudaStream_t st = (cudaStream_t)stream;
-  if (block == BK && (C > 3 ? C : 3) * ((long long)D * H * W) < (1LL << 31)) {
-    if (radius == 1 && window_bytes<1>(C) <= (size_t)kSmemMax)
-      return dgrad_window<1>(vol, r, m, g_in, out, g, st);
-    if (radius == 2 && window_bytes<2>(C) <= (size_t)kSmemMax)
-      return dgrad_window<2>(vol, r, m, g_in, out, g, st);
-    if (radius == 3 && window_bytes<3>(C) <= (size_t)kSmemMax)
-      return dgrad_window<3>(vol, r, m, g_in, out, g, st);
+  if (window_fits(g, radius)) {
+    if (radius == 1) return dgrad_window<1>(vol, r, m, g_in, out, g, st);
+    if (radius == 2) return dgrad_window<2>(vol, r, m, g_in, out, g, st);
+    return dgrad_window<3>(vol, r, m, g_in, out, g, st);
   }
   const dim3 threads(32, 8);
   block_warp_dgrad_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, g_in, out, g);

@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "split_warp_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "split_warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "block_warp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "block_warp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "block_warp_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -130,40 +130,47 @@ def _check(vol, r, m, block):
     return B, C, D, H, W
 
 
-def block_warp_cuda(vol, r, m, block: int = 8) -> torch.Tensor:
-    """B3 on the card."""
+def _check_radius(radius) -> int:
+    if int(radius) != radius or radius < 0:
+        raise ValueError(f"radius must be a non-negative integer, got {radius!r}")
+    return int(radius)
+
+
+def block_warp_cuda(vol, r, m, radius: int, block: int = 8) -> torch.Tensor:
+    """B3 on the card.  ``r`` arrives clipped to ``±radius``: at block 8 and
+    radius 1-3 the kernel stages each block's ``(block + 2·radius)³``
+    source window and takes the taps from it (an ``r`` beyond that stays
+    inside the window but reads wrong taps)."""
     B, C, D, H, W = _check(vol, r, m, block)
+    radius = _check_radius(radius)
     out = torch.empty_like(vol)
     B3.launch(vol.device, ptr(vol), ptr(r), ptr(m), ptr(out),
-              B, C, D, H, W, block)
+              B, C, D, H, W, block, radius)
     return out
 
 
 def block_warp_dgrad_cuda(vol, r, m, g, radius: int, block: int = 8) -> torch.Tensor:
-    """B4 on the card.  ``r`` arrives clipped to ``±radius``: the kernel
-    stages each block's ``(block + 2·radius)³`` source window and takes the
-    taps from it (an ``r`` beyond that stays inside the window but reads
-    wrong taps)."""
+    """B4 on the card; ``radius`` as for :func:`block_warp_cuda`."""
     B, C, D, H, W = _check(vol, r, m, block)
-    if int(radius) != radius or radius < 0:
-        raise ValueError(f"radius must be a non-negative integer, got {radius!r}")
+    radius = _check_radius(radius)
     check_operand("g", g, (B, C, D, H, W), device=vol.device)
     out = torch.empty_like(r)
     B4.launch(vol.device, ptr(vol), ptr(r), ptr(m), ptr(g), ptr(out),
-              B, C, D, H, W, block, int(radius))
+              B, C, D, H, W, block, radius)
     return out
 
 
 # ---- dispatch ------------------------------------------------------------------
 
-def block_warp(vol, r, m, block: int = 8) -> torch.Tensor:
+def block_warp(vol, r, m, radius: int, block: int = 8) -> torch.Tensor:
+    """B3; ``radius`` is the clip of ``r``, which only the kernel needs."""
     if vol.is_cuda:
-        return block_warp_cuda(vol, r, m, block)
+        return block_warp_cuda(vol, r, m, radius, block)
     return block_warp_plain(vol, r, m, block)
 
 
 def block_warp_dgrad(vol, r, m, g, radius: int, block: int = 8) -> torch.Tensor:
-    """B4; ``radius`` is the clip of ``r``, which only the kernel needs."""
+    """B4; ``radius`` as for :func:`block_warp`."""
     if vol.is_cuda:
         return block_warp_dgrad_cuda(vol, r, m, g, radius, block)
     return block_warp_dgrad_plain(vol, r, m, g, block)

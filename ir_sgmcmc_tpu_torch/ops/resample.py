@@ -65,7 +65,7 @@ class BlockGatherWarp(torch.autograd.Function):
         r_c = torch.clamp(r_raw, -radius, radius).contiguous()
         ctx.block, ctx.radius = block, radius
         ctx.save_for_backward(vol, r_c, m, torch.abs(r_raw) <= radius)
-        return _bw.block_warp(vol, r_c, m, block)
+        return _bw.block_warp(vol, r_c, m, radius, block)
 
     @staticmethod
     def backward(ctx, g):

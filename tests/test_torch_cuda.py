@@ -61,10 +61,12 @@ def _block_inputs(dev, shape=(2, 2, 16, 24, 40), bound=9, radius=2, block=8, sat
 
 # (shape, bound, radius, block, saturate): the path's shape, ragged shapes
 # whose dims divide by 8 but are neither cubes nor multiples of the window
-# kernel's 32-wide tile, R 3, and block 4 (B4's per-voxel gather)
+# kernels' 32-wide tile, R 3, block 4 (the per-voxel kernels), then R 3 over
+# 4 channels (the largest window, 176.6 KB) and R 0 (the per-voxel kernels)
 BLOCK_SHAPES = [((2, 2, 16, 24, 40), 9, 2, 8, False), ((2, 1, 128, 128, 128), 9, 2, 8, False),
                 ((1, 4, 16, 24, 136), 6, 1, 8, True), ((2, 2, 24, 8, 40), 9, 2, 8, True),
-                ((1, 2, 16, 16, 72), 9, 3, 8, True), ((2, 2, 12, 8, 20), 5, 2, 4, True)]
+                ((1, 2, 16, 16, 72), 9, 3, 8, True), ((2, 2, 12, 8, 20), 5, 2, 4, True),
+                ((1, 4, 16, 16, 64), 9, 3, 8, True), ((2, 2, 16, 24, 40), 9, 0, 8, False)]
 
 
 @pytest.mark.parametrize("shape,slab", [
@@ -92,14 +94,14 @@ def test_split_kernels_match_plain(cuda, shape, slab):
 
 @pytest.mark.parametrize("shape,bound,radius,block,saturate", BLOCK_SHAPES)
 def test_block_kernels_match_plain(cuda, shape, bound, radius, block, saturate):
-    """B3 and B4 against their plain versions; B4's window kernel at block
-    8 and R 1-3, its per-voxel gather at block 4."""
+    """B3 and B4 against their plain versions; their window kernels at
+    block 8 and R 1-3, their per-voxel kernels at block 4 and R 0."""
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
 
     vol, r, m, g = _block_inputs(cuda, shape, bound, radius, block, saturate)
     if saturate:
         assert int(m.abs().max()) == bound
-    torch.testing.assert_close(bw.block_warp_cuda(vol, r, m, block),
+    torch.testing.assert_close(bw.block_warp_cuda(vol, r, m, radius, block),
                                bw.block_warp_plain(vol, r, m, block), atol=1e-5, rtol=0)
     torch.testing.assert_close(bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block),
                                bw.block_warp_dgrad_plain(vol, r, m, g, block),
@@ -114,6 +116,37 @@ def test_block_dgrad_is_deterministic(cuda, shape, bound, radius, block, saturat
     vol, r, m, g = _block_inputs(cuda, shape, bound, radius, block, saturate)
     first = bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block)
     assert torch.equal(first, bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block))
+
+
+@pytest.mark.parametrize("shape,bound,radius,block,saturate", BLOCK_SHAPES[2:4])
+def test_block_warp_fwd_is_deterministic(cuda, shape, bound, radius, block, saturate):
+    """Two launches of B3 on the same inputs are bitwise equal."""
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+
+    vol, r, m, _ = _block_inputs(cuda, shape, bound, radius, block, saturate)
+    first = bw.block_warp_cuda(vol, r, m, radius, block)
+    assert torch.equal(first, bw.block_warp_cuda(vol, r, m, radius, block))
+
+
+@pytest.mark.parametrize("radius,block,kernel", [(2, 8, "fwd_window_kernel<2>"),
+                                                 (3, 8, "fwd_window_kernel<3>"),
+                                                 (0, 8, "block_warp_fwd_kernel"),
+                                                 (2, 4, "block_warp_fwd_kernel")])
+def test_block_warp_fwd_dispatch(cuda, radius, block, kernel):
+    """B3 takes its window kernel at block 8 and R 1-3 and its per-voxel
+    kernel otherwise: the one device kernel a launch runs, by name."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+
+    vol, r, m, _ = _block_inputs(cuda, (1, 1, 16, 24, 40), 9, radius, block)
+    bw.block_warp_cuda(vol, r, m, radius, block)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        bw.block_warp_cuda(vol, r, m, radius, block)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and kernel in names[0], names
 
 
 def test_autograd_functions_on_card_match_cpu(cuda):
@@ -252,7 +285,9 @@ def test_wrappers_reject_bad_operands(cuda):
         sw.split_warp_fwd_cuda(d[:, :2].contiguous(), d)
     m = torch.zeros((1, 3, 1, 1, 1), dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
-        bw.block_warp_cuda(d[:, :1].contiguous(), d, m)
+        bw.block_warp_cuda(d[:, :1].contiguous(), d, m, 2)
+    with pytest.raises(ValueError, match="radius"):
+        bw.block_warp_cuda(d[:, :1].contiguous(), d, m.int(), -1)
     with pytest.raises(ValueError, match="shape"):
         wb.warp_bounded_fwd_cuda(d, d[:, :2].contiguous(), 1)
     with pytest.raises(ValueError, match="radius"):

@@ -47,6 +47,44 @@ def test_kernel_bytes_and_bound(symbol):
     assert kernel.bytes((2 * B, C, D, H, W)) == pytest.approx(2 * nbytes, rel=1e-9)
 
 
+def _c_entries():
+    """``{name: [kind of each argument]}`` of every ``extern "C"`` function
+    in ``csrc/*.cu``; a kind is ``"pointer"`` or ``"int"``."""
+    import re
+
+    from ir_sgmcmc_tpu_torch.kernels import _lib
+
+    entries = {}
+    for src in sorted(_lib.CSRC.glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            kinds = []
+            for arg in args.split(","):
+                decl = " ".join(arg.split())
+                assert re.fullmatch(r"(const )?(float|int|void)\*? ?\*? ?\w+", decl), decl
+                kinds.append("pointer" if "*" in decl else "int")
+            assert name not in entries, f"{name} declared twice"
+            entries[name] = kinds
+    return entries
+
+
+def test_ctypes_signatures_match_the_c_entries():
+    """Each ``extern "C"`` entry of the sources has its ctypes signature in
+    ``_lib._SIGNATURES`` with the same count and kind of arguments (and no
+    signature names a missing entry): a mismatch would pass pointers as
+    ints, or shift every argument, only on the card."""
+    import ctypes
+
+    from ir_sgmcmc_tpu_torch.kernels import _lib
+
+    entries = _c_entries()
+    assert set(entries) == set(_lib._SIGNATURES)
+    kind = {ctypes.c_void_p: "pointer", ctypes.c_int: "int"}
+    for name, kinds in entries.items():
+        assert [kind[t] for t in _lib._SIGNATURES[name]] == kinds, name
+    # every kernel's entry point is one of them
+    assert {k.symbol for k in all_kernels()} <= set(entries)
+
+
 def _bundle():
     from ir_sgmcmc_tpu_torch.engine import ModelBundle
     from ir_sgmcmc_tpu_torch.models import (GMM, SVF3D, DirichletPrior,

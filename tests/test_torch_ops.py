@@ -219,7 +219,7 @@ def test_block_warp_kernels_match_jax_pallas(bound, radius):
     vol, r_c, m, rng = _kernel_operands(shape, bound, radius, seed=7)
     g = _rand(rng, (1,) + shape)
 
-    out = tbw.block_warp(_t(vol)[None], _t(r_c)[None], torch.as_tensor(m)[None])
+    out = tbw.block_warp(_t(vol)[None], _t(r_c)[None], torch.as_tensor(m)[None], radius)
     ref = block_warp_pallas(vol, r_c, m, bound, radius, interpret=True)
     _close(out[0], ref, 1e-5)
 
@@ -273,8 +273,7 @@ def _dtri_np(t):
 
 
 def _window_form(vol, r, m, g, radius, block=8):
-    """B4's CUDA formulation (and B3's, which will share its staging) in
-    numpy: per block, the ``(block + 2R)³`` source window at origin
+    """B3's and B4's CUDA formulation (their window kernels) in numpy: per block, the ``(block + 2R)³`` source window at origin
     ``p_b + m_b − R`` with each index clamped to the volume, and the taps
     at window points ``l + R + k`` and ``+1``, ``l = p − p_b``,
     ``k = min(floor(r), R − 1)``.  ``vol, g (C, D, H, W)``, ``r (3, D, H,
@@ -324,15 +323,19 @@ def _window_form(vol, r, m, g, radius, block=8):
     return out, acc
 
 
-@pytest.mark.parametrize("bound,radius", [(9, 2), (6, 1)])
-def test_block_window_form_matches_jax_pallas(bound, radius):
-    """B4's window formulation in numpy against the Pallas kernels
+@pytest.mark.parametrize("bound,radius,chan", [
+    pytest.param(9, 2, 1, id="9-2"), pytest.param(6, 1, 1, id="6-1"),
+    pytest.param(9, 3, 2, id="9-3-c2")])
+def test_block_window_form_matches_jax_pallas(bound, radius, chan):
+    """B3's and B4's window formulation in numpy against the Pallas kernels
     (interpret) on a field whose block means reach ±bound in the blocks
     next to the z and x borders (their windows clamp), with residuals
-    exactly ±R and at integers (the capped lower tap)."""
+    exactly ±R and at integers (the capped lower tap); at R 3 over two
+    channels (B3's per-channel sums, B4's channel-first ones)."""
     shape = (16, 16, 128)
+    assert block_warp_pallas_applicable((chan,) + shape, bound, radius, 8)
     rng = np.random.default_rng(14 + radius)
-    vol = _rand(rng, (1,) + shape)
+    vol = _rand(rng, (chan,) + shape)
     disp = np.array(_smooth_disp(shape, bound - 0.5, 15))
     disp[:, :8] = bound + 0.4
     disp[:, -8:] = -bound - 0.4
@@ -346,7 +349,7 @@ def test_block_window_form_matches_jax_pallas(bound, radius):
     flat[::7] = np.round(flat[::7])
     flat[1::11] = radius
     flat[2::13] = -radius
-    g = _rand(rng, (1,) + shape)
+    g = _rand(rng, (chan,) + shape)
 
     out, dg = _window_form(vol, r_c, m, g, radius)
     _close(out, block_warp_pallas(vol, r_c, m, bound, radius, interpret=True), 1e-5)
@@ -390,7 +393,7 @@ def test_block_warp_cuda_wrappers_reject_cpu_tensors():
     r = torch.zeros((1, 3, 8, 8, 8))
     m = torch.zeros((1, 3, 1, 1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        tbw.block_warp_cuda(vol, r, m)
+        tbw.block_warp_cuda(vol, r, m, 2)
     with pytest.raises(ValueError, match="CUDA"):
         tbw.block_warp_dgrad_cuda(vol, r, m, vol, 2)
 
