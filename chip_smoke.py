@@ -38,10 +38,20 @@ Phases, each of which raises on failure (exit code != 0):
    exactly B1 7, B5 9, B6 8, B7 8 (and B2-B4 0) per step; then 5 more
    steps under ``torch.profiler``, printed as in phase 3;
 6. one VI step at 64³ with fixed draws on the card and on the CPU must
-   agree.
+   agree;
+7. the trainer: the port's CLI (``ir_sgmcmc_tpu_torch.run.main``) on
+   ``configs/demo/config_synthetic.json`` at 128³ (2 chains, 20 VI steps,
+   4 VI-test draws, 10 + 20 transitions, speed tests of 10), in-process;
+   no abort, finite VI-test and MCMC Dice no worse than the pair's Dice
+   before registration less 0.05, the artifacts of
+   ``tests/test_trainer.py::test_trainer_end_to_end``, B1-B5 launched and
+   B6/B7 not, and both checkpoints loaded back on the card into the port's
+   states; it prints one ``trainer:`` line with the summary, each phase's
+   wall time and launches (GMM warm-up, VI, VI test, MCMC), the trainer's
+   own host-time breakdown (``Trainer.timings``) and the peak memory.
 
-Each path's counters are set to 0 just before its timed run and read just
-after.  Then one JSON line of kernel results, the ``nvidia-smi``
+Each path's counters are set to 0 just before its timed run (the
+trainer's: its whole CLI run) and read just after.  Then one JSON line of kernel results, the ``nvidia-smi``
 name/power line, and the final status line.  Imports nothing of JAX.
 Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
 matmuls and cuDNN.
@@ -648,6 +658,133 @@ def phase_vi_reference(dev) -> None:
           f"q(v) gradient RMS error at most {worst:.3e} of its RMS", flush=True)
 
 
+TRAINER_OVERRIDES = (
+    "data_loader;args;dims=[128,128,128]",
+    "trainer;no_iters_VI=20", "trainer;log_period_VI=10", "trainer;no_samples_VI_test=4",
+    "trainer;speed_test_iters=10", "trainer;no_chains=2", "trainer;no_iters_burn_in=10",
+    "trainer;no_samples_MCMC=20", "trainer;log_period_MCMC=10",
+)
+TRAINER_ARTIFACTS = ("images/im_fixed.nii.gz", "fields/VI_displacement_mean.vtk",
+                     "fields/MCMC_displacement_std_dev.vtk", "models/vi_latest.npz",
+                     "models/mcmc_latest.npz", "samples/VI/sample_*_im_warped.nii.gz",
+                     "samples/MCMC/chain_*_im_warped.nii.gz")
+
+
+def phase_trainer(dev, extra=()) -> dict:
+    """The demo config through the port's CLI at 128³ (``extra``: more
+    overrides); returns the record it prints, with the launch counts of the
+    whole run.  Each trainer phase is timed (with a device sync at its
+    ends) and its launches counted by wrappers that this function installs
+    around the trainer's phase methods and removes after."""
+    import tempfile
+
+    from ir_sgmcmc_tpu_torch import run
+    from ir_sgmcmc_tpu_torch import trainer as tr
+    from ir_sgmcmc_tpu_torch.engine import init_chains
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+    from ir_sgmcmc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    kernels = all_kernels()
+    phases, seen = {}, []
+
+    def counts():
+        return {k.symbol: k.launches for k in kernels}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                p = phases.setdefault(name, {"s": 0.0, "launches": dict.fromkeys(c0, 0)})
+                p["s"] += time.perf_counter() - t0
+                for sym, n in counts().items():
+                    p["launches"][sym] += n - c0[sym]
+        return wrapper
+
+    def keep(fn):
+        def wrapper(self, *args, **kwargs):
+            seen.append(self)
+            return fn(self, *args, **kwargs)
+        return wrapper
+
+    patches = [(tr, "gmm_warmup", timed("warm-up", tr.gmm_warmup)),
+               (tr.Trainer, "_run_vi_phase", timed("VI", tr.Trainer._run_vi_phase)),
+               (tr.Trainer, "_test_vi", timed("VI test", tr.Trainer._test_vi)),
+               (tr.Trainer, "_run_mcmc_phase", timed("MCMC", tr.Trainer._run_mcmc_phase)),
+               (tr.Trainer, "run", keep(tr.Trainer.run))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-c", str(root / "configs/demo/config_synthetic.json"), "--run-id", "smoke",
+                "-o", f"trainer;save_dir={json.dumps(tmp)}"]
+        for o in TRAINER_OVERRIDES + tuple(extra):
+            argv += ["-o", o]
+        for obj, name, fn in patches:
+            setattr(obj, name, fn)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            summaries = run.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = counts()
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+        peak = torch.cuda.max_memory_allocated()
+        s, t = summaries[0], seen[0]
+        if "mcmc_aborted" in s:
+            raise AssertionError(f"trainer: MCMC aborted: {s['mcmc_aborted']}")
+        for key in ("vi_test_mean_dsc", "mcmc_mean_dsc"):
+            if not (math.isfinite(s[key]) and s[key] >= s["dsc_before"] - 0.05):
+                raise AssertionError(f"trainer: {key} {s[key]} against dsc_before "
+                                     f"{s['dsc_before']} (bar: 0.05 below it)")
+        run_dir = Path(tmp) / "demo_synthetic" / "smoke"
+        missing = [a for a in TRAINER_ARTIFACTS if not list(run_dir.glob(a))]
+        if missing:
+            raise AssertionError(f"trainer: artifacts missing under {run_dir}: {missing}")
+        bad = [sym for sym, n in launches.items()
+               if (n == 0) != (sym in ("warp_bounded_dgrad", "warp_bounded_tblend"))]
+        if bad:
+            raise AssertionError(f"trainer: launches {launches}: B1-B5 must run and B6/B7 "
+                                 f"must not ({bad})")
+
+        # both checkpoints back into the port's states on the card
+        b, q_v0 = t.bundle, t.dataset[0][2]
+        vi, vi_meta = load_checkpoint(run_dir / "models/vi_latest.npz",
+                                      t._initial_state(q_v0, 0))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        chains = init_chains(b, gen, t.no_chains, "identity", None, b.gmm.init_params(dev),
+                             b.reg_loss.init_params(dev), t.opt_gmm, t.opt_reg, device=dev)
+        mc, mc_meta = load_checkpoint(run_dir / "models/mcmc_latest.npz", chains)
+        if vi_meta.get("vi_iters") != 20 or mc_meta.get("mcmc_steps") != 30:
+            raise AssertionError(f"trainer: checkpoint meta {vi_meta}, {mc_meta}")
+        for name, x in (("q_v mu", vi.q_v["mu"]), ("chain v", mc.v),
+                        ("welford mean", mc.welford.mean)):
+            if not (x.is_cuda and bool(torch.isfinite(x).all())):
+                raise AssertionError(f"trainer: checkpoint {name} not finite on the card")
+        if vi.step != 20 or mc.step != 30:
+            raise AssertionError(f"trainer: checkpoint steps {vi.step}, {mc.step}")
+
+    record = {
+        "summary": s, "wall_s": wall,
+        "phase_s": {name: p["s"] for name, p in phases.items()},
+        "phase_launches": {name: p["launches"] for name, p in phases.items()},
+        "launches": launches,
+        "vi_iters_per_sec_in_phase": 20 / phases["VI"]["s"],
+        "mcmc_samples_per_sec_in_phase": t.no_chains * 30 / s["mcmc_time_s"],
+        "host_s": t.timings, "peak_bytes": peak,
+    }
+    print(f"trainer: {json.dumps(record, default=float)}", flush=True)
+    return record
+
+
 def _to(state, device):
     def mv(x):
         if isinstance(x, torch.Tensor):
@@ -692,6 +829,7 @@ def main() -> int:
     phase_reference(dev)
     paths["vi"] = phase_vi(dev)
     phase_vi_reference(dev)
+    paths["trainer"] = phase_trainer(dev)["launches"]
 
     kernels = []
     for r in rows:

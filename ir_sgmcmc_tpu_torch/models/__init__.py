@@ -1,9 +1,10 @@
 """Models: transformation, GMM likelihood, regularisers, priors, samplers."""
 
 from .distributions import (DirichletPrior, LogEnergyExpGammaPrior, LogPrecisionExpGammaPrior,
-                            LogScaleNormalPrior, NormalDistribution)
+                            LogScaleNormalPrior, NormalDistribution, make_distribution)
 from .gmm import GMM
-from .reg_loss import RegLossL2, RegLossLogNormal, RegLossLogNormalL2, RegLossStudent
+from .reg_loss import (RegLossL2, RegLossLogNormal, RegLossLogNormalL2, RegLossStudent,
+                       make_reg_loss)
 from .transformation import SVF3D, make_transformation
 
 __all__ = [
@@ -19,4 +20,6 @@ __all__ = [
     "LogEnergyExpGammaPrior",
     "LogPrecisionExpGammaPrior",
     "NormalDistribution",
+    "make_distribution",
+    "make_reg_loss",
 ]

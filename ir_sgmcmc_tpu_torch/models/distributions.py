@@ -112,3 +112,19 @@ class LogEnergyExpGammaPrior:
     def __call__(self, log_energy):
         return expgamma_log_pdf(log_energy, 0.5 * self.nu * self.dof,
                                 0.5 * self.nu * self.w_reg)
+
+
+_REGISTRY = {
+    "NormalDistribution": NormalDistribution,
+    "DirichletPrior": DirichletPrior,
+    "LogScaleNormalPrior": LogScaleNormalPrior,
+    "LogPrecisionExpGammaPrior": LogPrecisionExpGammaPrior,
+    "LogEnergyExpGammaPrior": LogEnergyExpGammaPrior,
+}
+
+
+def make_distribution(kind: str, **kwargs):
+    """Config-layer factory (type names as in the reference's configs)."""
+    if kind not in _REGISTRY:
+        raise ValueError(f"unknown distribution: {kind}")
+    return _REGISTRY[kind](**kwargs)

@@ -125,3 +125,24 @@ class RegLossLogNormalL2(RegLossEnergyBased):
 
     def _mlog_energy_prior(self, params, y):
         return -gamma_log_pdf(torch.log(y), 0.5 * self.dof, 0.5 * self.w_reg)
+
+
+_REGISTRY = {
+    # reference config type names
+    "RegLoss_L2": RegLossL2,
+    "RegLoss_Student": RegLossStudent,
+    "RegLoss_LogNormal": RegLossLogNormal,
+    "RegLoss_LogNormal_L2": RegLossLogNormalL2,
+    # native names
+    "RegLossL2": RegLossL2,
+    "RegLossStudent": RegLossStudent,
+    "RegLossLogNormal": RegLossLogNormal,
+    "RegLossLogNormalL2": RegLossLogNormalL2,
+}
+
+
+def make_reg_loss(kind: str, **kwargs) -> RegLoss:
+    """Config-layer factory (type names as in the reference's configs)."""
+    if kind not in _REGISTRY:
+        raise ValueError(f"unknown reg loss: {kind}")
+    return _REGISTRY[kind](**kwargs)

@@ -146,13 +146,37 @@ class SVF3D:
         return transformation, disp, g
 
 
-def make_transformation(kind: str, dims, no_steps: int = 12, max_disp: int = 8,
+def make_transformation(kind: str, dims, cps=None, no_steps: int = 12, max_disp: int = 8,
                         use_gather: bool = False, taylor_threshold: float = 0.5,
-                        taylor_compositions: bool | str | None = None):
-    """Config-layer factory; only ``SVF_3D`` is ported (ROADMAP A11-A12)."""
+                        unroll: int | bool | None = None,
+                        taylor_compositions: bool | str | None = None,
+                        compute_dtype: str | None = None):
+    """Config-layer factory with the JAX one's arguments.
+
+    ``unroll`` is the JAX package's scan unroll factor; the port's
+    integration is a Python loop, so it has no effect here.  The JAX
+    package resolves ``compute_dtype=None`` to float32 off a TPU, and the
+    port computes in float32; ``"bfloat16"`` raises (ROADMAP rule: bf16 only
+    once it is measured on the H100).  What is not ported raises
+    ``NotImplementedError`` naming its ROADMAP item.
+    """
+    if compute_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(
+            f"compute_dtype must be None (auto: bfloat16 on TPU), "
+            f"'float32' or 'bfloat16'; got {compute_dtype!r}")
+    if compute_dtype == "bfloat16":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' is not ported: the port computes in "
+            "float32, and bf16 comes only once measured on the H100 (ROADMAP "
+            "'Rules of the port', Precision)")
     if kind in ("SVF_3D", "SVF3D"):
         return SVF3D(dims, no_steps, max_disp=max_disp, use_gather=use_gather,
                      taylor_threshold=taylor_threshold,
                      taylor_compositions=taylor_compositions)
-    raise NotImplementedError(f"transformation {kind!r} is not ported yet "
-                              "(ROADMAP A11-A12)")
+    if kind in ("SVFFD_3D", "SVFFD3D", "Cubic_B_spline_FFD_3D", "BSplineFFD3D"):
+        raise NotImplementedError(f"transformation {kind!r} (a B-spline control "
+                                  "grid) is not ported yet (ROADMAP A11)")
+    if kind in ("SVF_2D", "SVF2D"):
+        raise NotImplementedError(f"transformation {kind!r} is not ported yet "
+                                  "(ROADMAP A12)")
+    raise ValueError(f"unknown transformation model: {kind}")

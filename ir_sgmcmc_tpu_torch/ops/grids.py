@@ -54,3 +54,11 @@ def det_jacobian(jac: torch.Tensor) -> torch.Tensor:
     d, e, f = jac[..., 1, 0, :, :, :], jac[..., 1, 1, :, :, :], jac[..., 1, 2, :, :, :]
     g, h, i = jac[..., 2, 0, :, :, :], jac[..., 2, 1, :, :, :], jac[..., 2, 2, :, :, :]
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def count_non_diffeomorphic(det_J: torch.Tensor) -> torch.Tensor:
+    """Voxels with a non-positive Jacobian determinant, ``det ≤ 0``, per
+    leading index: the NaN-or-``-inf`` count of ``log det J``.  The trainer's
+    evaluation counts this; the engine's ``count_folds`` counts ``det < 0``
+    (the NaN count alone), as the JAX package does at each site."""
+    return torch.sum(det_J <= 0.0, dim=(-3, -2, -1))

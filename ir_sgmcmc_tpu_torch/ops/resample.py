@@ -1,7 +1,8 @@
 """3D resampling, main-path subset (port of ``ir_sgmcmc_tpu/ops/resample.py``).
 
-* :func:`grid_sample` — torch ``grid_sample`` semantics (trilinear, border
-  padding, ``align_corners=True``); the image warp below 64³.
+* :func:`grid_sample` — torch ``grid_sample`` semantics (trilinear or
+  nearest, border padding, ``align_corners=True``); the image warp below
+  64³, and with :func:`warp` the trainer's segmentation warp.
 * :func:`warp_block_gather` — the exact trilinear warp by a smooth bounded
   displacement, decomposed into per-block integer means plus a clipped
   residual; kernels B3/B4 on the card (``kernels/block_warp.py``).
@@ -18,16 +19,41 @@ from ..kernels import block_warp as _bw
 from ..kernels import warp_bounded as _wb
 
 
-def grid_sample(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Trilinear sample of ``vol`` at normalised ``grid``.
+def _nearest(v: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``v (C, D, H, W)`` at the nearest voxel of each point of ``grid (…, 3,
+    D', H', W')``: ``(…, C, D', H', W')``.  The coordinate arithmetic is the
+    JAX package's (``i = (g + 1) · 0.5 · (S - 1)``, clamped to the volume),
+    rounded half to even as ``jnp.rint`` does."""
+    C = v.shape[0]
+    D, H, W = v.shape[-3:]
+
+    def index(c: torch.Tensor, n: int) -> torch.Tensor:
+        return torch.round(torch.clamp((c + 1.0) * 0.5 * (n - 1), 0.0, n - 1)).to(torch.int64)
+
+    flat = (index(grid[..., 2, :, :, :], D) * H
+            + index(grid[..., 1, :, :, :], H)) * W + index(grid[..., 0, :, :, :], W)
+    out = v.reshape(C, -1)[:, flat.reshape(-1)].reshape((C,) + tuple(flat.shape))
+    return torch.movedim(out, 0, -4)
+
+
+def grid_sample(vol: torch.Tensor, grid: torch.Tensor, mode: str = "linear") -> torch.Tensor:
+    """Sample ``vol`` at normalised ``grid``, torch ``grid_sample`` semantics
+    (border padding, ``align_corners=True``).
 
     :param vol: ``(D, H, W)`` or ``(C, D, H, W)``, shared by every grid.
     :param grid: ``(…, 3, D', H', W')`` normalised coordinates, channel 0 =
         x/W — the order ``F.grid_sample`` reads from its last axis.
+    :param mode: ``"linear"`` (trilinear, ``F.grid_sample``) or
+        ``"nearest"`` (a gather at the rounded coordinates, half to even).
     :return: ``(…, [C,] D', H', W')``.
     """
     squeeze = vol.ndim == 3
     v = vol[None] if squeeze else vol
+    if mode == "nearest":
+        out = _nearest(v, grid)
+        return out.squeeze(-4) if squeeze else out
+    if mode != "linear":
+        raise ValueError(f"unknown mode: {mode}")
     lead = grid.shape[:-4]
     g = grid.reshape((-1,) + tuple(grid.shape[-4:]))
     n = g.shape[0]
@@ -122,3 +148,16 @@ def warp_bounded(vol: torch.Tensor, disp_vox: torch.Tensor, radius: int) -> torc
     channel 0 = x): exact trilinear with border clamping where
     ``|disp| <= radius``, the displacement clipped to ``±radius`` beyond."""
     return WarpBounded.apply(vol, disp_vox, int(radius))
+
+
+def warp(moving: torch.Tensor, transformation: torch.Tensor, *,
+         method: str = "linear") -> torch.Tensor:
+    """Warp an image or segmentation ``(D, H, W)`` by a dense normalised
+    transformation ``(…, 3, D, H, W)``: ``"linear"`` for intensity images,
+    ``"nearest"`` for masks and segmentations.  The volume is sampled as
+    float32; ``"nearest"`` casts the result back to an integer or bool
+    input's dtype."""
+    out = grid_sample(moving.to(torch.float32), transformation, mode=method)
+    if method == "nearest" and moving.dtype != torch.float32:
+        out = out.to(moving.dtype)
+    return out

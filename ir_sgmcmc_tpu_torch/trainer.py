@@ -1,0 +1,839 @@
+"""Two-phase VI -> SG-MCMC registration trainer (port of
+``ir_sgmcmc_tpu/trainer.py``, its sequential path).
+
+The engines run the hot loops; the host only:
+
+* moves each image pair to the device once,
+* runs VI and SG-MCMC chunks sized to the logging period,
+* evaluates registration quality (Dice on the device, ASD on the host's
+  writer thread) at log time,
+* enforces the diffeomorphism guard (abort when a chain folds at more than
+  ``non_diffeomorphic_tolerance`` of the voxels) and the saturation guard,
+  with block-radius auto-escalation,
+* writes scalars, NIfTI/VTK artifacts and time-gated checkpoints in the
+  JAX package's formats.
+
+Phases per pair: data -> GMM warm-up -> [VI -> VI test] -> [MCMC].  The
+order of host work is the JAX trainer's, and with it the guards' semantics:
+an MCMC period is processed after the next chunk has been dispatched, so a
+guard fires one period after the chunk that tripped it, and the saved
+posterior rolls back to the newest period that passed every guard.
+
+Devices: the trainer runs on the CUDA card unless ``device="cpu"`` is
+passed, and raises without a card.  The engines are functional (no state
+tensor is updated in place), so a state handed to the writer thread needs
+no copy.
+
+Random streams: the JAX trainer draws from three threefry streams, the VI
+key ``PRNGKey(seed + pair)``, ``fold_in(key, 101)`` for the VI test and
+``fold_in(key, 202)`` for the chain init.  The port's VI state carries the
+same two key words; the VI test and the chain init draw from torch
+generators seeded from the VI state's key words with the salts 101 and 202
+(``engine.vi.key_generator``).  A run therefore equals the JAX package's
+in distribution, not bitwise, as the engines do.
+
+Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
+``pair_parallel`` over more than one pair (A13), ``MCMC_params: "shared"``
+(A12), ``mcmc_anchor: true`` (not ported by rule), ``vi_remat`` (A9; its
+``"auto"`` turns it on from a 100 MB field, about 204³).  ``distribute``,
+``spatial_shards`` and ``vi_spatial_shards`` are accepted and, on one
+card, change nothing, as in the JAX trainer on one device.  There is no
+kernel fallback: a kernel that fails to build or launch raises.
+
+``Trainer.timings`` accumulates wall seconds per span of host work (the
+engines' chunks, evaluation, period processing, artifact writes, the
+writer thread's work under ``writer/``), for the account of where a
+phase's time goes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .config import Config
+from .engine import (VIState, gmm_warmup, init_chains, make_mcmc_chunk, make_vi_chunk,
+                     make_vi_step, posterior_statistics)
+from .engine.mcmc import welford_finalize, welford_init, welford_update
+from .engine.vi import key_generator
+from .models.sampler import sample_q_v
+from .ops.grids import count_non_diffeomorphic, det_jacobian
+from .ops.resample import warp
+from .ops.stencil import gradient
+from .utils import savers
+from .utils.checkpoint import load_checkpoint, peek_meta, save_checkpoint
+from .utils.metrics import MetricTracker, calc_metrics, dice
+
+
+class TrainerAbort(RuntimeError):
+    """Base for runtime-guard aborts of a sampling phase."""
+
+
+class NonDiffeomorphicAbort(TrainerAbort):
+    """Raised when a sampled transformation folds at > ``tol`` of voxels."""
+
+
+class DisplacementSaturationAbort(TrainerAbort):
+    """Raised when displacements saturate a warp limit at > ``tol`` of
+    voxels: the clamp silently corrupts the posterior there."""
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _host(tree: dict) -> dict:
+    return {k: _numpy(v) for k, v in tree.items()}
+
+
+def _last(metrics_stacked: dict) -> dict:
+    """Final-step slice of stacked per-step chunk metrics."""
+    return {k: v[-1] for k, v in metrics_stacked.items()}
+
+
+def _first(batched: dict) -> dict:
+    return {k: v[0] for k, v in batched.items()}
+
+
+class _Fetch:
+    """Device-to-host copies of small tensors, started when constructed and
+    awaited by :meth:`get`.
+
+    The JAX trainer reads a finished period's metrics after dispatching the
+    next chunk, and XLA's per-buffer readiness lets that read return before
+    the new chunk ends.  One CUDA stream would queue a plain ``.cpu()``
+    behind the new chunk, so the copies are queued (into pinned memory)
+    before it, and the read waits on their event alone."""
+
+    def __init__(self, tensors: dict):
+        self._host = {k: t.detach().to("cpu", non_blocking=True) for k, t in tensors.items()}
+        self._event = None
+        if any(t.is_cuda for t in tensors.values()):
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def get(self) -> dict:
+        if self._event is not None:
+            self._event.synchronize()
+        return {k: t.numpy() for k, t in self._host.items()}
+
+
+class Trainer:
+    def __init__(self, config: Config, dataset=None, resume: str | None = None, device=None):
+        self.config = config
+        self.t_cfg = config["trainer"]
+        self.logger = config.logger
+        self.writer = config.writer
+        self.device = resolve_device(device)
+        self.dataset = dataset if dataset is not None else config.build_dataset()
+        self.bundle = config.build_bundle()
+        self.opt_q_v, self.opt_gmm, self.opt_reg = config.build_optimizers(self.bundle)
+        self.resume_path = resume
+
+        self.structures = getattr(self.dataset, "structures", None) or config.structures
+        self.spacing = (1.0, 1.0, 1.0)  # refined per pair once a volume is read
+
+        self.run_vi = bool(self.t_cfg.get("VI", False))
+        self.run_mcmc = bool(self.t_cfg.get("MCMC", False))
+        self.no_iters_vi = int(self.t_cfg.get("no_iters_VI", 0))
+        self.no_samples_vi_test = int(self.t_cfg.get("no_samples_VI_test", 0))
+        self.no_chains = int(self.t_cfg.get("no_chains", 1))
+        self.no_iters_burn_in = int(self.t_cfg.get("no_iters_burn_in", 0))
+        self.no_samples_mcmc = int(self.t_cfg.get("no_samples_MCMC", 0))
+        self.log_period_vi = int(self.t_cfg.get("log_period_VI", 128))
+        self.log_period_mcmc = int(self.t_cfg.get("log_period_MCMC", 1000))
+        self.mcmc_init = self.t_cfg.get("MCMC_init", "VI")
+        self.mcmc_param_mode = self.t_cfg.get("MCMC_params", "per_chain")
+        self.compute_asd = bool(self.t_cfg.get("ASD", True))
+        self.ndv_tol = float(self.t_cfg.get("non_diffeomorphic_tolerance", 0.001))
+        self.sat_tol = float(self.t_cfg.get("saturation_tolerance", 0.001))
+        self.speed_test_iters = int(self.t_cfg.get("speed_test_iters", 100))
+        # checkpoints are time-gated (phase ends always checkpoint); artifact
+        # saving has its own period, by default every log period
+        self.ckpt_period_s = float(self.t_cfg.get("checkpoint_period_s", 300.0))
+        self.save_period_mcmc = int(
+            self.t_cfg.get("save_period_MCMC", self.log_period_mcmc))
+        self._last_ckpt_t = float("-inf")
+        remat = self.t_cfg.get("vi_remat", "auto")
+        if remat == "auto":  # the JAX rule: a dense field of at least 100 MB
+            remat = 3 * 4 * int(np.prod(self.bundle.dims)) >= 100 * 1024 * 1024
+        self.vi_remat = bool(remat)
+        self._refuse_unported()
+        self.timings: dict = {}
+        self._timings_lock = threading.Lock()  # the writer thread adds to it too
+
+        keys = ["data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha",
+                "reg_energy", "ndv", "sat"]
+        self.tracker = MetricTracker(*keys, writer=self.writer)
+        self.writer.add_text("config", json.dumps(config.cfg, indent=2, default=str))
+
+    def _refuse_unported(self) -> None:
+        if bool(self.t_cfg.get("pair_parallel", False)) and len(self.dataset) > 1:
+            raise NotImplementedError(
+                "pair_parallel over more than one pair (the pair-stacked "
+                "chunks) is not ported (ROADMAP A13)")
+        if self.run_mcmc and self.mcmc_param_mode != "per_chain":
+            raise NotImplementedError(
+                f"MCMC_params={self.mcmc_param_mode!r} is not ported; only "
+                f"'per_chain' is (ROADMAP A12)")
+        if self.run_mcmc and bool(self.t_cfg.get("mcmc_anchor", False)):
+            raise NotImplementedError(
+                "mcmc_anchor=true (anchored residual warping) is not ported "
+                "(ROADMAP 'Rules of the port', Not ported)")
+        if self.run_vi and self.no_iters_vi > 0 and self.vi_remat:
+            raise NotImplementedError(
+                "vi_remat (sequential antithetic chains with recompute; "
+                "'auto' turns it on from a 100 MB field, about 204³) is not "
+                "ported yet (ROADMAP A9)")
+
+    # ------------------------------------------------------------- timing
+    def _add_time(self, name: str, seconds: float) -> None:
+        with self._timings_lock:
+            self.timings[name] = self.timings.get(name, 0.0) + seconds
+
+    def _timed(self, name: str, fn):
+        """``fn`` with its wall time added to ``timings[name]`` (for closures
+        run on the writer thread)."""
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                fn()
+            finally:
+                self._add_time(name, time.perf_counter() - t0)
+
+        return run
+
+    # ------------------------------------------------------------------ run
+    def run(self):
+        """Register every pair in the dataset; returns per-pair summaries."""
+        summaries = [self._run_pair(i) for i in range(len(self.dataset))]
+        self.writer.close()
+        return summaries
+
+    def _save_dirs_for(self, pair_idx: int) -> dict:
+        """Pair 0 keeps the run's artifact tree; later pairs get their own
+        subtree so multi-pair runs never overwrite each other's outputs."""
+        base = dict(self.config.save_dirs)
+        if pair_idx == 0:
+            return base
+        dirs = {
+            k: (p if k == "dir" else p.parent / f"pair_{pair_idx}" / p.name)
+            for k, p in base.items()
+        }
+        for k, p in dirs.items():
+            if k != "dir":
+                p.mkdir(parents=True, exist_ok=True)
+        return dirs
+
+    def _to_device(self, arrays: dict) -> dict:
+        return {k: torch.as_tensor(v, device=self.device) for k, v in arrays.items()}
+
+    def _initial_state(self, q_v0: dict, pair_idx: int) -> VIState:
+        """q(v), GMM and reg parameters with fresh optimizers; the key words
+        are ``PRNGKey(seed + pair_idx)``'s."""
+        q_v = self._to_device(q_v0)
+        gmm = self.bundle.gmm.init_params(self.device)
+        reg = self.bundle.reg_loss.init_params(self.device)
+        seed = int(self.t_cfg.get("seed", 0)) + pair_idx
+        return VIState(
+            q_v=q_v, gmm=gmm, reg=reg,
+            opt_q_v=self.opt_q_v.init(q_v),
+            opt_gmm=self.opt_gmm.init(gmm),
+            opt_reg=self.opt_reg.init(reg),
+            key=torch.tensor([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=torch.int64),
+            step=0,
+        )
+
+    def _run_pair(self, pair_idx: int) -> dict:
+        self.save_dirs = self._save_dirs_for(pair_idx)
+
+        fixed_np, moving_np, q_v0 = self.dataset[pair_idx]
+        if self.dataset.im_spacing is not None:
+            sp = np.ravel(np.asarray(self.dataset.im_spacing, np.float32))
+            self.spacing = tuple(np.resize(sp, 3).tolist())
+        fixed = self._to_device(fixed_np)
+        moving = self._to_device(moving_np)
+
+        savers.save_fixed_im(self.save_dirs, self.spacing, fixed_np["im"])
+        savers.save_moving_im(self.save_dirs, self.spacing, moving_np["im"])
+        savers.save_fixed_mask(self.save_dirs, self.spacing, fixed_np["mask"])
+        savers.save_moving_mask(self.save_dirs, self.spacing, moving_np["mask"])
+
+        state = self._initial_state(q_v0, pair_idx)
+
+        resume_meta = {}
+        self._mcmc_resume = None
+        # resume applies to pair 0 only: a checkpoint holds one pair's state
+        resume_path = self.resume_path if pair_idx == 0 else None
+        if resume_path:
+            meta = peek_meta(resume_path)
+            phase = meta.get("phase")
+            if phase is None and "phase_done" in meta:  # round-1 checkpoints
+                phase = "MCMC" if int(meta["phase_done"]) >= 1 else "VI"
+            if phase == "VI":
+                state, resume_meta = load_checkpoint(resume_path, state)
+                self.logger.info("resumed from %s at %s", resume_path, resume_meta)
+            elif phase == "MCMC":
+                # the MCMC phase loads it into the chain-state template
+                self._mcmc_resume = resume_path
+                resume_meta = {"phase_done": 1}
+                state = gmm_warmup(self.bundle, self.opt_gmm, state, fixed, moving)
+            else:
+                raise ValueError(
+                    f"{resume_path}: checkpoint metadata names neither the "
+                    f"VI nor the MCMC phase (meta={meta}); refusing to guess"
+                )
+        else:
+            # GMM warm-up: data-driven scale init + 25 detached Adam steps
+            state = gmm_warmup(self.bundle, self.opt_gmm, state, fixed, moving)
+
+        summary = {"pair": pair_idx}
+        baseline_dsc = dice(fixed["seg"], moving["seg"], list(self.structures.values()))
+        summary["dsc_before"] = float(baseline_dsc.mean())
+        self.logger.info("pair %d: pre-registration mean Dice %.4f",
+                         pair_idx, summary["dsc_before"])
+
+        if self.run_vi and int(resume_meta.get("phase_done", -1)) < 1:
+            t0 = time.perf_counter()
+            state = self._run_vi_phase(fixed, moving, state,
+                                       start=int(resume_meta.get("vi_iters", 0)))
+            summary["vi_time_s"] = time.perf_counter() - t0
+            self.logger.info("VI phase took %.1fs", summary["vi_time_s"])
+            summary.update(self._test_vi(fixed, moving, state))
+
+        if self.run_mcmc:
+            summary.update(self._run_mcmc_phase(fixed, moving, state))
+
+        return summary
+
+    # ---------------------------------------------------------- evaluation
+    def _make_eval(self, fixed, moving):
+        """Sample evaluation over a leading batch: ``v_unsmoothed (B, 3, D,
+        H, W)`` -> warped image and segmentation, log|J|, displacement,
+        Dice ``(B, L)``, the ``det ≤ 0`` count ``(B,)`` and residuals."""
+        bundle = self.bundle
+        labels = list(self.structures.values())
+
+        def eval_v(v_unsmoothed):
+            with torch.no_grad():
+                v = bundle.smooth(v_unsmoothed)
+                # the image rides the integration cascade; the segmentation
+                # needs nearest-neighbour semantics and keeps the gather
+                transformation, displacement, im_warped = bundle.transformation.integrate(
+                    v, im=moving["im"])
+                seg_warped = warp(moving["seg"], transformation, method="nearest")
+                det = det_jacobian(gradient(transformation, normalised_spacing=True))
+                log_det = torch.log(torch.clamp(det, min=0.0))  # -inf/nan where folded
+                return {
+                    "im_warped": im_warped,
+                    "seg_warped": seg_warped,
+                    "displacement": displacement,
+                    "log_det_J": log_det,
+                    "dsc": dice(fixed["seg"], seg_warped, labels),
+                    "ndv": count_non_diffeomorphic(det),
+                    "residuals": bundle.gmm.residual_map(fixed["im"], im_warped),
+                }
+
+        return eval_v
+
+    def _log_seg_metrics(self, fixed_np, out, prefix: str, chain=None,
+                         defer_asd: bool = False):
+        """Per-structure Dice and the EDT-based ASD; ``defer_asd=True`` runs
+        the ASD (the warped segmentation's fetch and the host EDT) on the
+        writer thread under a step-bound writer view."""
+        tag = f"{prefix}" + (f"/chain_{chain}" if chain is not None else "")
+        dsc = _numpy(out["dsc"])
+        for name, val in zip(self.structures, dsc):
+            self.writer.add_scalar(f"DSC/{tag}/{name}", float(val))
+        self.writer.add_scalar(f"DSC/{tag}/mean", float(dsc.mean()))
+        if self.compute_asd:
+            wb = self.writer.at_step()
+            seg_w = out["seg_warped"]
+
+            def _asd_work(wb=wb, fixed_np=fixed_np, seg_w=seg_w, tag=tag):
+                asd, _ = calc_metrics(fixed_np, _numpy(seg_w), self.structures, self.spacing)
+                finite = np.isfinite(asd[0])
+                for name, val in zip(self.structures, asd[0]):
+                    wb.add_scalar(f"ASD/{tag}/{name}", float(val))
+                if finite.any():
+                    wb.add_scalar(f"ASD/{tag}/mean", float(asd[0][finite].mean()))
+
+            if defer_asd:
+                savers.submit(self._timed("writer/asd", _asd_work))
+            else:
+                self._timed("asd", _asd_work)()
+        return float(dsc.mean())
+
+    def _maybe_checkpoint(self, path, state, meta, force: bool = False) -> None:
+        """Time-gated checkpoint, written on the writer thread: at most every
+        ``checkpoint_period_s``, and always at phase ends."""
+        now = time.perf_counter()
+        if not force and now - self._last_ckpt_t < self.ckpt_period_s:
+            return
+        savers.submit(self._timed("writer/checkpoint",
+                                  lambda: save_checkpoint(path, state, meta)))
+        self._last_ckpt_t = time.perf_counter()
+
+    def _submit_sample(self, sample_no, out, model: str, chain=None) -> None:
+        """Queue one sample's artifacts (float16 copies made on the device now,
+        fetched and written on the writer thread)."""
+        im16 = out["im_warped"].to(torch.float16)
+        disp16 = out["displacement"].to(torch.float16)
+        ldj16 = out["log_det_J"].to(torch.float16)
+        sd = self.save_dirs
+        savers.submit(self._timed("writer/samples", lambda: savers.save_sample(
+            sd, self.spacing, sample_no, im16, disp16, ldj16, model, chain_no=chain)))
+
+    def _check_saturation(self, sat: int, sat_resid: int, step: int,
+                          phase: str) -> None:
+        """Displacement-saturation guard: warn on any clamped voxels, abort
+        above ``saturation_tolerance``.
+
+        ``sat - sat_resid`` voxels hit the integrator's displacement clamp
+        bound (lever: ``max_disp``); ``sat_resid`` voxels exceed the
+        block-gather warp's in-block residual radius (lever:
+        ``block_warp.radius``), a bound on the field's in-block variation
+        that raising ``max_disp`` does not move."""
+        if sat <= 0:
+            return
+        no_voxels = float(np.prod(self.bundle.dims))
+        max_disp = getattr(self.bundle.transformation, "max_disp", None)
+        bound_n = max(0, int(sat) - int(sat_resid))
+        causes = []
+        if bound_n > 0:
+            causes.append(
+                f"{bound_n} voxels clamp at the displacement bound "
+                f"(max_disp={max_disp}) — raise "
+                f"transformation_module.args.max_disp")
+        if sat_resid > 0:
+            causes.append(
+                f"{sat_resid} voxels exceed the block-gather warp's "
+                f"in-block residual radius (trainer.block_warp."
+                f"radius={self.bundle.block_radius}, "
+                f"block={self.bundle.block_size}) — this bounds the "
+                f"displacement's in-block VARIATION, so raising "
+                f"max_disp does not help; raise "
+                f"trainer.block_warp.radius (the MCMC phase escalates it "
+                f"itself up to 4)")
+        msg = (
+            f"{phase} step {step}: displacement saturates a warp limit at "
+            f"{sat} voxels ({sat / no_voxels:.2%}) — results are clamped "
+            f"there: " + "; ".join(causes)
+        )
+        if sat > self.sat_tol * no_voxels:
+            err = DisplacementSaturationAbort(msg)
+            # structured counters for the MCMC loop's auto-recovery
+            err.sat = int(sat)
+            err.sat_resid = int(sat_resid)
+            raise err
+        self.logger.warning(msg)
+
+    # ------------------------------------------------------------ VI phase
+    def _run_vi_phase(self, fixed, moving, state: VIState, start: int = 0) -> VIState:
+        step_fn = make_vi_step(self.bundle, self.opt_q_v, self.opt_gmm, self.opt_reg,
+                               fixed, moving, remat=self.vi_remat)
+        eval_fn = self._make_eval(fixed, moving)
+        fixed_seg_np = _numpy(fixed["seg"])
+        cap = int(self.t_cfg.get("max_device_chunk", 200))
+
+        def run_steps(state, n):
+            ms = None
+            while n > 0:
+                this = min(cap, n)
+                state, ms = make_vi_chunk(step_fn, this)(state)
+                n -= this
+            return state, ms
+
+        log_period = max(1, min(self.log_period_vi, self.no_iters_vi))
+        done = start
+        try:
+            while done < self.no_iters_vi:
+                this = min(log_period, self.no_iters_vi - done)
+                t0 = time.perf_counter()
+                state, ms = run_steps(state, this)
+                done += this
+                last = _host(_last(ms))
+                t1 = time.perf_counter()
+                self._add_time("vi/steps", t1 - t0)
+
+                self.writer.set_step(done)
+                for k in ("data_term", "reg_term", "entropy_term", "total_loss",
+                          "vd_alpha", "reg_energy", "ndv", "sat"):
+                    self.tracker.update(k, float(last[k]))
+                self._check_saturation(int(last["sat"]), int(last["sat_resid"]), done, "VI")
+                for i, (s, p) in enumerate(zip(np.atleast_1d(last["gmm_scales"]),
+                                               np.atleast_1d(last["gmm_proportions"]))):
+                    self.writer.add_scalar(f"GMM/scale_{i}", float(s))
+                    self.writer.add_scalar(f"GMM/proportion_{i}", float(p))
+                for name in ("mu", "log_var", "u"):
+                    self.writer.add_scalar(f"VI/max_update_{name}",
+                                           float(last[f"max_update_{name}"]))
+
+                out = _first(eval_fn(state.q_v["mu"][None]))
+                mean_dsc = self._log_seg_metrics(fixed_seg_np, out, "VI", defer_asd=True)
+                if self.writer.has_figures:
+                    self._submit_vi_figures(out, state, last, fixed, moving)
+                self.logger.info(
+                    "VI %d/%d loss %.1f data %.1f reg %.1f entropy %.1f dice %.4f ndv %d",
+                    done, self.no_iters_vi, float(last["total_loss"]),
+                    float(last["data_term"]), float(last["reg_term"]),
+                    float(last["entropy_term"]), mean_dsc, int(last["ndv"]),
+                )
+                self._maybe_checkpoint(
+                    self.save_dirs["models"] / "vi_latest.npz", state,
+                    {"phase": "VI", "phase_done": 0, "vi_iters": done,
+                     "config": self.config.name},
+                    force=done >= self.no_iters_vi,
+                )
+                self._add_time("vi/eval+log", time.perf_counter() - t1)
+                self.logger.debug("VI period %d: steps %.2fs eval+log %.2fs", done,
+                                  t1 - t0, time.perf_counter() - t1)
+        finally:
+            # queued checkpoint/artifact writes land even on a guard abort
+            t0 = time.perf_counter()
+            savers.flush()
+            self._add_time("vi/flush", time.perf_counter() - t0)
+        return state
+
+    def _submit_vi_figures(self, out, state: VIState, last: dict, fixed, moving) -> None:
+        """Residual histogram, image and field grids, rendered on the writer
+        thread from float16 device copies (only when figures are recorded)."""
+        from .utils import figures
+
+        fixed_mask_np = _numpy(fixed["mask"])
+        fixed_im_np = _numpy(fixed["im"]).astype(np.float32)
+        moving_im_np = _numpy(moving["im"]).astype(np.float32)
+        wb = self.writer.at_step()
+        f16 = {
+            "res": out["residuals"].to(torch.float16),
+            "imw": out["im_warped"].to(torch.float16),
+            "disp": out["displacement"].to(torch.float16),
+            "mu": state.q_v["mu"].to(torch.float16),
+            "sig": torch.exp(0.5 * state.q_v["log_var"]).to(torch.float16),
+            "u": state.q_v["u"].to(torch.float16),
+        }
+        log_props = np.log(np.asarray(last["gmm_proportions"]))
+        log_scales = np.log(np.asarray(last["gmm_scales"]))
+
+        def _vi_figs():
+            a = {k: _numpy(t).astype(np.float32) for k, t in f16.items()}
+            wb.add_figure("VI/residual_hist", figures.residual_histogram(
+                a["res"], fixed_mask_np, log_props, log_scales))
+            wb.add_figure("VI/images", figures.image_grid({
+                "fixed": fixed_im_np, "moving": moving_im_np, "warped(mu)": a["imw"]}))
+            wb.add_figure("VI/fields", figures.field_norm_grid({
+                "mu": a["mu"], "sigma": a["sig"], "u": a["u"], "displacement": a["disp"]}))
+
+        savers.submit(_vi_figs, droppable=True)
+
+    def _test_vi(self, fixed, moving, state: VIState) -> dict:
+        """Posterior draws and their evaluation, the posterior-mean
+        artifacts, and the sampling speed test."""
+        if self.no_samples_vi_test <= 0:
+            return {}
+        t_start = time.perf_counter()
+        bundle = self.bundle
+        eval_fn = self._make_eval(fixed, moving)
+        fixed_seg_np = _numpy(fixed["seg"])
+
+        gen = key_generator(state.key, state.step, self.device, salt=101)
+        welford = welford_init(1, (3,) + tuple(bundle.dims), self.device)
+        dscs = []
+        save_every = max(1, self.no_samples_vi_test // 10)
+        for i in range(self.no_samples_vi_test):
+            out = _first(eval_fn(sample_q_v(gen, state.q_v)[None]))
+            welford = welford_update(welford, out["displacement"][None], 1.0)
+            self.writer.set_step(i)
+            dscs.append(self._log_seg_metrics(fixed_seg_np, out, "VI_test"))
+            if i % save_every == 0:
+                self._submit_sample(i, out, "VI")
+        t_draws = time.perf_counter()
+        self._add_time("vi_test/draws", t_draws - t_start)
+
+        # posterior mean transform (mu directly)
+        out_mu = _first(eval_fn(state.q_v["mu"][None]))
+        savers.save_variational_posterior_mean(
+            self.save_dirs, self.spacing, out_mu["im_warped"], out_mu["displacement"])
+        mean, std = welford_finalize(welford)
+        savers.save_displacement_mean_and_std_dev(
+            self.save_dirs, self.spacing, mean[0], std[0], fixed["mask"], "VI")
+        if self.writer.has_figures:
+            from .utils import figures
+
+            self.writer.add_figure("VI_test/posterior",
+                                   figures.mean_std_grid(_numpy(mean[0]), _numpy(std[0])))
+        t_post = time.perf_counter()
+        self._add_time("vi_test/posterior", t_post - t_draws)
+
+        # sampling speed test: sample -> smooth -> integrate -> warp im + seg
+        def draw():
+            v = bundle.smooth(sample_q_v(gen, state.q_v)[None])
+            transformation, _, im_w = bundle.transformation.integrate(v, im=moving["im"])
+            seg_w = warp(moving["seg"], transformation, method="nearest")
+            return torch.mean(im_w), torch.sum(seg_w)
+
+        with torch.no_grad():
+            float(draw()[0])  # warm-up draw and host sync
+            t0 = time.perf_counter()
+            outs = [draw()[0] for _ in range(self.speed_test_iters)]
+            float(torch.stack(outs).sum())
+            dt = time.perf_counter() - t0
+        sps = self.speed_test_iters / dt
+        self.logger.info("VI sampling speed: %.2f samples/sec", sps)
+        self._add_time("vi_test/speed_test", time.perf_counter() - t_post)
+
+        t0 = time.perf_counter()
+        savers.flush()
+        self._add_time("vi_test/flush", time.perf_counter() - t0)
+        return {
+            "vi_test_mean_dsc": float(np.mean(dscs)) if dscs else float("nan"),
+            "vi_samples_per_sec": sps,
+        }
+
+    # ---------------------------------------------------------- MCMC phase
+    def _run_mcmc_phase(self, fixed, moving, vi_state: VIState) -> dict:
+        bundle = self.bundle
+        no_voxels = float(np.prod(bundle.dims))
+        tau = self.config.tau
+        total = self.no_iters_burn_in + self.no_samples_mcmc
+
+        mcmc = init_chains(
+            bundle,
+            key_generator(vi_state.key, vi_state.step, self.device, salt=202),
+            no_chains=self.no_chains,
+            mode=self.mcmc_init,
+            q_v=vi_state.q_v if self.mcmc_init == "VI" else None,
+            gmm=vi_state.gmm,
+            reg=vi_state.reg,
+            opt_gmm=self.opt_gmm,
+            opt_reg=self.opt_reg,
+            device=self.device,
+        )
+
+        mcmc_resume = getattr(self, "_mcmc_resume", None)
+        if mcmc_resume:
+            # a structural mismatch here is a user error (dims, chain count)
+            mcmc, resume_meta = load_checkpoint(mcmc_resume, mcmc)
+            self.logger.info("resumed MCMC from %s at %s", mcmc_resume, resume_meta)
+            # checkpoints record the (possibly auto-escalated) block radius
+            ck_radius = int(resume_meta.get("block_radius", 0) or 0)
+            if ck_radius > int(bundle.block_radius):
+                self.logger.info(
+                    "resume: restoring escalated trainer.block_warp.radius "
+                    "%d from the checkpoint (configured: %d)",
+                    ck_radius, bundle.block_radius)
+                bundle = self.bundle = dataclasses.replace(bundle, block_radius=ck_radius)
+
+        cap = int(self.t_cfg.get("max_device_chunk", 200))
+        thin = int(self.t_cfg.get("mcmc_thin", 1))
+
+        def run_steps(mcmc, n):
+            """Advance ``n`` transitions in chunks of at most ``cap``; the
+            chunk is built from ``bundle`` as it stands (an escalated radius
+            takes effect at once)."""
+            ms = None
+            while n > 0:
+                this = min(cap, n)
+                mcmc, ms = make_mcmc_chunk(
+                    bundle, self.opt_gmm, self.opt_reg, tau, fixed, moving, chunk=this,
+                    burn_in=self.no_iters_burn_in, thin=thin,
+                    param_mode=self.mcmc_param_mode)(mcmc)
+                n -= this
+            return mcmc, ms
+
+        eval_fn = self._make_eval(fixed, moving)
+        fixed_seg_np = _numpy(fixed["seg"])
+
+        log_period = max(1, min(self.log_period_mcmc, total))
+        summary = {}
+        done = int(mcmc.step)
+        t0 = time.perf_counter()
+
+        def process(done_at, fetch, outs, state):
+            """Host-side work for one completed log period, called after the
+            next chunk has been dispatched: the guards fire one period after
+            the chunk that tripped them."""
+            t_p0 = time.perf_counter()
+            last = fetch.get()
+            t_p1 = time.perf_counter()
+            self.writer.set_step(done_at)
+            for k in ("data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat"):
+                for c in range(self.no_chains):
+                    self.writer.add_scalar(f"MCMC/{k}/chain_{c}", float(last[k][c]))
+            self._check_saturation(int(last["sat"].max()), int(last["sat_resid"].max()),
+                                   done_at, "MCMC")
+
+            # diffeomorphism guard: abort when any chain folds at > tol voxels
+            worst = int(last["ndv"].max())
+            if worst > self.ndv_tol * no_voxels:
+                raise NonDiffeomorphicAbort(
+                    f"chain transformation folded at {worst} voxels "
+                    f"(> {self.ndv_tol:.1%} of {int(no_voxels)}) at step {done_at}"
+                )
+
+            if done_at >= total:
+                # final-period quality at the same trajectory point every
+                # run reaches (the speed test advances the chains further)
+                summary["mcmc_mean_dsc"] = float(last["dsc"].mean())
+            t_p2 = time.perf_counter()
+            post_burn_in = done_at > self.no_iters_burn_in
+            save_now = (post_burn_in and
+                        ((done_at - self.no_iters_burn_in) % self.save_period_mcmc
+                         < log_period or done_at >= total))
+            for c in range(self.no_chains):
+                out_c = {k: v[c] for k, v in outs.items()}
+                out_c["dsc"] = last["dsc"][c]
+                self._log_seg_metrics(fixed_seg_np, out_c, "MCMC", chain=c, defer_asd=True)
+                if save_now:
+                    self._submit_sample(done_at - self.no_iters_burn_in, out_c, "MCMC", chain=c)
+                    if self.writer.has_figures:
+                        self._submit_sample_figure(out_c, c)
+            t_p3 = time.perf_counter()
+            self.logger.debug(
+                "MCMC process %d: fetch-last %.2fs scalars+guards %.2fs "
+                "chains %.2fs", done_at, t_p1 - t_p0, t_p2 - t_p1, t_p3 - t_p2)
+            self.logger.info(
+                "MCMC %d/%d data %s reg %s ndv %s",
+                done_at, total,
+                np.array2string(last["data_term"], precision=1),
+                np.array2string(last["reg_term"], precision=1),
+                last["ndv"],
+            )
+            self._maybe_checkpoint(
+                self.save_dirs["models"] / "mcmc_latest.npz", state,
+                {"phase": "MCMC", "phase_done": 1, "mcmc_steps": done_at,
+                 # the CURRENT radius (auto-escalation may have raised it),
+                 # restored on resume
+                 "block_radius": int(self.bundle.block_radius),
+                 "config": self.config.name},
+                force=done_at >= total,
+            )
+            self._add_time("mcmc/process", time.perf_counter() - t_p0)
+
+        pending = None
+        last_good = None  # state of the newest period that passed the guards
+        skip_posterior = False
+        # block-residual auto-recovery: on a saturation abort whose binding
+        # counter is the in-block residual one, raise the radius (cap 4) and
+        # resume from the last clean period; the escalated radius goes into
+        # the checkpoint meta and is restored on resume
+        auto_escalate = bool(self.t_cfg.get("block_warp", {}).get("auto_escalate", True))
+        try:
+            while True:
+                try:
+                    while done < total:
+                        this = min(log_period, total - done)
+                        t_a = time.perf_counter()
+                        mcmc, ms = run_steps(mcmc, this)
+                        done += this
+                        t_b = time.perf_counter()
+                        ev = eval_fn(mcmc.v)
+                        nxt = (done, _Fetch({**_last(ms), "dsc": ev["dsc"]}), ev, mcmc)
+                        t_c = time.perf_counter()
+                        self._add_time("mcmc/chunks", t_b - t_a)
+                        self._add_time("mcmc/eval", t_c - t_b)
+                        if pending is not None:
+                            process(*pending)
+                            last_good = pending[3]
+                        else:
+                            # first period: nothing to overlap yet, so a
+                            # blocking read costs nothing
+                            nxt[1].get()
+                            self.logger.debug("MCMC first period: chunk+eval wall %.2fs",
+                                              time.perf_counter() - t_a)
+                        self.logger.debug(
+                            "MCMC period %d: dispatch %.2fs eval-dispatch "
+                            "%.2fs process %.2fs", done, t_b - t_a,
+                            t_c - t_b, time.perf_counter() - t_c)
+                        pending = nxt
+                    if pending is not None:  # None when resuming a finished phase
+                        process(*pending)
+                        last_good = pending[3]
+                        pending = None
+                    break
+                except DisplacementSaturationAbort as e:
+                    resid_binding = getattr(e, "sat_resid", 0) > self.sat_tol * no_voxels
+                    can_escalate = (
+                        auto_escalate and resid_binding
+                        and last_good is not None
+                        and bundle.block_radius < 4
+                        and bundle.noise_scheme == "post"
+                        and bundle.block_warp)
+                    if not can_escalate:
+                        raise
+                    new_r = bundle.block_radius + 1
+                    resume_step = int(last_good.step)
+                    self.logger.warning(
+                        "MCMC auto-recovery: %s — escalating trainer.block_"
+                        "warp.radius %d -> %d and resuming from the last "
+                        "clean period (step %d)",
+                        e, bundle.block_radius, new_r, resume_step)
+                    bundle = self.bundle = dataclasses.replace(bundle, block_radius=new_r)
+                    summary.setdefault("block_radius_escalations", []).append(
+                        {"step": resume_step, "radius": new_r})
+                    mcmc = last_good
+                    done = resume_step
+                    pending = None
+        except TrainerAbort as e:
+            self.logger.error("MCMC aborted: %s", e)
+            summary["mcmc_aborted"] = str(e)
+            # the live state is one chunk past the period whose guard fired:
+            # the saved posterior rolls back to the newest clean period, and
+            # with none at all it is not saved
+            mcmc = last_good if last_good is not None else mcmc
+            if last_good is None:
+                summary["mcmc_no_clean_period"] = True
+                skip_posterior = True
+        finally:
+            summary["mcmc_time_s"] = time.perf_counter() - t0
+            t_f = time.perf_counter()
+            if not skip_posterior and float(mcmc.welford.count.sum()) > 1:
+                mean, std = posterior_statistics(mcmc)
+                savers.save_displacement_mean_and_std_dev(
+                    self.save_dirs, self.spacing, mean, std, fixed["mask"], "MCMC")
+            t_g = time.perf_counter()
+            savers.flush()  # all queued sample dumps + checkpoints on disk
+            self._add_time("mcmc/posterior", t_g - t_f)
+            self._add_time("mcmc/flush", time.perf_counter() - t_g)
+
+        if "mcmc_aborted" not in summary:
+            # the speed test times transitions alone, after one warm-up
+            # transition; the chains are past burn-in, so it runs the same
+            # sampling path
+            t_s = time.perf_counter()
+            iters = self.speed_test_iters
+            mcmc, _ = run_steps(mcmc, 1)
+            float(torch.sum(mcmc.v))
+            t1 = time.perf_counter()
+            mcmc, _ = run_steps(mcmc, iters)
+            float(torch.sum(mcmc.v))
+            dt = time.perf_counter() - t1
+            sps = self.no_chains * iters / dt
+            self.logger.info("MCMC sampling speed: %.2f samples/sec", sps)
+            summary["mcmc_samples_per_sec"] = sps
+            self._add_time("mcmc/speed_test", time.perf_counter() - t_s)
+        return summary
+
+    def _submit_sample_figure(self, out_c, chain: int) -> None:
+        from .utils import figures
+
+        wb = self.writer.at_step()
+        im16 = out_c["im_warped"].to(torch.float16)
+        dp16 = out_c["displacement"].to(torch.float16)
+        ld16 = out_c["log_det_J"].to(torch.float16)
+
+        def _sample_fig():
+            wb.add_figure(f"MCMC/sample/chain_{chain}", figures.sample_grid(
+                _numpy(im16).astype(np.float32), _numpy(dp16).astype(np.float32),
+                _numpy(ld16).astype(np.float32), chain_no=chain))
+
+        savers.submit(_sample_fig, droppable=True)
