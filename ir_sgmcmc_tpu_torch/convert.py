@@ -1,14 +1,16 @@
 """VI and chain states to and from the JAX package's as numpy arrays.
 
 The JAX side is ``jax.tree.map(np.asarray, state)`` for an
-``ir_sgmcmc_tpu.engine.MCMCState`` in the per-chain parameter mode (fields
+``ir_sgmcmc_tpu.engine.MCMCState`` in either parameter mode (fields
 ``v, sigma, gmm, reg, opt_gmm, opt_reg, welford, key, step``) or an
 ``ir_sgmcmc_tpu.engine.vi.VIState`` (fields ``q_v, gmm, reg, opt_q_v,
 opt_gmm, opt_reg, key, step``): named tuples (or plain dicts), the
 optimizer states with ``step, reinit_step, mu, nu`` and the Welford state
 with ``count, mean, m2``.  The ``*_to_numpy`` functions return the same
 structure as plain dicts, so ``MCMCState(**d)`` or ``VIState(**d)`` (with
-the nested states rebuilt likewise) restores it.
+the nested states rebuilt likewise) restores it.  Shapes pass through as
+they are: the SVFFD model's ``v``, ``sigma`` and q(v) leaves live on its
+control grid, the Welford accumulators on the image grid.
 """
 
 from __future__ import annotations

@@ -11,9 +11,9 @@
 * :class:`SyntheticPairDataset`: the sphere pairs of ``synthetic.py``.
 
 Variational parameters start as mu = 0, log var = 2 log(sigma_v_init),
-u = u_v_init on the full grid.  The B-spline control grid (``cps``, the
-SVFFD model) is ROADMAP A11 and raises.  Arrays move to the device once,
-in the trainer.
+u = u_v_init on the full grid, or on the B-spline control grid when a
+control point spacing ``cps`` is given (the SVFFD model).  Arrays move to
+the device once, in the trainer.
 """
 
 from __future__ import annotations
@@ -23,16 +23,14 @@ from pathlib import Path
 
 import numpy as np
 
+from ..ops.bspline import control_grid_size
 from ..utils.nifti import read_nifti
 from .synthetic import sphere_pair
 
 
 def _field_dims(dims: tuple, cps) -> tuple:
-    if cps is not None:
-        raise NotImplementedError(
-            "a B-spline control grid (transformation_module.args.cps, the "
-            "SVFFD model) is not ported yet (ROADMAP A11)")
-    return dims
+    """The sampled state's grid: the control grid with ``cps``, else ``dims``."""
+    return control_grid_size(dims, cps) if cps is not None else dims
 
 
 def _resize_trilinear(vol: np.ndarray, dims) -> np.ndarray:

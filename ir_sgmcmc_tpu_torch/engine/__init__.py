@@ -6,6 +6,7 @@ from .mcmc import (
     init_chains,
     make_mcmc_chunk,
     make_sgld_transition,
+    make_sgld_transition_shared,
     posterior_statistics,
 )
 from .vi import (VIState, count_folds, forward_sample, gmm_warmup, make_vi_chunk,
@@ -17,6 +18,7 @@ __all__ = [
     "init_chains",
     "make_mcmc_chunk",
     "make_sgld_transition",
+    "make_sgld_transition_shared",
     "posterior_statistics",
     "count_folds",
     "forward_sample",

@@ -22,7 +22,7 @@ class ModelBundle:
     scale_prior: Any  # prior over GMM log-scales
     proportion_prior: Any  # prior over GMM log-proportions
     reg_loss: RegLoss
-    transformation: Any  # SVF3D
+    transformation: Any  # SVF3D / SVFFD3D / BSplineFFD3D
     reg_loc_prior: Optional[Any] = None  # for learnable RegLossLogNormal
     reg_scale_prior: Optional[Any] = None
     reg_w_reg_prior: Optional[Any] = None  # for learnable RegLossL2
@@ -49,6 +49,9 @@ class ModelBundle:
 
     @property
     def field_dims(self) -> tuple:
+        """Spatial shape of the sampled state (the control grid for SVFFD)."""
+        if hasattr(self.transformation, "control_dims"):
+            return tuple(self.transformation.control_dims)
         return tuple(self.dims)
 
     def init_q_v(self, sigma_v_init: float, u_v_init: float, device=None) -> dict:

@@ -1,12 +1,13 @@
 """SG-MCMC engine: preconditioned SGLD over a batch of chains (port of
-``ir_sgmcmc_tpu/engine/mcmc.py``, per-chain parameter mode).
+``ir_sgmcmc_tpu/engine/mcmc.py``).
 
     v'     = v + sqrt(2 tau) * sigma * eps
     v_next = v' - tau * sigma² * grad U(v')
 
 Chains are the leading axis of every tensor; one transition launches each
 kernel once for all chains.  GMM and regularisation parameters are per
-chain, as in the JAX engine's default.
+chain, as in the JAX engine's default, or one shared set
+(``param_mode="shared"``, the reference's semantics).
 
 Randomness: each chain carries the two 32-bit words of a key
 (``MCMCState.key``, ``(C, 2)`` int64 on the host).  A transition seeds one
@@ -80,10 +81,12 @@ def _bcast(s: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class MCMCState(NamedTuple):
-    """Every tensor carries a leading ``(C,)`` chain axis, except ``step``."""
+    """Every tensor carries a leading ``(C,)`` chain axis, except ``step``
+    and, in the shared parameter mode, the GMM/reg leaves and their
+    optimizer states."""
 
-    v: torch.Tensor  # (C, 3, D, H, W)
-    sigma: torch.Tensor  # (C, 3, D, H, W) SGLD preconditioner
+    v: torch.Tensor  # (C, 3, *field_dims)
+    sigma: torch.Tensor  # (C, 3, *field_dims) SGLD preconditioner
     gmm: dict
     reg: dict
     opt_gmm: AdamDecayState
@@ -95,13 +98,17 @@ class MCMCState(NamedTuple):
 
 def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
                 mode: str, q_v: dict | None, gmm: dict, reg: dict,
-                opt_gmm, opt_reg, device=None) -> MCMCState:
+                opt_gmm, opt_reg, device=None, param_mode: str = "per_chain") -> MCMCState:
     """SGLD state init (reference trainer.py:586-611).
 
     ``mode``: ``'VI'`` (per-chain q(v) draws, sigma from the VI log-var),
     ``'identity'`` (zeros, sigma 1) or ``'noise'`` (standard normal, sigma
     1).  ``generator`` draws the initial state and the chains' keys; it
-    must live on ``device`` (default: the CUDA card).
+    must live on ``device`` (default: the CUDA card).  ``v`` and ``sigma``
+    live on ``bundle.field_dims`` (the control grid for SVFFD), the Welford
+    accumulators on the dense ``bundle.dims``.  ``param_mode``:
+    ``"per_chain"`` replicates the GMM/reg parameters per chain,
+    ``"shared"`` keeps one set.
     """
     device = resolve_device(device)
     shape =(no_chains, 3) + tuple(bundle.field_dims)
@@ -120,8 +127,18 @@ def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
     else:
         raise ValueError(f"unknown MCMC init mode: {mode}")
 
-    def rep(t):
-        return t.to(device).expand((no_chains,) + tuple(t.shape)).clone()
+    if param_mode == "shared":
+        batch = ()
+
+        def rep(t):
+            return t.to(device).clone()
+    elif param_mode == "per_chain":
+        batch = (no_chains,)
+
+        def rep(t):
+            return t.to(device).expand((no_chains,) + tuple(t.shape)).clone()
+    else:
+        raise ValueError(f"unknown MCMC_params: {param_mode!r}")
 
     gmm_c = {k: rep(t) for k, t in gmm.items()}
     reg_c = {k: rep(t) for k, t in reg.items()}
@@ -129,65 +146,103 @@ def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
                           dtype=torch.int64, device=device).cpu()
     return MCMCState(
         v=v, sigma=sigma, gmm=gmm_c, reg=reg_c,
-        opt_gmm=opt_gmm.init(gmm_c, (no_chains,)),
-        opt_reg=opt_reg.init(reg_c, (no_chains,)),
+        opt_gmm=opt_gmm.init(gmm_c, batch),
+        opt_reg=opt_reg.init(reg_c, batch),
         welford=welford_init(no_chains, (3,) + tuple(bundle.dims), device),
         key=words, step=0)
 
 
-def _chain_noise(state: MCMCState, alpha: float | None):
-    """Per-chain ``(eps, unif)`` from generators seeded by (key, step);
-    ``unif`` is None without a noise magnitude."""
+def _chain_noise(state: MCMCState, alpha: float | None, dims: tuple):
+    """Per-chain ``(eps, unif)`` from generators seeded by (key, step):
+    ``eps`` on the state's grid, ``unif`` on the dense ``dims`` (None without
+    a noise magnitude)."""
     C = state.v.shape[0]
+    dev = state.v.device
     eps = torch.empty_like(state.v)
-    unif = None if alpha is None else torch.empty_like(state.v)
+    unif = None if alpha is None else torch.empty((C, 3) + tuple(dims), device=dev)
     for c in range(C):
-        gen = key_generator(state.key[c], state.step, state.v.device)
-        eps[c] = torch.randn(state.v.shape[1:], generator=gen,
-                             device=state.v.device)
+        gen = key_generator(state.key[c], state.step, dev)
+        eps[c] = torch.randn(state.v.shape[1:], generator=gen, device=dev)
         if unif is not None:
-            unif[c] = uniform_voxel_noise(gen, state.v.shape[1:], alpha, state.v.device)
+            unif[c] = uniform_voxel_noise(gen, (3,) + tuple(dims), alpha, dev)
     return eps, unif
 
 
+def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor):
+    """Per-chain reg energies' losses and ``log y``, and the hyperprior
+    terms: the loc prior per chain, the scale (or weight) prior once per
+    parameter set."""
+    reg_loss = bundle.reg_loss
+    reg, log_y = reg_loss(reg_p, v_smooth)
+    prior = torch.zeros_like(reg)
+    per_set = 0.0
+    if reg_loss.learnable and isinstance(reg_loss, RegLossLogNormal):
+        prior = bundle.reg_loc_prior(log_y)
+        per_set = bundle.reg_scale_prior(reg_p["log_scale"])
+    elif reg_loss.learnable and isinstance(reg_loss, RegLossL2):
+        per_set = bundle.reg_w_reg_prior(reg_p["log_w_reg"])
+    return reg, log_y, prior, per_set
+
+
 def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
-                         fixed: dict, moving: dict):
+                         fixed: dict, moving: dict, param_mode: str = "per_chain"):
     """Build ``transition(state, collect_weight, noise=None) -> (state,
     metrics)`` over all chains of ``state``.
 
-    ``noise``: optional ``(eps, unif)``, each ``(C, 3, D, H, W)`` — the
-    standard-normal Langevin draw and the ``U(-alpha, alpha)`` voxel noise.
-    Without it they come from the chains' generators.  The returned state
-    keeps ``step``; :func:`make_mcmc_chunk` advances it.
+    ``noise``: optional ``(eps, unif)`` — the standard-normal Langevin draw
+    ``(C, 3, *field_dims)`` and the ``U(-alpha, alpha)`` voxel noise ``(C, 3,
+    D, H, W)``.  Without it they come from the chains' generators.  The
+    returned state keeps ``step``; :func:`make_mcmc_chunk` advances it.
+
+    ``param_mode``: ``"per_chain"`` (every chain its own GMM/reg set and
+    optimizer states, leading ``(C,)`` axis) or ``"shared"`` (the
+    reference's semantics, :func:`make_sgld_transition_shared`).
     """
-    reg_loss = bundle.reg_loss
-    learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
+    if param_mode not in ("per_chain", "shared"):
+        raise ValueError(f"unknown MCMC_params: {param_mode!r}")
+    shared = param_mode == "shared"
     mask = fixed["mask"]
 
     def potential(v_noised, reg_p, gmm, opt_gmm_state, unif):
+        # the forward chain does not read the GMM, so it runs as one batch
+        # over the chains in either mode
         out = forward_sample(bundle, fixed, moving, v_noised, unif)
-        alpha = vd_alpha(bundle, gmm, out["residuals"], mask)
-        gmm, opt_gmm_state = gmm_adam_step(
-            bundle, opt_gmm, gmm, opt_gmm_state, out["residuals"], mask, alpha)
-        data_term = bundle.gmm.masked_nll(gmm, out["residuals"], mask) * alpha
-        data_term = data_term - bundle.gmm_prior_terms(gmm)
-        reg, log_y = reg_loss(reg_p, out["v"])
-        reg_term = reg
-        if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
-            reg_term = reg_term - bundle.reg_loc_prior(log_y)
-            reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
-        elif learnable_reg and isinstance(reg_loss, RegLossL2):
-            reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
-        aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_term,
-               "reg_term": reg_term, "vd_alpha": alpha,
+        res = out["residuals"]
+        if shared:
+            # one GMM, C sequential detached Adam steps: chain c's data term
+            # sees the GMM after its own step
+            datas, alphas = [], []
+            for c in range(res.shape[0]):
+                a = vd_alpha(bundle, gmm, res[c], mask)
+                gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                                   res[c], mask, a)
+                datas.append(bundle.gmm.masked_nll(gmm, res[c], mask) * a)
+                alphas.append(a)
+            data_c, alpha = torch.stack(datas), torch.stack(alphas)
+            data_total = data_c.sum() - bundle.gmm_prior_terms(gmm)
+        else:
+            alpha = vd_alpha(bundle, gmm, res, mask)
+            gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                               res, mask, alpha)
+            data_c = bundle.gmm.masked_nll(gmm, res, mask) * alpha
+            data_c = data_c - bundle.gmm_prior_terms(gmm)
+            data_total = data_c
+        reg, log_y, loc_prior, per_set = _reg_terms(bundle, reg_p, out["v"])
+        reg_c = reg if shared else reg - loc_prior - per_set
+        # shared: the hyperpriors enter once per transition
+        reg_total = (reg.sum() - loc_prior.sum() - per_set) if shared else reg_c
+        aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_c,
+               "reg_term": reg_c, "vd_alpha": alpha,
                "reg_energy": torch.exp(log_y), "ndv": out["ndv"],
                "sat": out["sat"], "sat_resid": out["sat_resid"],
                "displacement": out["displacement"]}
-        return data_term + reg_term, aux
+        return data_total + reg_total, aux
+
+    learnable_reg = bundle.reg_loss.learnable and len(bundle.reg_loss.param_names) > 0
 
     def transition(state: MCMCState, collect_weight: float, noise=None):
         if noise is None:
-            noise = _chain_noise(state, bundle.uniform_noise_alpha)
+            noise = _chain_noise(state, bundle.uniform_noise_alpha, bundle.dims)
         eps, unif = noise
         with torch.enable_grad():
             v_noised = (state.v + langevin_noise(None, state.sigma, tau, eps)
@@ -203,6 +258,7 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
 
         reg_new, opt_reg_state = state.reg, state.opt_reg
         if learnable_reg:
+            # shared: one step on the gradient summed over the chains
             upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[1:])),
                                                 state.opt_reg)
             reg_new = apply_updates({k: t.detach() for k, t in state.reg.items()}, upd)
@@ -215,11 +271,26 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
         metrics = {k: aux[k].detach() for k in (
             "data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat",
             "sat_resid")}
-        metrics["gmm_scales"] = GMM.scales(aux["gmm"])
-        metrics["gmm_proportions"] = GMM.proportions(aux["gmm"])
+        C = state.v.shape[0]
+        for name, f in (("gmm_scales", GMM.scales), ("gmm_proportions", GMM.proportions)):
+            val = f(aux["gmm"])
+            metrics[name] = val.expand((C,) + tuple(val.shape)) if shared else val
         return new_state, metrics
 
     return transition
+
+
+def make_sgld_transition_shared(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
+                                fixed: dict, moving: dict):
+    """The reference's transition over ALL chains with one SHARED GMM/reg
+    parameter set: the GMM takes ``C`` sequential detached Adam steps per
+    transition, chain ``c``'s data term under the GMM after its own step;
+    the reg parameters one Adam step on the gradient summed over the
+    chains; the hyperpriors enter once per transition.  The state's GMM and
+    reg leaves and their optimizer states carry no chain axis
+    (``init_chains(..., param_mode="shared")``)."""
+    return make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
+                                param_mode="shared")
 
 
 def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
@@ -229,12 +300,11 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     chains as a Python loop; metrics are stacked ``(chunk, C, …)``.
 
     Thinned displacement samples feed the per-chain Welford accumulators
-    once past ``burn_in`` (every ``thin`` steps).  ``param_mode='shared'``
-    is ROADMAP A12.
+    once past ``burn_in`` (every ``thin`` steps).  ``param_mode``:
+    ``"per_chain"`` or ``"shared"`` (see :func:`make_sgld_transition`).
     """
-    if param_mode != "per_chain":
-        raise NotImplementedError("MCMC_params='shared' is not ported (ROADMAP A12)")
-    transition = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving)
+    transition = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
+                                      param_mode)
 
     def run(state: MCMCState):
         per_step = []

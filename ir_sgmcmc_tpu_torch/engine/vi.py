@@ -25,6 +25,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models.entropy import entropy_analytic, entropy_sample
 from ..models.gmm import GMM
@@ -62,7 +63,9 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
                    anchor: dict | None = None) -> dict:
     """Smooth -> integrate (+ warp) -> LCC residuals, over a leading batch.
 
-    ``noise`` is the ``U(-alpha, alpha)`` voxel noise ``(C, 3, D, H, W)``
+    ``v_unsmoothed`` lives on ``bundle.field_dims`` (the control grid for
+    SVFFD, whose integration spreads it to the dense grid); ``noise`` is the
+    ``U(-alpha, alpha)`` voxel noise ``(C, 3, D, H, W)`` on the dense grid
     (unused, and may be None, when ``uniform_noise_alpha`` is None).
 
     * ``"post"`` with a noise magnitude: integrate without the image, then
@@ -74,22 +77,34 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
       moving image rides the integration cascade (``SVF3D.integrate(v,
       im)``, kernels B5-B7), then a jitter warp by ``noise`` at radius
       ``max(1, ceil(alpha))`` when ``alpha`` is set.
+    * a model without ``integrate`` (``BSplineFFD3D``) or with
+      ``use_gather``, under either scheme: ``transformation(v)``, the noise
+      added on the normalised grid, one ``grid_sample`` of the image.
 
     ``sat`` counts voxels whose displacement reaches the bound where the
     path clamps: ``displacement_clamp_bound`` on ``"post"``,
-    ``image_clamp_bound`` on the cascade.  The anchored residual warp is
-    not ported (ROADMAP A12).
+    ``image_clamp_bound`` on the cascade, none on the gather path.  The
+    anchored residual warp is not ported (ROADMAP rule).
     """
     if anchor is not None:
         raise NotImplementedError(
-            "the anchored residual warp of forward_sample is not ported (ROADMAP A12)")
+            "the anchored residual warp of forward_sample is not ported (ROADMAP "
+            "'Rules of the port', Not ported)")
     tr = bundle.transformation
     alpha = bundle.uniform_noise_alpha
+    gather = not hasattr(tr, "integrate") or getattr(tr, "use_gather", False)
     post_noise = alpha is not None and bundle.noise_scheme == "post"
     v = bundle.smooth(v_unsmoothed)
     zero = torch.zeros(v.shape[:-4], dtype=torch.int64, device=v.device)
     anchor_sat = zero
-    if post_noise:
+    if gather:
+        transformation, displacement = tr(v)
+        t = transformation
+        if alpha is not None:
+            t = t + voxel_to_normalised(noise)
+        warped = grid_sample(moving["im"], t)
+        clamp_bound = math.inf  # no warp of this path clamps
+    elif post_noise:
         transformation, displacement, _ = tr.integrate(v)
         block = int(bundle.block_size)
         if bundle.block_warp and all(s % block == 0 and s >= 8 * block
@@ -191,30 +206,49 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
     gradient of the ELBO loss updates ``q_v`` (and ``reg`` when learnable).
 
     ``noise``: optional ``(eps, x, unif)`` — the q(v) draw's field normal
-    ``(3, D, H, W)`` and scalar normal, and the two chains' uniform noise
+    ``(3, *field_dims)`` and scalar normal, and the two chains' uniform noise
     ``(2, 3, D, H, W)`` (None without a noise magnitude).  Without it they
     come from :func:`key_generator` at ``(state.key, state.step)``.
-    ``remat=True`` (sequential antithetic chains, for 256³ and up) is
-    ROADMAP A9's open part.
+
+    ``remat=True`` runs the two antithetic chains in turn, each under
+    ``torch.utils.checkpoint``: the backward recomputes one chain's forward
+    (smoothing, integration, warp, LCC, regulariser) at a time instead of
+    holding both chains' activations.  Same draws, same GMM update order,
+    same gradients; only the activation schedule changes.
     """
-    if remat:
-        raise NotImplementedError(
-            "make_vi_step(remat=True) is not ported yet (ROADMAP A9)")
     reg_loss = bundle.reg_loss
     learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
     mask = fixed["mask"]
     q_keys = ("mu", "log_var", "u")
 
+    def chain_forward(v, unif, reg_p):
+        """Per-chain residuals, reg terms and counters of ``v (n, 3, …)``."""
+        out = forward_sample(bundle, fixed, moving, v, unif)
+        reg, log_y = reg_loss(reg_p, out["v"])
+        return out["residuals"], reg, log_y, out["ndv"], out["sat"], out["sat_resid"]
+
+    def forward(v, unif, reg_p):
+        if not remat:
+            return chain_forward(v, unif, reg_p)
+        keys = list(reg_p)
+
+        def one(v_i, unif_i, *reg_vals):
+            return chain_forward(v_i, unif_i, dict(zip(keys, reg_vals)))
+
+        outs = [checkpoint(one, v[i:i + 1], None if unif is None else unif[i:i + 1],
+                           *reg_p.values(), use_reentrant=False)
+                for i in range(v.shape[0])]
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+
     def loss_fn(q_v, reg_p, gmm, opt_gmm_state, eps, x, unif):
         s1, s2 = sample_q_v(None, q_v, antithetic=True, eps=eps, x=x)
         v = torch.stack([s1, s2])
-        out = forward_sample(bundle, fixed, moving, v, unif)
-        regs, log_ys = reg_loss(reg_p, out["v"])
+        residuals, regs, log_ys, ndv, sat, sat_resid = forward(v, unif, reg_p)
         ents = entropy_sample(v, q_v["mu"], q_v["log_var"], q_v["u"])
 
         datas, alphas = [], []
         for i in range(2):
-            res = out["residuals"][i]
+            res = residuals[i]
             a = vd_alpha(bundle, gmm, res, mask)
             gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
                                                res, mask, a)
@@ -235,7 +269,7 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
             "data_term": data_term, "reg_term": reg_term,
             "entropy_term": entropy_term, "total_loss": loss,
             "vd_alpha": alphas[0], "reg_energy": torch.exp(log_ys[0]),
-            "ndv": out["ndv"][0], "sat": out["sat"][0], "sat_resid": out["sat_resid"][0],
+            "ndv": ndv[0], "sat": sat[0], "sat_resid": sat_resid[0],
         }
         return loss, gmm, opt_gmm_state, metrics
 

@@ -5,10 +5,13 @@ from .distributions import (DirichletPrior, LogEnergyExpGammaPrior, LogPrecision
 from .gmm import GMM
 from .reg_loss import (RegLossL2, RegLossLogNormal, RegLossLogNormalL2, RegLossStudent,
                        make_reg_loss)
-from .transformation import SVF3D, make_transformation
+from .transformation import SVF2D, SVF3D, SVFFD3D, BSplineFFD3D, make_transformation
 
 __all__ = [
     "SVF3D",
+    "SVF2D",
+    "SVFFD3D",
+    "BSplineFFD3D",
     "make_transformation",
     "GMM",
     "RegLossL2",

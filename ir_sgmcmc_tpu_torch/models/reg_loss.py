@@ -3,7 +3,9 @@
 ``RegLossLogNormal``, and the other three variants come along).
 
 Each loss returns ``(loss, log_y)`` per leading (chain) index.  The
-Fourier diff operator is ROADMAP A5.
+energy's difference operator is ``"GradientOperator"`` (forward
+differences), ``"Fourier1stDerivativeOperator"`` (``y = Σ ‖ |ω| v̂ ‖²``
+through ``torch.fft``) or the identity.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 import torch
 
 from .._device import resolve_device
+from ..ops.fourier import fourier_derivative_magnitude
 from ..ops.stencil import reg_energy
 from .distributions import expgamma_expectation, gamma_log_pdf
 
@@ -24,8 +27,9 @@ class RegLoss:
     param_names: tuple = ()
 
     def __init__(self, diff_op="GradientOperator", dims=None, learnable=False):
-        if diff_op not in (None, "Identity", "GradientOperator"):
-            raise NotImplementedError(f"diff_op {diff_op!r} is not ported (ROADMAP A5)")
+        if diff_op not in (None, "Identity", "GradientOperator",
+                           "Fourier1stDerivativeOperator"):
+            raise ValueError(f"unsupported diff_op: {diff_op}")
         self.diff_op = diff_op or "Identity"
         self.dims = tuple(dims) if dims is not None else None
         self.dof = float(3.0 * math.prod(self.dims)) if dims is not None else None
@@ -34,6 +38,8 @@ class RegLoss:
     def energy(self, v: torch.Tensor) -> torch.Tensor:
         if self.diff_op == "GradientOperator":
             return reg_energy(v)
+        if self.diff_op == "Fourier1stDerivativeOperator":
+            v = fourier_derivative_magnitude(v)
         if v.ndim == 4:
             return torch.sum(v * v)
         return torch.sum(v * v, dim=tuple(range(1, v.ndim)))

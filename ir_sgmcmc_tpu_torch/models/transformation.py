@@ -1,4 +1,5 @@
-"""SVF transformation model (port of ``ir_sgmcmc_tpu/models/transformation.py``).
+"""Transformation models: SVF (scaling and squaring), B-spline FFD, SVFFD
+(port of ``ir_sgmcmc_tpu/models/transformation.py``).
 
 ``SVF3D.integrate`` runs scaling and squaring: ``no_taylor`` second-order
 Taylor squarings (plain stencils), the squarings above ``taylor_threshold``
@@ -6,7 +7,13 @@ as ``d + warp_bounded(d, d, 1)`` (kernels B5-B7), then ``2^e - 1``
 compositions in the ``"split"`` form (kernels B1/B2) or the ``"warp"`` form
 (B5-B7).  With an image, the image rides the composition phase as radius-1
 blend warps (the ``"pre"`` noise scheme's cascade).  See the JAX class for
-the integration plan and its measurements.
+the integration plan and its measurements.  ``use_gather=True`` selects
+the reference formulation instead: ``no_steps`` squarings through
+``grid_sample``.
+
+``BSplineFFD3D`` spreads control points into a dense displacement;
+``SVFFD3D`` spreads them into a dense velocity and integrates it with
+``SVF3D``.  ``SVF2D`` is the 2D gather-based SVF.
 """
 
 from __future__ import annotations
@@ -15,8 +22,10 @@ import math
 
 import torch
 
-from ..ops.grids import identity_grid, voxel_to_normalised
-from ..ops.resample import warp_bounded
+from .._device import resolve_device
+from ..ops.bspline import CubicBSplineFFD3D, control_grid_size
+from ..ops.grids import identity_grid, normalised_to_voxel, voxel_to_normalised
+from ..ops.resample import grid_sample, grid_sample_each, warp_bounded
 from ..ops.stencil import split_compose_step, taylor_squaring_step
 
 
@@ -72,10 +81,6 @@ class SVF3D:
             1 for k in range(self.no_squarings)
             if self.max_disp / 2 ** (self.no_steps - k) <= self.taylor_threshold
         )
-        # paths of the JAX model the port does not have yet
-        if self.use_gather:
-            raise NotImplementedError(
-                "SVF3D(use_gather=True) is not ported yet (ROADMAP A12)")
         if form == "taylor":
             raise NotImplementedError(
                 "taylor_compositions='taylor' is not ported (ROADMAP rule "
@@ -95,8 +100,14 @@ class SVF3D:
         form the image takes one radius-1 warp by ``ψ = φ^m`` every
         ``m = N // K`` split steps (``K = no_image_compositions``); in the
         ``"warp"`` form it rides the compositions as the last channel(s) of
-        one fused ``[d | g]`` carry.
+        one fused ``[d | g]`` carry.  With ``use_gather`` the image is
+        warped once by ``grid_sample`` at the transformation, and without an
+        image ``im_warped`` is None.
         """
+        if self.use_gather:
+            transformation, disp = self._call_gather(v)
+            warped = None if im is None else grid_sample(im, transformation)
+            return transformation, disp, warped
         disp = v / float(2 ** self.no_steps)
         for _ in range(self.no_taylor):
             disp = taylor_squaring_step(disp)
@@ -145,6 +156,106 @@ class SVF3D:
         transformation = identity_grid(self.dims, device=v.device) + voxel_to_normalised(disp)
         return transformation, disp, g
 
+    def _call_gather(self, v: torch.Tensor):
+        """The reference formulation: ``no_steps`` squarings
+        ``d <- d + d(id + d)`` in normalised units, each through
+        ``grid_sample``."""
+        id_grid = identity_grid(self.dims, device=v.device)
+        disp = voxel_to_normalised(v) / float(2 ** self.no_steps)
+        for _ in range(self.no_steps):
+            disp = disp + grid_sample_each(disp, id_grid + disp)
+        return id_grid + disp, normalised_to_voxel(disp)
+
+
+class SVF2D:
+    """2D stationary velocity field, integrated by ``no_steps`` squarings
+    through a bilinear ``grid_sample`` (the reference's ``SVF_2D``).
+
+    ``v`` is ``(…, 2, H, W)`` in voxel units, channel 0 = x; returns
+    ``(transformation, displacement)``, normalised and in voxels.
+    """
+
+    def __init__(self, dims, no_steps: int = 12):
+        self.dims = tuple(int(d) for d in dims)  # (H, W)
+        self.no_steps = int(no_steps)
+
+    def _scale(self, device, to_normalised: bool) -> torch.Tensor:
+        H, W = self.dims
+        sizes = torch.tensor([W, H], dtype=torch.float32, device=device)
+        s = 2.0 / (sizes - 1.0) if to_normalised else (sizes - 1.0) / 2.0
+        return s.reshape(2, 1, 1)
+
+    def id_grid(self, device=None) -> torch.Tensor:
+        """``(2, H, W)`` normalised identity, on ``device`` (default: the
+        CUDA card)."""
+        H, W = self.dims
+        device = resolve_device(device)
+        y = torch.linspace(-1.0, 1.0, H, device=device)
+        x = torch.linspace(-1.0, 1.0, W, device=device)
+        yy, xx = torch.meshgrid(y, x, indexing="ij")
+        return torch.stack([xx, yy], dim=0)
+
+    def __call__(self, v: torch.Tensor):
+        squeeze = v.ndim == 3
+        vb = v[None] if squeeze else v.reshape((-1,) + tuple(v.shape[-3:]))
+        id_grid = self.id_grid(v.device)
+        disp = vb * self._scale(v.device, True) / float(2 ** self.no_steps)
+        for _ in range(self.no_steps):
+            disp = disp + grid_sample_each(disp, id_grid + disp)
+        transformation = id_grid + disp
+        disp = disp * self._scale(v.device, False)
+        if squeeze:
+            return transformation[0], disp[0]
+        return (transformation.reshape(v.shape), disp.reshape(v.shape))
+
+
+class BSplineFFD3D:
+    """Cubic B-spline FFD as a *displacement* model: ``__call__`` spreads the
+    control points ``(…, 3, cD, cH, cW)`` into a voxel-unit displacement and
+    returns ``(transformation, displacement)``; :meth:`dense_velocity`
+    gives the spread field alone (SVFFD integrates it).  No integration."""
+
+    def __init__(self, dims, cps):
+        self.dims = tuple(int(d) for d in dims)
+        self.cps = tuple(int(c) for c in cps)
+        self.control_dims = control_grid_size(self.dims, self.cps)
+        self._ffd = CubicBSplineFFD3D(self.dims, self.cps)
+
+    def dense_velocity(self, cp: torch.Tensor) -> torch.Tensor:
+        return self._ffd(cp)
+
+    def __call__(self, cp: torch.Tensor):
+        disp = self._ffd(cp)
+        transformation = identity_grid(self.dims, device=cp.device) + voxel_to_normalised(disp)
+        return transformation, disp
+
+
+class SVFFD3D:
+    """B-spline-parameterised SVF: spread the control points into a dense
+    velocity, then integrate it with :class:`SVF3D` (the same kernels as
+    the dense model)."""
+
+    def __init__(self, dims, cps, no_steps: int = 12, max_disp: int = 8,
+                 use_gather: bool = False, taylor_threshold: float = 0.5,
+                 taylor_compositions: bool | str | None = None):
+        self.dims = tuple(int(d) for d in dims)
+        self.cps = tuple(int(c) for c in cps)
+        self.ffd = BSplineFFD3D(dims, cps)
+        self.svf = SVF3D(dims, no_steps, max_disp=max_disp, use_gather=use_gather,
+                         taylor_threshold=taylor_threshold,
+                         taylor_compositions=taylor_compositions)
+        self.max_disp = self.svf.max_disp
+        self.displacement_clamp_bound = self.svf.displacement_clamp_bound
+        self.image_clamp_bound = self.svf.image_clamp_bound
+        self.use_gather = self.svf.use_gather
+        self.control_dims = self.ffd.control_dims
+
+    def __call__(self, cp: torch.Tensor):
+        return self.svf(self.ffd.dense_velocity(cp))
+
+    def integrate(self, cp: torch.Tensor, im: torch.Tensor | None = None):
+        return self.svf.integrate(self.ffd.dense_velocity(cp), im)
+
 
 def make_transformation(kind: str, dims, cps=None, no_steps: int = 12, max_disp: int = 8,
                         use_gather: bool = False, taylor_threshold: float = 0.5,
@@ -173,10 +284,16 @@ def make_transformation(kind: str, dims, cps=None, no_steps: int = 12, max_disp:
         return SVF3D(dims, no_steps, max_disp=max_disp, use_gather=use_gather,
                      taylor_threshold=taylor_threshold,
                      taylor_compositions=taylor_compositions)
-    if kind in ("SVFFD_3D", "SVFFD3D", "Cubic_B_spline_FFD_3D", "BSplineFFD3D"):
-        raise NotImplementedError(f"transformation {kind!r} (a B-spline control "
-                                  "grid) is not ported yet (ROADMAP A11)")
     if kind in ("SVF_2D", "SVF2D"):
-        raise NotImplementedError(f"transformation {kind!r} is not ported yet "
-                                  "(ROADMAP A12)")
+        return SVF2D(dims, no_steps)
+    if kind in ("SVFFD_3D", "SVFFD3D"):
+        if cps is None:
+            raise ValueError("SVFFD requires a control point spacing (cps)")
+        return SVFFD3D(dims, cps, no_steps, max_disp=max_disp, use_gather=use_gather,
+                       taylor_threshold=taylor_threshold,
+                       taylor_compositions=taylor_compositions)
+    if kind in ("Cubic_B_spline_FFD_3D", "BSplineFFD3D"):
+        if cps is None:
+            raise ValueError("a B-spline FFD requires a control point spacing (cps)")
+        return BSplineFFD3D(dims, cps)
     raise ValueError(f"unknown transformation model: {kind}")

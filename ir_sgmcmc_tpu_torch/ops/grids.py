@@ -56,6 +56,23 @@ def det_jacobian(jac: torch.Tensor) -> torch.Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def inv_jacobian(jac: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate / det) inverse of a ``(…, 3, 3, D, H, W)`` field
+    Jacobian, per voxel.  Determinants within 1e-6 of zero are floored to
+    ±1e-6 (by their sign, zero counting as positive)."""
+    a, b, c = jac[..., 0, 0, :, :, :], jac[..., 0, 1, :, :, :], jac[..., 0, 2, :, :, :]
+    d, e, f = jac[..., 1, 0, :, :, :], jac[..., 1, 1, :, :, :], jac[..., 1, 2, :, :, :]
+    g, h, i = jac[..., 2, 0, :, :, :], jac[..., 2, 1, :, :, :], jac[..., 2, 2, :, :, :]
+    det = det_jacobian(jac)
+    floor = torch.where(det < 0, torch.full_like(det, -1e-6), torch.full_like(det, 1e-6))
+    det = torch.where(torch.abs(det) < 1e-6, floor, det)
+    rows = [[e * i - f * h, c * h - b * i, b * f - c * e],
+            [f * g - d * i, a * i - c * g, c * d - a * f],
+            [d * h - e * g, b * g - a * h, a * e - b * d]]
+    cof = torch.stack([torch.stack(r, dim=-4) for r in rows], dim=-5)
+    return cof / det[..., None, None, :, :, :]
+
+
 def count_non_diffeomorphic(det_J: torch.Tensor) -> torch.Tensor:
     """Voxels with a non-positive Jacobian determinant, ``det ≤ 0``, per
     leading index: the NaN-or-``-inf`` count of ``log det J``.  The trainer's

@@ -2,7 +2,10 @@
 
 * :func:`grid_sample` — torch ``grid_sample`` semantics (trilinear or
   nearest, border padding, ``align_corners=True``); the image warp below
-  64³, and with :func:`warp` the trainer's segmentation warp.
+  64³, and with :func:`warp` the trainer's segmentation warp;
+  :func:`grid_sample_each` samples each field of a batch at its own grid
+  (the gather-based integrations of ``SVF3D(use_gather=True)`` and
+  ``SVF2D``).
 * :func:`warp_block_gather` — the exact trilinear warp by a smooth bounded
   displacement, decomposed into per-block integer means plus a clipped
   residual; kernels B3/B4 on the card (``kernels/block_warp.py``).
@@ -62,6 +65,16 @@ def grid_sample(vol: torch.Tensor, grid: torch.Tensor, mode: str = "linear") -> 
                         padding_mode="border", align_corners=True)
     out = out.reshape(tuple(lead) + tuple(out.shape[1:]))
     return out.squeeze(-4) if squeeze else out
+
+
+def grid_sample_each(field: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Each field of a batch at its own normalised grid, bilinear or
+    trilinear with :func:`grid_sample`'s semantics: ``field (B, C, *S)`` at
+    ``grid (B, n, *S')`` with ``n = len(S)`` (2 or 3) channels, channel 0 =
+    x -> ``(B, C, *S')``."""
+    perm = (0,) + tuple(range(2, grid.ndim)) + (1,)
+    return F.grid_sample(field, grid.permute(perm), mode="bilinear",
+                         padding_mode="border", align_corners=True)
 
 
 def _block_means(disp_vox: torch.Tensor, block: int, max_disp: float) -> torch.Tensor:

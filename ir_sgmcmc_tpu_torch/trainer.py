@@ -32,10 +32,15 @@ generators seeded from the VI state's key words with the salts 101 and 202
 (``engine.vi.key_generator``).  A run therefore equals the JAX package's
 in distribution, not bitwise, as the engines do.
 
+Every transformation model of the JAX package runs: the dense SVF, SVFFD
+(whose VI and chain states live on the control grid while evaluation,
+Welford accumulators and artifacts stay on the dense grid), the B-spline
+FFD and ``use_gather``.  ``MCMC_params: "shared"`` runs the reference's
+shared GMM/reg set; ``vi_remat`` (``"auto"``: on from a dense field of
+100 MB, about 204³) runs VI's antithetic chains in turn with recompute.
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-``pair_parallel`` over more than one pair (A13), ``MCMC_params: "shared"``
-(A12), ``mcmc_anchor: true`` (not ported by rule), ``vi_remat`` (A9; its
-``"auto"`` turns it on from a 100 MB field, about 204³).  ``distribute``,
+``pair_parallel`` over more than one pair (A13) and ``mcmc_anchor: true``
+(not ported by rule).  ``distribute``,
 ``spatial_shards`` and ``vi_spatial_shards`` are accepted and, on one
 card, change nothing, as in the JAX trainer on one device.  There is no
 kernel fallback: a kernel that fails to build or launch raises.
@@ -180,19 +185,10 @@ class Trainer:
             raise NotImplementedError(
                 "pair_parallel over more than one pair (the pair-stacked "
                 "chunks) is not ported (ROADMAP A13)")
-        if self.run_mcmc and self.mcmc_param_mode != "per_chain":
-            raise NotImplementedError(
-                f"MCMC_params={self.mcmc_param_mode!r} is not ported; only "
-                f"'per_chain' is (ROADMAP A12)")
         if self.run_mcmc and bool(self.t_cfg.get("mcmc_anchor", False)):
             raise NotImplementedError(
                 "mcmc_anchor=true (anchored residual warping) is not ported "
                 "(ROADMAP 'Rules of the port', Not ported)")
-        if self.run_vi and self.no_iters_vi > 0 and self.vi_remat:
-            raise NotImplementedError(
-                "vi_remat (sequential antithetic chains with recompute; "
-                "'auto' turns it on from a 100 MB field, about 204³) is not "
-                "ported yet (ROADMAP A9)")
 
     # ------------------------------------------------------------- timing
     def _add_time(self, name: str, seconds: float) -> None:
@@ -316,6 +312,16 @@ class Trainer:
         return summary
 
     # ---------------------------------------------------------- evaluation
+    def _transform(self, v, im):
+        """``(transformation, displacement, im warped)`` of smoothed ``v``: the
+        model's integration with the image, or, for a model without one
+        (``BSplineFFD3D``), its transformation and a trilinear warp."""
+        tr = self.bundle.transformation
+        if hasattr(tr, "integrate"):
+            return tr.integrate(v, im=im)
+        transformation, displacement = tr(v)
+        return transformation, displacement, warp(im, transformation, method="linear")
+
     def _make_eval(self, fixed, moving):
         """Sample evaluation over a leading batch: ``v_unsmoothed (B, 3, D,
         H, W)`` -> warped image and segmentation, log|J|, displacement,
@@ -328,8 +334,7 @@ class Trainer:
                 v = bundle.smooth(v_unsmoothed)
                 # the image rides the integration cascade; the segmentation
                 # needs nearest-neighbour semantics and keeps the gather
-                transformation, displacement, im_warped = bundle.transformation.integrate(
-                    v, im=moving["im"])
+                transformation, displacement, im_warped = self._transform(v, moving["im"])
                 seg_warped = warp(moving["seg"], transformation, method="nearest")
                 det = det_jacobian(gradient(transformation, normalised_spacing=True))
                 log_det = torch.log(torch.clamp(det, min=0.0))  # -inf/nan where folded
@@ -439,6 +444,8 @@ class Trainer:
 
     # ------------------------------------------------------------ VI phase
     def _run_vi_phase(self, fixed, moving, state: VIState, start: int = 0) -> VIState:
+        if self.vi_remat:
+            self.logger.info("VI remat on: sequential antithetic chains")
         step_fn = make_vi_step(self.bundle, self.opt_q_v, self.opt_gmm, self.opt_reg,
                                fixed, moving, remat=self.vi_remat)
         eval_fn = self._make_eval(fixed, moving)
@@ -577,7 +584,7 @@ class Trainer:
         # sampling speed test: sample -> smooth -> integrate -> warp im + seg
         def draw():
             v = bundle.smooth(sample_q_v(gen, state.q_v)[None])
-            transformation, _, im_w = bundle.transformation.integrate(v, im=moving["im"])
+            transformation, _, im_w = self._transform(v, moving["im"])
             seg_w = warp(moving["seg"], transformation, method="nearest")
             return torch.mean(im_w), torch.sum(seg_w)
 
@@ -617,6 +624,7 @@ class Trainer:
             opt_gmm=self.opt_gmm,
             opt_reg=self.opt_reg,
             device=self.device,
+            param_mode=self.mcmc_param_mode,
         )
 
         mcmc_resume = getattr(self, "_mcmc_resume", None)

@@ -1,8 +1,8 @@
 """The port's config, datasets, metrics, evaluation, nearest warp and
 checkpoints against the JAX package, on the CPU.
 
-* every bundled config: the 15 dense-SVF ones build the JAX bundle's
-  hyperparameters in the port; the 2 SVFFD ones raise (ROADMAP A11);
+* every bundled config (15 dense-SVF, 2 SVFFD) builds the JAX bundle's
+  hyperparameters in the port, the SVFFD ones with their control grid;
 * micro-run twins of ``tests/test_configs.py``'s experiment 1-4 runs;
 * datasets, NIfTI/VTK files, Dice and ASD, the trainer's sample evaluation
   and ``warp(method="nearest")`` against the JAX functions;
@@ -102,12 +102,16 @@ def test_bundled_config_matches_jax(path):
     tc = Config.from_file(path, make_dirs=False)
     assert tc.dims == jc.dims and tc.dof == jc.dof and tc.tau == jc.tau > 0
     jb = jc.build_bundle()
+    tb = tc.build_bundle()
+    assert type(tb.transformation).__name__ == type(jb.transformation).__name__
+    jt, tt = jb.transformation, tb.transformation
     if tc.cps is not None:
         assert type(jb.transformation).__name__ == "SVFFD3D"
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            tc.build_bundle()
-        return
-    tb = tc.build_bundle()
+        for a in ("cps", "control_dims", "max_disp", "use_gather", "displacement_clamp_bound",
+                  "image_clamp_bound"):
+            assert getattr(tt, a) == getattr(jt, a), a
+        assert tb.field_dims == jb.field_dims == tuple(jt.control_dims)
+        jt, tt = jt.svf, tt.svf
 
     for a in ("dims", "field_dims", "sobolev_s", "sobolev_lambda", "uniform_noise_alpha",
               "noise_scheme", "block_warp", "block_radius", "block_size",
@@ -132,7 +136,7 @@ def test_bundled_config_matches_jax(path):
     for a in ("no_steps", "max_disp", "use_gather", "taylor_threshold", "composition_form",
               "no_squarings", "no_taylor", "no_compositions", "no_image_compositions",
               "displacement_clamp_bound", "image_clamp_bound"):
-        assert getattr(tb.transformation, a) == getattr(jb.transformation, a), a
+        assert getattr(tt, a) == getattr(jt, a), a
 
     # the initial GMM and reg parameters: exact but for float32 digamma,
     # which torch and XLA round differently by one ulp at some arguments

@@ -62,11 +62,13 @@ def _block_inputs(dev, shape=(2, 2, 16, 24, 40), bound=9, radius=2, block=8, sat
 # (shape, bound, radius, block, saturate): the path's shape, ragged shapes
 # whose dims divide by 8 but are neither cubes nor multiples of the window
 # kernels' 32-wide tile, R 3, block 4 (the per-voxel kernels), then R 3 over
-# 4 channels (the largest window, 176.6 KB) and R 0 (the per-voxel kernels)
+# 4 channels (the largest window, 176.6 KB), R 0 (the per-voxel kernels) and
+# the SVFFD path's R 3 at 64³
 BLOCK_SHAPES = [((2, 2, 16, 24, 40), 9, 2, 8, False), ((2, 1, 128, 128, 128), 9, 2, 8, False),
                 ((1, 4, 16, 24, 136), 6, 1, 8, True), ((2, 2, 24, 8, 40), 9, 2, 8, True),
                 ((1, 2, 16, 16, 72), 9, 3, 8, True), ((2, 2, 12, 8, 20), 5, 2, 4, True),
-                ((1, 4, 16, 16, 64), 9, 3, 8, True), ((2, 2, 16, 24, 40), 9, 0, 8, False)]
+                ((1, 4, 16, 16, 64), 9, 3, 8, True), ((2, 2, 16, 24, 40), 9, 0, 8, False),
+                ((2, 1, 64, 64, 64), 9, 3, 8, False)]
 
 
 @pytest.mark.parametrize("shape,slab", [

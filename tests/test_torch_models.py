@@ -62,24 +62,26 @@ def test_svf_plan_matches_jax(kw):
 
 def test_svf_unported_forms_raise():
     """The "warp" form and squarings above ``taylor_threshold`` are ported
-    (kernels B5-B7); "taylor", ``use_gather``, SVFFD, the VI step's
-    ``remat`` and the anchored residual warp still raise, naming ROADMAP."""
+    (kernels B5-B7), so are ``use_gather``, SVFFD, the B-spline FFD, SVF_2D
+    and the VI step's ``remat``; "taylor" and the anchored residual warp
+    still raise, naming ROADMAP."""
     dims = (8, 8, 8)
     assert TSVF3D(dims, taylor_compositions="warp").composition_form == "warp"
     low = TSVF3D(dims, taylor_threshold=0.1)
     assert low.no_squarings > low.no_taylor  # warp squarings
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TSVF3D(dims, taylor_compositions="taylor")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSVF3D(dims, use_gather=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_transformation("SVFFD_3D", dims)
+    assert TSVF3D(dims, use_gather=True).use_gather
     assert isinstance(make_transformation("SVF_3D", dims), TSVF3D)
+    for kind in ("SVFFD_3D", "Cubic_B_spline_FFD_3D"):
+        assert make_transformation(kind, dims, cps=(2, 2, 2)).control_dims == (7, 7, 7)
+        with pytest.raises(ValueError, match="cps"):
+            make_transformation(kind, dims)
+    assert make_transformation("SVF_2D", dims[:2]).dims == dims[:2]
     bundle = ModelBundle(dims=dims, gmm=TGMM(4, 1), scale_prior=tdist.LogScaleNormalPrior(0.0, 2.3),
                          proportion_prior=tdist.DirichletPrior(4, 0.5),
                          reg_loss=treg.RegLossLogNormal(dims=dims), transformation=TSVF3D(dims))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_vi_step(bundle, None, None, None, {"mask": None}, {}, remat=True)
+    assert callable(make_vi_step(bundle, None, None, None, {"mask": None}, {}, remat=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         forward_sample(bundle, {}, {}, torch.zeros((1, 3) + dims), None, anchor={})
 

@@ -369,15 +369,20 @@ def test_cli_runs_on_cpu(tmp_path):
     assert json.loads((run_dir / "config.json").read_text())["trainer"]["no_iters_VI"] == 4
 
 
+def _apply(config, change: dict):
+    for block, args in change.items():
+        if block == "trainer":
+            config.cfg["trainer"].update(args)
+        elif block == "no_pairs":
+            config.cfg["data_loader"]["args"]["no_pairs"] = args
+        else:
+            config.cfg[block] = args
+    return config
+
+
 UNPORTED = {
     "pair_parallel": ({"trainer": {"pair_parallel": True}, "no_pairs": 2}, "A13"),
-    "shared_params": ({"trainer": {"MCMC_params": "shared"}}, "A12"),
     "mcmc_anchor": ({"trainer": {"mcmc_anchor": True}}, "Not ported"),
-    "vi_remat": ({"trainer": {"vi_remat": True}}, "A9"),
-    "svffd": ({"transformation_module": {"type": "SVFFD_3D", "args": {"cps": [2, 2, 2]}}},
-              "A11"),
-    "use_gather": ({"transformation_module": {"type": "SVF_3D",
-                                              "args": {"use_gather": True}}}, "A12"),
     "bfloat16": ({"transformation_module": {"type": "SVF_3D",
                                             "args": {"compute_dtype": "bfloat16"}}},
                  "Precision"),
@@ -389,16 +394,41 @@ def test_unported_options_raise(tmp_path, option):
     """Each option the port does not have raises NotImplementedError naming
     its ROADMAP item, instead of quietly doing something else."""
     change, item = UNPORTED[option]
-    config = _demo_cfg(tmp_path)
-    for block, args in change.items():
-        if block == "trainer":
-            config.cfg["trainer"].update(args)
-        elif block == "no_pairs":
-            config.cfg["data_loader"]["args"]["no_pairs"] = args
-        else:
-            config.cfg[block] = args
+    config = _apply(_demo_cfg(tmp_path), change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}|{item}.*ROADMAP"):
         _trainer(config)
+
+
+PORTED = {
+    "svffd": {"transformation_module": {"type": "SVFFD_3D", "args": {"cps": [2, 2, 2]}}},
+    "bspline_ffd": {"transformation_module": {"type": "Cubic_B_spline_FFD_3D",
+                                              "args": {"cps": [4, 4, 4]}}},
+    "shared_params": {"trainer": {"MCMC_params": "shared"}},
+    "vi_remat": {"trainer": {"vi_remat": True}},
+    "use_gather": {"transformation_module": {"type": "SVF_3D",
+                                             "args": {"no_steps": 6, "use_gather": True}}},
+    "fourier_diff_op": {"reg_loss": {"type": "RegLoss_LogNormal",
+                                     "args": {"diff_op": "Fourier1stDerivativeOperator",
+                                              "w_reg": 1.4, "learnable": True}}},
+}
+
+
+@pytest.mark.parametrize("option", sorted(PORTED))
+def test_ported_options_run(tmp_path, option):
+    """The options that used to raise run both phases of the demo config at
+    12³: no abort, finite Dice after VI and MCMC, both rates, and the
+    checkpoints' chain state on the model's own grid."""
+    config = _apply(_demo_cfg(tmp_path), PORTED[option])
+    t = _trainer(config)
+    assert t.vi_remat == (option == "vi_remat")
+    s = t.run()[0]
+    assert "mcmc_aborted" not in s
+    assert np.isfinite(s["vi_test_mean_dsc"]) and np.isfinite(s["mcmc_mean_dsc"])
+    assert s["vi_samples_per_sec"] > 0 and s["mcmc_samples_per_sec"] > 0
+    with np.load(config.save_dirs["models"] / "mcmc_latest.npz") as f:
+        assert f["leaf::.v"].shape == (2, 3) + tuple(t.bundle.field_dims)
+        shared = option == "shared_params"
+        assert f["leaf::.gmm['logits']"].shape == ((4,) if shared else (2, 4))
 
 
 def test_trainer_and_cli_default_to_the_card(tmp_path):
