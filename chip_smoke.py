@@ -23,7 +23,12 @@ Phases, each of which raises on failure (exit code != 0):
    SXM's HBM bandwidth or flops over its f32 rate, whichever is larger)
    and, for B3-B7, the time of the one PyTorch call that computes the same
    function (``F.grid_sample`` or ``aten.grid_sampler_3d_backward``),
-   checked once against the kernel away from ties;
+   checked once against the kernel away from ties; then the z-halo modes
+   of B5 and B6 (vol ``2R`` planes deeper, no z clamp) at ``(2, 1, 128³)``
+   R 1 and a ragged 4-channel R 2 shape (the ring kernels) and at R 4 (the
+   per-voxel kernels), timed at the first with their library calls, and
+   the slab identity: 4 z-slabs of a 128³ volume, each with its real
+   neighbour rows, concatenate to the unsharded B5 and B6 outputs;
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
@@ -59,19 +64,37 @@ Phases, each of which raises on failure (exit code != 0):
    64³ ``remat`` VI step against the batched one on the card; (c)
    ``configs/experiment5/config_SVFFD_2.json`` through the CLI in-process at
    128³ on the synthetic pair with block radius 3, cut as in phase 7, with
-   phase 7's checks and a ``svffd_trainer:`` line.
+   phase 7's checks and a ``svffd_trainer:`` line;
+9. pair-parallel registration (``engine/pairs.py``): (a) 1 + 10
+   pair-stacked transitions at 128³, 4 pairs x 2 chains, and GMM warm-up
+   + 1 + 10 pair-stacked VI steps on "post" (beside one pair's), each with
+   B1 7, B2 7, B3 1, B4 1 launches per step asserted, the aggregate rate
+   beside phase 3's single pair, the peak memory and a profile of 5 more
+   steps; (b) at 64³ with 2 pairs, each pair's rows of a pair-stacked
+   transition and VI step against its own run on the card, as one batch
+   and in batches of 1 pair; (c) the demo config through the CLI at 128³
+   with ``no_pairs`` 4 and ``pair_parallel: true``, cut as in phase 7: no
+   abort, each pair's Dice no worse than its ``dsc_before`` less 0.05, each
+   pair's artifact tree, the pair-stacked checkpoint (meta
+   ``pair_parallel`` 4) loaded back on the card, and a ``pairs_trainer:``
+   line (with the pairs per batch that the trainer sized from the card's
+   free memory).
 
 Each path's counters are set to 0 just before its timed run (the
 trainer's: its whole CLI run) and read just after.  Then one JSON line of
 kernel results (B3 and B4 once per radius: ``block_warp_fwd`` at R 2 with
 the dense paths' launches, ``block_warp_fwd_r3`` at R 3 with the SVFFD
-paths'), the ``nvidia-smi`` name/power line, and the final status line.  Imports nothing of JAX.
+paths'; the z-halo modes with 0 launches: their only callers, the
+spatially sharded steps, need several devices), the ``nvidia-smi``
+name/power line, and the final status line.  Imports nothing of JAX.
 Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
 matmuls and cuDNN.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import re
@@ -358,7 +381,7 @@ def phase_kernels(dev) -> list:
 def _print_rows(rows) -> None:
     for r in rows:
         k = r["kernel"]
-        bound, by = k.bound_ms(r["shape"])
+        bound, by = k.bound_ms(r["shape"], r["radius"] or 0)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         at_r = "" if r["radius"] is None else f" R {r['radius']}"
         print(f"kernel {k.symbol} {tuple(r['shape'])}{at_r}: max_abs_err {r['err']:.3e} (atol "
@@ -437,12 +460,103 @@ def phase_blend_kernels(dev) -> list:
     return rows
 
 
+# (output shape, radius) of the z-halo modes; the vol is 2R planes deeper:
+# the ring kernels at R 1 (timed) and at a ragged 4-channel R 2, the
+# per-voxel kernels at R 4
+ZHALO_SHAPES = (((CHAINS, 1) + DIMS, 1), ((1, 4, 17, 10, 70), 2), ((1, 2, 9, 12, 40), 4))
+ZHALO_SLABS = 4
+
+
+def _zhalo_grid(disp, R: int):
+    """``grid_sample``'s normalised points in a z-haloed vol ``(D + 2R, H,
+    W)`` at identity + ``clip(disp, ±R)``, z shifted by the halo."""
+    B, _, D, H, W = disp.shape
+    d = disp.clamp(-R, R)
+    z, y, x = torch.meshgrid(*(torch.arange(n, device=disp.device, dtype=torch.float32)
+                               for n in (D, H, W)), indexing="ij")
+    return torch.stack([(x + d[:, 0]) * (2.0 / (W - 1)) - 1.0,
+                        (y + d[:, 1]) * (2.0 / (H - 1)) - 1.0,
+                        (z + R + d[:, 2]) * (2.0 / (D + 2 * R - 1)) - 1.0], dim=-1)
+
+
+def phase_zhalo_kernels(dev) -> list:
+    """The z-halo modes of B5 and B6 (vol ``2R`` planes deeper than disp,
+    no z clamp) against their plain versions at ``ZHALO_SHAPES``, with the
+    tolerance of the default mode; timed, bounded and held to the library
+    calls at ``(2, 1, 128³)`` R 1.  Then the slab identity that the JAX
+    package's sharded steps rely on (``parallel/halo.py``): the z-halo
+    outputs of 4 z-slabs of a 128³ volume, each given its real neighbour
+    rows (edge rows at the two ends), concatenate to the unsharded B5 and
+    B6 outputs."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    gen = torch.Generator(device=dev).manual_seed(5678)
+    atol, rtol = 1e-5, 1e-5
+    errs = {wb.B5Z: 0.0, wb.B6Z: 0.0}
+    timed = {}
+    for shape, R in ZHALO_SHAPES:
+        B, C, D, H, W = shape
+        _, disp, g = _bounded_operands(gen, shape, R)
+        vol = torch.randn((B, C, D + 2 * R, H, W), generator=gen, device=dev)
+        calls = {
+            wb.B5Z: (lambda: wb.warp_bounded_fwd_cuda(vol, disp, R, z_halo=True),
+                     lambda: wb.warp_bounded_plain(vol, disp, R, z_halo=True)),
+            wb.B6Z: (lambda: wb.warp_bounded_dgrad_cuda(vol, disp, g, R, z_halo=True),
+                     lambda: wb.warp_bounded_dgrad_plain(vol, disp, g, R, z_halo=True)),
+        }
+        for k, (kern, plain) in calls.items():
+            errs[k] = max(errs[k], _err(kern(), plain(), atol, rtol, f"{k.symbol} {shape} R {R}"))
+        if shape != ZHALO_SHAPES[0][0]:
+            continue
+        grid = _zhalo_grid(disp, R)
+        at = disp.clamp(-R, R)
+        scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1), 2.0 / (D + 2 * R - 1)], device=dev)
+        library = {
+            wb.B5Z: (lambda: _grid_sample(vol, grid), None),
+            wb.B6Z: (lambda: (_grid_sample_grads(g, vol, grid, [False, True])[1] * scale
+                              ).permute(0, 4, 1, 2, 3).contiguous(), _off_ties(at)),
+        }
+        for k, (kern, plain) in calls.items():
+            call, mask = library[k]
+            timed[k] = (shape, _time_ms(kern), _time_ms(plain),
+                        _library_ms(k.symbol, call, kern(), mask))
+    rows = [_row(k, timed[k][0], errs[k], atol, rtol, *timed[k][1:], radius=ZHALO_SHAPES[0][1])
+            for k in (wb.B5Z, wb.B6Z)]
+    _print_rows(rows)
+
+    # the slab identity at 128³, R 1 and 2
+    for R in (1, 2):
+        vol, disp, g = _bounded_operands(gen, (CHAINS, 1) + DIMS, R)
+        zpad = torch.nn.functional.pad(vol, (0, 0, 0, 0, R, R), mode="replicate")
+        n = DIMS[0] // ZHALO_SLABS
+        outs, dgs = [], []
+        for z0 in range(0, DIMS[0], n):
+            slab = zpad[:, :, z0:z0 + n + 2 * R].contiguous()
+            d, gs = disp[:, :, z0:z0 + n].contiguous(), g[:, :, z0:z0 + n].contiguous()
+            outs.append(wb.warp_bounded_fwd_cuda(slab, d, R, z_halo=True))
+            dgs.append(wb.warp_bounded_dgrad_cuda(slab, d, gs, R, z_halo=True))
+        out, dg = torch.cat(outs, dim=2), torch.cat(dgs, dim=2)
+        full, full_dg = (wb.warp_bounded_fwd_cuda(vol, disp, R),
+                         wb.warp_bounded_dgrad_cuda(vol, disp, g, R))
+        e5 = _err(out, full, atol, rtol, f"z-halo slabs of B5 R {R}")
+        e6 = _err(dg, full_dg, atol, rtol, f"z-halo slabs of B6 R {R}")
+        print(f"zhalo: {ZHALO_SLABS} z-slabs of {(CHAINS, 1) + DIMS} R {R} with their "
+              f"neighbour rows concatenate to the unsharded B5 (max abs err {e5:.3e}, bitwise "
+              f"{torch.equal(out, full)}) and B6 (max abs err {e6:.3e}, bitwise "
+              f"{torch.equal(dg, full_dg)})", flush=True)
+    return rows
+
+
 # launches per transition, and per VI step on "post", of the dense and SVFFD
 # models alike: the integration's 7 split compositions forward and backward
 # and one block-gather warp
 POST_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
                   "block_warp_dgrad": 1, "warp_bounded_fwd": 0, "warp_bounded_dgrad": 0,
-                  "warp_bounded_tblend": 0}
+                  "warp_bounded_tblend": 0, "warp_bounded_fwd_zhalo": 0,
+                  "warp_bounded_dgrad_zhalo": 0}
+# the z-halo modes' only callers are the JAX package's spatially sharded
+# steps, which one card does not run: no path of this script launches them
+ZHALO = ("warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo")
 
 
 def _timed_run(run, state, steps: int, what: str, per_step: dict):
@@ -468,9 +582,10 @@ def _timed_run(run, state, steps: int, what: str, per_step: dict):
     return state, metrics, seconds, launches, torch.cuda.max_memory_allocated()
 
 
-def phase_slice(dev) -> dict:
+def phase_slice(dev) -> tuple:
     """1 warm-up + TIMED transitions at 128³ x 2 chains on the card, then a
-    profile of 5 more; returns the launch counts of the timed run."""
+    profile of 5 more; returns the launch counts of the timed run and its
+    samples/sec."""
     from ir_sgmcmc_tpu_torch.engine import make_mcmc_chunk
 
     bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev)
@@ -501,7 +616,7 @@ def phase_slice(dev) -> dict:
           f"({peak / 2**30:.3f} GiB)", flush=True)
     _profile(make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed, moving,
                              chunk=5, burn_in=0, thin=1), state, 5, "transitions")
-    return launches
+    return launches, rate
 
 
 def _field_dims(dims, cps):
@@ -585,7 +700,8 @@ def _vi_problem(dims, device, scheme="pre", cps=None):
 
 VI_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
                "block_warp_dgrad": 0, "warp_bounded_fwd": 9, "warp_bounded_dgrad": 8,
-               "warp_bounded_tblend": 8}
+               "warp_bounded_tblend": 8, "warp_bounded_fwd_zhalo": 0,
+               "warp_bounded_dgrad_zhalo": 0}
 
 
 def phase_vi(dev) -> dict:
@@ -859,6 +975,9 @@ TRAINER_ARTIFACTS = ("images/im_fixed.nii.gz", "fields/VI_displacement_mean.vtk"
                      "fields/MCMC_displacement_std_dev.vtk", "models/vi_latest.npz",
                      "models/mcmc_latest.npz", "samples/VI/sample_*_im_warped.nii.gz",
                      "samples/MCMC/chain_*_im_warped.nii.gz")
+# each pair's tree in a pair-parallel run: no checkpoints (one pair-stacked
+# file, in pair 0's tree)
+PAIR_ARTIFACTS = TRAINER_ARTIFACTS[:3] + TRAINER_ARTIFACTS[5:]
 
 
 SVFFD_OVERRIDES = ('data_loader;type="SyntheticDataLoader"',
@@ -866,20 +985,21 @@ SVFFD_OVERRIDES = ('data_loader;type="SyntheticDataLoader"',
                    "trainer;tensorboard=false")
 
 
-def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
-                  tag="trainer") -> dict:
-    """A config (the demo one unless given) through the port's CLI at 128³
-    (``extra``: more overrides); returns the record it prints on a line
-    that starts with ``tag``, with the launch counts of the whole run.  Each trainer phase is timed (with a device sync at its
-    ends) and its launches counted by wrappers that this function installs
-    around the trainer's phase methods and removes after."""
+@contextlib.contextmanager
+def _cli_run(tag: str, config: str, extra, phase_methods: dict):
+    """The port's CLI in-process on ``config`` at 128³ (``TRAINER_OVERRIDES``
+    and ``extra``), in a temporary save directory that lives as long as the
+    ``with`` block.  Each trainer method of ``phase_methods`` (``{phase:
+    name}``; ``"warm-up"`` is the engine's ``gmm_warmup``) is timed (with a
+    device sync at its ends) and its launches counted by a wrapper that is
+    removed after.  Every counter is set to 0 just before the run and read
+    just after.  Yields ``{"summaries", "trainer", "wall_s", "launches",
+    "phases", "peak_bytes", "run_dir"}``."""
     import tempfile
 
     from ir_sgmcmc_tpu_torch import run
     from ir_sgmcmc_tpu_torch import trainer as tr
-    from ir_sgmcmc_tpu_torch.engine import init_chains
     from ir_sgmcmc_tpu_torch.kernels import all_kernels
-    from ir_sgmcmc_tpu_torch.utils.checkpoint import load_checkpoint
 
     kernels = all_kernels()
     phases, seen = {}, []
@@ -895,8 +1015,11 @@ def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
                 return fn(*args, **kwargs)
             finally:
                 torch.cuda.synchronize()
-                p = phases.setdefault(name, {"s": 0.0, "launches": dict.fromkeys(c0, 0)})
+                p = phases.setdefault(name, {"s": 0.0, "launches": dict.fromkeys(c0, 0),
+                                             "peak_bytes": 0})
                 p["s"] += time.perf_counter() - t0
+                # the pair path resets the peak counter to size its batches
+                p["peak_bytes"] = max(p["peak_bytes"], torch.cuda.max_memory_allocated())
                 for sym, n in counts().items():
                     p["launches"][sym] += n - c0[sym]
         return wrapper
@@ -908,10 +1031,9 @@ def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
         return wrapper
 
     patches = [(tr, "gmm_warmup", timed("warm-up", tr.gmm_warmup)),
-               (tr.Trainer, "_run_vi_phase", timed("VI", tr.Trainer._run_vi_phase)),
-               (tr.Trainer, "_test_vi", timed("VI test", tr.Trainer._test_vi)),
-               (tr.Trainer, "_run_mcmc_phase", timed("MCMC", tr.Trainer._run_mcmc_phase)),
                (tr.Trainer, "run", keep(tr.Trainer.run))]
+    patches += [(tr.Trainer, method, timed(name, getattr(tr.Trainer, method)))
+                for name, method in phase_methods.items()]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
@@ -934,23 +1056,49 @@ def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
         finally:
             for obj, name, fn in saved:
                 setattr(obj, name, fn)
-        peak = torch.cuda.max_memory_allocated()
-        s, t = summaries[0], seen[0]
-        if "mcmc_aborted" in s:
-            raise AssertionError(f"{tag}: MCMC aborted: {s['mcmc_aborted']}")
-        for key in ("vi_test_mean_dsc", "mcmc_mean_dsc"):
-            if not (math.isfinite(s[key]) and s[key] >= s["dsc_before"] - 0.05):
-                raise AssertionError(f"{tag}: {key} {s[key]} against dsc_before "
-                                     f"{s['dsc_before']} (bar: 0.05 below it)")
-        run_dir = Path(tmp) / t.config.name / "smoke"
+        t = seen[0]
+        for s in summaries:
+            if "mcmc_aborted" in s:
+                raise AssertionError(f"{tag}: MCMC aborted: {s['mcmc_aborted']}")
+            for key in ("vi_test_mean_dsc", "mcmc_mean_dsc"):
+                if not (math.isfinite(s[key]) and s[key] >= s["dsc_before"] - 0.05):
+                    raise AssertionError(f"{tag}: pair {s['pair']} {key} {s[key]} against "
+                                         f"dsc_before {s['dsc_before']} (bar: 0.05 below it)")
+        bad = [sym for sym, n in launches.items()
+               if (n == 0) != (sym in ("warp_bounded_dgrad", "warp_bounded_tblend") + ZHALO)]
+        if bad:
+            raise AssertionError(f"{tag}: launches {launches}: B1-B5 must run, B6/B7 and "
+                                 f"the z-halo modes must not ({bad})")
+        peak = max([torch.cuda.max_memory_allocated()]
+                   + [p["peak_bytes"] for p in phases.values()])
+        yield {"summaries": summaries, "trainer": t, "wall_s": wall, "launches": launches,
+               "phases": phases, "peak_bytes": peak,
+               "run_dir": Path(tmp) / t.config.name / "smoke"}
+
+
+def _check_on_card(tag: str, name: str, x, grid) -> None:
+    if not (x.is_cuda and bool(torch.isfinite(x).all()) and tuple(x.shape[-3:]) == tuple(grid)):
+        raise AssertionError(f"{tag}: checkpoint {name} {tuple(x.shape)} not finite on the "
+                             f"card on the grid {tuple(grid)}")
+
+
+def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
+                  tag="trainer") -> dict:
+    """A config (the demo one unless given) through the port's CLI at 128³
+    (``extra``: more overrides), with its phases timed (``_cli_run``): no
+    abort, finite Dice no worse than ``dsc_before`` less 0.05, the
+    end-to-end test's artifacts, and both checkpoints loaded back on the
+    card.  Returns the record it prints on a line that starts with ``tag``,
+    with the launch counts of the whole run."""
+    from ir_sgmcmc_tpu_torch.engine import init_chains
+    from ir_sgmcmc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    methods = {"VI": "_run_vi_phase", "VI test": "_test_vi", "MCMC": "_run_mcmc_phase"}
+    with _cli_run(tag, config, extra, methods) as r:
+        s, t, run_dir = r["summaries"][0], r["trainer"], r["run_dir"]
         missing = [a for a in TRAINER_ARTIFACTS if not list(run_dir.glob(a))]
         if missing:
             raise AssertionError(f"{tag}: artifacts missing under {run_dir}: {missing}")
-        bad = [sym for sym, n in launches.items()
-               if (n == 0) != (sym in ("warp_bounded_dgrad", "warp_bounded_tblend"))]
-        if bad:
-            raise AssertionError(f"{tag}: launches {launches}: B1-B5 must run and B6/B7 "
-                                 f"must not ({bad})")
 
         # both checkpoints back into the port's states on the card
         b, q_v0 = t.bundle, t.dataset[0][2]
@@ -967,21 +1115,260 @@ def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
         for name, x, grid in (("q_v mu", vi.q_v["mu"], b.field_dims),
                               ("chain v", mc.v, b.field_dims),
                               ("welford mean", mc.welford.mean, b.dims)):
-            if not (x.is_cuda and bool(torch.isfinite(x).all())
-                    and tuple(x.shape[-3:]) == tuple(grid)):
-                raise AssertionError(f"{tag}: checkpoint {name} {tuple(x.shape)} not finite "
-                                     f"on the card on the grid {tuple(grid)}")
+            _check_on_card(tag, name, x, grid)
         if vi.step != 20 or mc.step != 30:
             raise AssertionError(f"{tag}: checkpoint steps {vi.step}, {mc.step}")
 
+    phases = r["phases"]
     record = {
-        "summary": s, "wall_s": wall,
+        "summary": s, "wall_s": r["wall_s"],
         "phase_s": {name: p["s"] for name, p in phases.items()},
         "phase_launches": {name: p["launches"] for name, p in phases.items()},
-        "launches": launches,
+        "launches": r["launches"],
         "vi_iters_per_sec_in_phase": 20 / phases["VI"]["s"],
         "mcmc_samples_per_sec_in_phase": t.no_chains * 30 / s["mcmc_time_s"],
-        "host_s": t.timings, "peak_bytes": peak,
+        "host_s": t.timings, "peak_bytes": r["peak_bytes"],
+    }
+    print(f"{tag}: {json.dumps(record, default=float)}", flush=True)
+    return record
+
+
+# ---- phase 9: pair-parallel registration -------------------------------------------
+
+PAIRS = 4
+# distinct pairs: each its own offset and texture seed
+PAIR_OFFSETS = ((0.0, 0.0, 4.0), (0.0, 4.0, 0.0), (4.0, 0.0, 0.0), (0.0, 3.0, 3.0))
+
+
+def _pair_images(dims, device, n: int):
+    """``n`` distinct sphere pairs: the per-pair ``(fixed, moving)`` dicts and
+    the pair-stacked ``fixed``, ``moving``."""
+    from ir_sgmcmc_tpu_torch.data import sphere_pair
+    from ir_sgmcmc_tpu_torch.engine.pairs import stack_trees
+
+    images = []
+    for i, off in enumerate(PAIR_OFFSETS[:n]):
+        fixed, moving = sphere_pair(dims, offset=off, seed=i)
+        images.append(tuple({k: torch.as_tensor(v, device=device) for k, v in d.items()}
+                            for d in (fixed, moving)))
+    return images, stack_trees([f for f, _ in images]), stack_trees([m for _, m in images])
+
+
+def _warm_gmm(bundle, i: int) -> dict:
+    """A GMM as the trainer's warm-up leaves it (spread scales, unequal
+    logits), a little different for each pair."""
+    gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params("cpu"), 1.0 + 0.1 * i)
+    gmm["logits"] = torch.tensor([0.3, -0.2, 0.1, -0.4]) * (1 + 0.5 * i)
+    return gmm
+
+
+def phase_pairs(dev, single_rate: float) -> dict:
+    """9(a): 1 warm-up and TIMED pair-stacked transitions at 128³, PAIRS
+    pairs x 2 chains ("post"), then the pair-stacked VI step on "post"
+    (GMM warm-up per pair, 1 warm-up and TIMED steps) beside a single
+    pair's VI steps on the same problem; each with B1 7, B2 7, B3 1, B4 1
+    launches per step asserted, the aggregate rate, the peak memory and a
+    profile of 5 more steps.  Returns the launch counts of both pair runs."""
+    from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_vi_chunk, make_vi_step
+    from ir_sgmcmc_tpu_torch.engine.pairs import (make_pair_mcmc_chunk, make_pair_vi_chunk,
+                                                  stack_trees)
+
+    bundle, _, _, opt_gmm, opt_reg = _problem(DIMS, dev)
+    images, fixed_st, moving_st = _pair_images(DIMS, dev, PAIRS)
+    print(f"pairs: {PAIRS} pairs x {CHAINS} chains at {DIMS}, 'post', offsets "
+          f"{list(PAIR_OFFSETS[:PAIRS])}", flush=True)
+
+    def chunk(n):
+        return make_pair_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed_st, moving_st,
+                                    chunk=n, burn_in=0, thin=1)
+
+    state = stack_trees([_init(bundle, opt_gmm, opt_reg, dev, seed=i) for i in range(PAIRS)])
+    state, _ = chunk(1)(state)
+    state, metrics, seconds, mcmc_launches, peak = _timed_run(
+        chunk(TIMED), state, TIMED, "pairs mcmc", POST_PER_STEP)
+    for name in ("data_term", "reg_term", "vd_alpha"):
+        if not (metrics[name].shape[:3] == (PAIRS, TIMED, CHAINS)
+                and torch.isfinite(metrics[name]).all()):
+            raise AssertionError(f"pairs mcmc: {name} {tuple(metrics[name].shape)} not "
+                                 f"finite (P, chunk, C)")
+    if not torch.isfinite(state.v).all():
+        raise AssertionError("pairs mcmc: non-finite chain state")
+    rate = PAIRS * CHAINS * TIMED / seconds
+    print(f"pairs mcmc: launches {json.dumps(mcmc_launches)} over {TIMED} transitions",
+          flush=True)
+    print(f"pairs mcmc: {rate:.3f} aggregate samples/sec ({PAIRS} pairs x {CHAINS} chains x "
+          f"{TIMED} transitions in {seconds:.3f} s) against phase 3's single pair "
+          f"{single_rate:.3f} samples/sec ({rate / single_rate:.3f}x); peak memory {peak} "
+          f"bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    _profile(chunk(5), state, 5, "pair-stacked transitions")
+    del state
+
+    bundle, _, _, (oq, og, orr), vstate = _vi_problem(DIMS, dev, "post")
+    states = [gmm_warmup(bundle, og, vstate._replace(key=torch.tensor([0, i])), f, m)
+              for i, (f, m) in enumerate(images)]
+    step0 = make_vi_step(bundle, oq, og, orr, *images[0])
+    s0, _ = make_vi_chunk(step0, 1)(states[0])
+    _, _, single_s, _, single_peak = _timed_run(make_vi_chunk(step0, TIMED), s0, TIMED,
+                                                "pairs vi (one pair)", POST_PER_STEP)
+
+    def vchunk(n):
+        return make_pair_vi_chunk(bundle, oq, og, orr, fixed_st, moving_st, n)
+
+    vstate, _ = vchunk(1)(stack_trees(states))
+    vstate, metrics, seconds, vi_launches, peak = _timed_run(
+        vchunk(TIMED), vstate, TIMED, "pairs vi", POST_PER_STEP)
+    for name in ("data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha"):
+        if not (metrics[name].shape[:2] == (PAIRS, TIMED)
+                and torch.isfinite(metrics[name]).all()):
+            raise AssertionError(f"pairs vi: {name} {tuple(metrics[name].shape)} not finite "
+                                 f"(P, chunk)")
+    print(f"pairs vi: launches {json.dumps(vi_launches)} over {TIMED} steps", flush=True)
+    print(f"pairs vi: {PAIRS * TIMED / seconds:.3f} aggregate iters/sec ({PAIRS} pairs x "
+          f"{TIMED} steps in {seconds:.3f} s), peak memory {peak} bytes "
+          f"({peak / 2**30:.3f} GiB); one pair alone {TIMED / single_s:.3f} iters/sec, peak "
+          f"{single_peak} bytes ({single_peak / 2**30:.3f} GiB)", flush=True)
+    _profile(vchunk(5), vstate, 5, "pair-stacked VI steps")
+    return {"pairs_mcmc": mcmc_launches, "pairs_vi": vi_launches}
+
+
+def phase_pairs_reference(dev) -> None:
+    """9(b): at 64³ with 2 pairs, each pair's rows of one pair-stacked
+    transition and one pair-stacked VI step equal that pair's single-pair
+    run on the card, from the same states and keys: counters equal, loss
+    terms within 1e-4 relative, σ²∇U within phase 4's bounds and the q(v)
+    gradient within phase 6's.  Both as one batch of the 2 pairs and in
+    batches of 1 pair in turn (the trainer's schedule when the card holds
+    fewer pairs than the study has)."""
+    from ir_sgmcmc_tpu_torch.engine import make_mcmc_chunk, make_vi_chunk, make_vi_step
+    from ir_sgmcmc_tpu_torch.engine.mcmc import _chain_noise
+    from ir_sgmcmc_tpu_torch.engine.pairs import (make_pair_mcmc_chunk, make_pair_vi_chunk,
+                                                  stack_trees, unstack_tree)
+    from ir_sgmcmc_tpu_torch.models.sampler import langevin_noise
+
+    tau, n = 1e-5, 2
+    bundle, _, _, opt_gmm, opt_reg = _problem(SMALL, dev)
+    images, fixed_st, moving_st = _pair_images(SMALL, dev, n)
+    states = []
+    for i in range(n):
+        s = _init(bundle, opt_gmm, opt_reg, dev, seed=i)
+        gmm = {k: t.to(dev).expand(CHAINS, -1).clone() for k, t in _warm_gmm(bundle, i).items()}
+        states.append(s._replace(gmm=gmm))
+    runs = [(group, *make_pair_mcmc_chunk(bundle, opt_gmm, opt_reg, tau, fixed_st, moving_st, 1,
+                                          0, 1, group=group)(stack_trees(states)))
+            for group in (None, 1)]
+    worst = 0.0
+    for (group, pair, pm), (i, (f, m)) in itertools.product(runs, enumerate(images)):
+        ref, rm = make_mcmc_chunk(bundle, opt_gmm, opt_reg, tau, f, m, 1, 0, 1)(states[i])
+        got = unstack_tree(pair, i)
+        who = f"{i} (batches of {group or n})"
+        for k in ("ndv", "sat", "sat_resid"):
+            if not torch.equal(pm[k][i], rm[k]):
+                raise AssertionError(f"pairs reference: pair {who} {k} {pm[k][i]} vs {rm[k]}")
+        for k in ("data_term", "reg_term", "vd_alpha"):
+            _err(pm[k][i], rm[k], 0.0, 1e-4, f"pairs reference pair {who} {k}")
+        eps, _ = _chain_noise(states[i], bundle.uniform_noise_alpha, bundle.dims)
+        v_noised = states[i].v + langevin_noise(None, states[i].sigma, tau, eps)
+        q = (v_noised - ref.v) / tau
+        floor = 8 * float(torch.finfo(torch.float32).eps * v_noised.abs().max()) / tau
+        dq = (got.v - ref.v) / tau
+        rms, rms_q = float(dq.pow(2).mean().sqrt()), float(q.pow(2).mean().sqrt())
+        if rms > floor / 8 + 1e-3 * rms_q:
+            raise AssertionError(f"pairs reference: pair {who} σ²∇U RMS error {rms:.3e} "
+                                 f"(RMS {rms_q:.3e})")
+        _err(got.v / tau, ref.v / tau, floor + 2e-2 * float(q.abs().max()), 0.0,
+             f"pairs reference pair {who} σ²∇U")
+        worst = max(worst, rms / rms_q)
+
+    bundle, _, _, (oq, og, orr), vstate = _vi_problem(SMALL, dev, "post")
+    states = [vstate._replace(gmm={k: t.to(dev) for k, t in _warm_gmm(bundle, i).items()},
+                              key=torch.tensor([3, i])) for i in range(n)]
+    runs = [(group, *make_pair_vi_chunk(bundle, oq, og, orr, fixed_st, moving_st, 1,
+                                        group=group)(stack_trees(states)))
+            for group in (None, 1)]
+    worst_vi = 0.0
+    for (group, pair, pm), (i, (f, m)) in itertools.product(runs, enumerate(images)):
+        ref, rm = make_vi_chunk(make_vi_step(bundle, oq, og, orr, f, m), 1)(states[i])
+        got = unstack_tree(pair, i)
+        who = f"{i} (batches of {group or n})"
+        for k in ("ndv", "sat"):
+            if not torch.equal(pm[k][i], rm[k]):
+                raise AssertionError(f"pairs vi reference: pair {who} {k} {pm[k][i]} vs {rm[k]}")
+        for k in ("data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha"):
+            _err(pm[k][i], rm[k], 0.0, 1e-4, f"pairs vi reference pair {who} {k}")
+        for k, g_ref in ref.opt_q_v.mu.items():
+            g_ref, g = g_ref / 0.1, got.opt_q_v.mu[k] / 0.1
+            rms, rms_ref = float((g - g_ref).pow(2).mean().sqrt()), float(g_ref.pow(2).mean().sqrt())
+            if rms > 1e-3 * rms_ref:
+                raise AssertionError(f"pairs vi reference: pair {who} {k} gradient RMS error "
+                                     f"{rms:.3e} (RMS {rms_ref:.3e})")
+            _err(g, g_ref, 2e-2 * float(g_ref.abs().max()), 0.0,
+                 f"pairs vi reference pair {who} grad {k}")
+            worst_vi = max(worst_vi, rms / rms_ref)
+    print(f"pairs reference: 64³, {n} pairs in one batch and in batches of 1: each pair's "
+          f"rows of a pair-stacked transition and VI step equal its own run on the card "
+          f"(loss terms within 1e-4, counters "
+          f"equal; σ²∇U RMS error at most {worst:.3e} of its RMS, q(v) gradient "
+          f"{worst_vi:.3e})", flush=True)
+
+
+PAIRS_TRAINER_OVERRIDES = (f"data_loader;args;no_pairs={PAIRS}", "trainer;pair_parallel=true")
+
+
+def phase_pairs_trainer(dev) -> dict:
+    """9(c): the demo config through the CLI at 128³ with PAIRS pairs and
+    ``pair_parallel: true``, phase 7's cuts: no abort, each pair's Dice no
+    worse than its ``dsc_before`` less 0.05, each pair's artifact tree
+    (``pair_<i>/`` beside pair 0's), and ``mcmc_latest.npz`` with meta
+    ``pair_parallel`` PAIRS loaded back into pair-stacked states on the
+    card.  Prints one ``pairs_trainer:`` line with the aggregate rates, each
+    phase's wall time and launches, and the peak memory."""
+    from ir_sgmcmc_tpu_torch.engine import init_chains
+    from ir_sgmcmc_tpu_torch.engine.pairs import stack_trees
+    from ir_sgmcmc_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tag = "pairs_trainer"
+    methods = {"VI": "_run_pair_vi_phase", "VI test": "_test_vi",
+               "MCMC": "_run_pair_mcmc_phase"}
+    with _cli_run(tag, "configs/demo/config_synthetic.json", PAIRS_TRAINER_OVERRIDES,
+                  methods) as r:
+        summaries, t, run_dir = r["summaries"], r["trainer"], r["run_dir"]
+        if len(summaries) != PAIRS:
+            raise AssertionError(f"{tag}: {len(summaries)} summaries for {PAIRS} pairs")
+        for i in range(PAIRS):
+            tree = run_dir if i == 0 else run_dir / f"pair_{i}"
+            missing = [a for a in PAIR_ARTIFACTS if not list(tree.glob(a))]
+            if missing:
+                raise AssertionError(f"{tag}: pair {i}: artifacts missing under {tree}: "
+                                     f"{missing}")
+        b = t.bundle
+        gen = torch.Generator(device=dev).manual_seed(0)
+        template = stack_trees([init_chains(
+            b, gen, t.no_chains, "identity", None, b.gmm.init_params(dev),
+            b.reg_loss.init_params(dev), t.opt_gmm, t.opt_reg, device=dev)
+            for _ in range(PAIRS)])
+        mc, meta = load_checkpoint(run_dir / "models/mcmc_latest.npz", template)
+        if meta.get("pair_parallel") != PAIRS or meta.get("mcmc_steps") != 30:
+            raise AssertionError(f"{tag}: checkpoint meta {meta}")
+        if mc.step.tolist() != [30] * PAIRS or tuple(mc.v.shape[:2]) != (PAIRS, t.no_chains):
+            raise AssertionError(f"{tag}: checkpoint steps {mc.step.tolist()}, chains "
+                                 f"{tuple(mc.v.shape)}")
+        for name, x, grid in (("chain v", mc.v, b.field_dims),
+                              ("welford mean", mc.welford.mean, b.dims)):
+            _check_on_card(tag, name, x, grid)
+
+    phases = r["phases"]
+    s0 = summaries[0]
+    record = {
+        "pairs": PAIRS, "wall_s": r["wall_s"],
+        "dsc": [{k: s[k] for k in ("dsc_before", "vi_test_mean_dsc", "mcmc_mean_dsc")}
+                for s in summaries],
+        "vi_time_s": s0["vi_time_s"], "mcmc_time_s": s0["mcmc_time_s"],
+        "vi_aggregate_iters_per_sec": PAIRS * 20 / s0["vi_time_s"],
+        "mcmc_aggregate_samples_per_sec": s0["mcmc_aggregate_samples_per_sec"],
+        "phase_s": {name: p["s"] for name, p in phases.items()},
+        "phase_launches": {name: p["launches"] for name, p in phases.items()},
+        "launches": r["launches"], "host_s": t.timings, "peak_bytes": r["peak_bytes"],
+        "pairs_per_batch": t.pair_groups,
     }
     print(f"{tag}: {json.dumps(record, default=float)}", flush=True)
     return record
@@ -1015,6 +1402,7 @@ def main() -> int:
         print("chip_smoke: no ir_sgmcmc_tpu_torch package beside this script; run it "
               "from the root of the repository", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ir_sgmcmc_tpu_torch.kernels import _lib
@@ -1031,8 +1419,9 @@ def main() -> int:
     for ln in _lib.ptxas_summary(log.read_text()) if log.exists() else []:
         print(f"ptxas: {ln}", flush=True)
 
-    rows = phase_kernels(dev) + phase_blend_kernels(dev)
-    paths = {"mcmc": phase_slice(dev)}
+    rows = phase_kernels(dev) + phase_blend_kernels(dev) + phase_zhalo_kernels(dev)
+    paths = {}
+    paths["mcmc"], slice_rate = phase_slice(dev)
     phase_reference(dev)
     paths["vi"] = phase_vi(dev)
     phase_vi_reference(dev)
@@ -1045,26 +1434,34 @@ def main() -> int:
     paths["svffd_trainer"] = phase_trainer(
         dev, SVFFD_OVERRIDES, "configs/experiment5/config_SVFFD_2.json",
         "svffd_trainer")["launches"]
+    paths.update(phase_pairs(dev, slice_rate))
+    phase_pairs_reference(dev)
+    paths["pairs_trainer"] = phase_pairs_trainer(dev)["launches"]
 
     kernels = []
     for r in rows:
         k = r["kernel"]
-        bound, by = k.bound_ms(r["shape"])
+        bound, by = k.bound_ms(r["shape"], r["radius"] or 0)
         # B3/B4 have a row per radius: R 3 counts the SVFFD paths' launches
         # (block radius 3), R 2 the others'; every other kernel every path's
+        per_radius = r["radius"] is not None and not k.z_halo
         on = [p for name, p in paths.items()
-              if r["radius"] is None or (r["radius"] == SVFFD_RADIUS) == name.startswith("svffd")]
-        name = k.symbol if r["radius"] in (None, 2) else f"{k.symbol}_r{r['radius']}"
+              if not per_radius or (r["radius"] == SVFFD_RADIUS) == name.startswith("svffd")]
+        name = k.symbol if not per_radius or r["radius"] == 2 else f"{k.symbol}_r{r['radius']}"
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": sum(p[k.symbol] for p in on),
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": bound, "bound_by": by, "library_ms": r["library_ms"]})
-    unlaunched = [r["name"] for r in kernels if r["launches"] == 0]
+    unlaunched = [r["name"] for r in kernels if r["launches"] == 0 and r["name"] not in ZHALO]
     if unlaunched:
         raise AssertionError(f"kernels never launched on a main path: {unlaunched}")
+    print(f"zhalo: {', '.join(ZHALO)} launched "
+          f"{[sum(p[z] for p in paths.values()) for z in ZHALO]} times on the paths: their "
+          f"only callers, the spatially sharded steps, need several devices", flush=True)
     if not all(math.isfinite(r["ms"]) for r in kernels):
         raise AssertionError("kernel timing failed")
+    print(f"smoke: all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -131,10 +131,20 @@ __device__ __forceinline__ Taps taps(float d, int base, int n) {
 }
 
 struct Geom {
-  int B, C, D, H, W;
+  int B, C, D, H, W;  // D, H, W: the output's (and disp's) dims
   float R;
   int vec;  // B5: W % 4 == 0 and vol 16-byte aligned, so rows may go by 16 bytes
+  int zh;   // z-halo mode: vol carries zh = R real rows per side in z, else 0
 };
+
+// vol's depth: D, or D + 2R in z-halo mode
+__device__ __host__ __forceinline__ int vol_depth(const Geom& g) { return g.D + 2 * g.zh; }
+
+// vol plane of (unclamped) output-grid plane z: the edge padding clamps it
+// into [0, D); in z-halo mode the halo rows are real, so no clamp
+__device__ __forceinline__ int vol_plane(const Geom& g, int z) {
+  return g.zh ? z + g.zh : clampi(z, g.D);
+}
 
 // thread -> (b, z, y, x); false outside the volume
 __device__ __forceinline__ bool voxel(const Geom& g, int& b, int& z, int& y, int& x) {
@@ -151,16 +161,18 @@ __global__ void warp_bounded_fwd_kernel(const float* __restrict__ vol,
                                         float* __restrict__ out, Geom g) {
   int b, z, y, x;
   if (!voxel(g, b, z, y, x)) return;
-  const long long V = (long long)g.D * g.H * g.W;
+  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)vol_depth(g) * g.H * g.W;
   const long long here = ((long long)z * g.H + y) * g.W + x;
   const float* db = disp + (long long)b * 3 * V + here;
   const Taps tx = taps(clipf(db[0], g.R), x, g.W);
   const Taps ty = taps(clipf(db[V], g.R), y, g.H);
-  const Taps tz = taps(clipf(db[2 * V], g.R), z, g.D);
+  // z-halo: plane z + R + k of the deeper vol (the clamp only moves the
+  // zero-weight tap k + 1 = R + 1)
+  const Taps tz = taps(clipf(db[2 * V], g.R), z + g.zh, vol_depth(g));
   const int zi[2] = {tz.i0, tz.i1}, yi[2] = {ty.i0, ty.i1};
   const float wz[2] = {tz.w0, tz.w1}, wy[2] = {ty.w0, ty.w1};
   for (int c = 0; c < g.C; ++c) {
-    const float* vc = vol + ((long long)b * g.C + c) * V;
+    const float* vc = vol + ((long long)b * g.C + c) * Vv;
     float acc = 0.0f;
     for (int a = 0; a < 2; ++a) {
       for (int e = 0; e < 2; ++e) {
@@ -179,12 +191,12 @@ __global__ void dgrad_gather_kernel(const float* __restrict__ vol,
                                     float* __restrict__ out, Geom g) {
   int b, z, y, x;
   if (!voxel(g, b, z, y, x)) return;
-  const long long V = (long long)g.D * g.H * g.W;
+  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)vol_depth(g) * g.H * g.W;
   const long long here = ((long long)z * g.H + y) * g.W + x;
   const float* db = disp + (long long)b * 3 * V + here;
   const Taps tx = taps(clipf(db[0], g.R), x, g.W);
   const Taps ty = taps(clipf(db[V], g.R), y, g.H);
-  const Taps tz = taps(clipf(db[2 * V], g.R), z, g.D);
+  const Taps tz = taps(clipf(db[2 * V], g.R), z + g.zh, vol_depth(g));
   const int zi[2] = {tz.i0, tz.i1}, yi[2] = {ty.i0, ty.i1};
   const float wz[2] = {tz.w0, tz.w1}, wy[2] = {ty.w0, ty.w1};
   const float dwz[2] = {tz.dw0, tz.dw1}, dwy[2] = {ty.dw0, ty.dw1};
@@ -195,10 +207,10 @@ __global__ void dgrad_gather_kernel(const float* __restrict__ vol,
       // sg_k = sum_c g_c vol_c[tap k]: channels first, as the Pallas kernel
       float sg0 = 0.0f, sg1 = 0.0f;
       for (int c = 0; c < g.C; ++c) {
-        const long long cb = ((long long)b * g.C + c) * V;
-        const float gc = gin[cb + here];
-        sg0 += gc * vol[cb + ro + tx.i0];
-        sg1 += gc * vol[cb + ro + tx.i1];
+        const float gc = gin[((long long)b * g.C + c) * V + here];
+        const float* vc = vol + ((long long)b * g.C + c) * Vv + ro;
+        sg0 += gc * vc[tx.i0];
+        sg1 += gc * vc[tx.i1];
       }
       const float a_sum = tx.dw0 * sg0 + tx.dw1 * sg1;
       const float b_sum = tx.w0 * sg0 + tx.w1 * sg1;
@@ -305,8 +317,8 @@ __global__ void __launch_bounds__(NT)
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int C = g.C, D = g.D, H = g.H, W = g.W;
   const Place pl = place(g, C, TY);
-  const long long P = (long long)H * W, V = D * P;
-  const float* vb = vol + (long long)pl.b * C * V;
+  const long long P = (long long)H * W, V = D * P, Vv = vol_depth(g) * P;
+  const float* vb = vol + (long long)pl.b * C * Vv;
   const float* db = disp + (long long)pl.b * 3 * V;
   const float* gb = gin + (long long)pl.b * C * V;
   int goff[LPT];  // clamped in-plane offset of haloed point tid + j*NT
@@ -315,14 +327,15 @@ __global__ void __launch_bounds__(NT)
     const int i = tid + j * NT;
     goff[j] = clampi(pl.y0 - R + i / HX, H) * W + clampi(pl.x0 - R + i % HX, W);
   }
-  // start copying staged plane `rel` (z = z0 - R + rel, clamped) into its slot
+  // start copying staged plane `rel` (z = z0 - R + rel, clamped unless
+  // z-halo) into its slot
   auto stage = [&](int rel) {
-    const float* src = vb + clampi(pl.z0 - R + rel, D) * P;
+    const float* src = vb + vol_plane(g, pl.z0 - R + rel) * P;
     float* dst = ring + (rel % RING) * C * HP;
     for (int c = 0; c < C; ++c)
 #pragma unroll
       for (int j = 0; j < LPT; ++j)
-        if (tid + j * NT < HP) cp_async4(dst + c * HP + tid + j * NT, src + c * V + goff[j]);
+        if (tid + j * NT < HP) cp_async4(dst + c * HP + tid + j * NT, src + c * Vv + goff[j]);
   };
   for (int rel = 0; rel <= 2 * R; ++rel) {
     stage(rel);
@@ -475,16 +488,17 @@ __global__ void __launch_bounds__(NT, kFwdMinBlocks)
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int C = g.C, D = g.D, H = g.H, W = g.W;
   const Place pl = place(g, C, TY);
-  // 32-bit offsets inside one batch element: the host keeps max(C, 3) V < 2^31
-  const int P = H * W, V = D * P;
-  const float* vb = vol + (long long)pl.b * C * V;
+  // 32-bit offsets inside one batch element: the host keeps C Vv, 3 V < 2^31
+  const int P = H * W, V = D * P, Vv = vol_depth(g) * P;
+  const float* vb = vol + (long long)pl.b * C * Vv;
   const FwdStage<R> copies(pl, H, W);
   // 16-byte rows where the tile's interior lies inside the volume
   const bool wide = g.vec && pl.x0 + TX <= W;
-  // start copying staged plane `rel` (z = z0 - R + rel, clamped) into its slot
+  // start copying staged plane `rel` (z = z0 - R + rel, clamped unless
+  // z-halo) into its slot
   auto stage = [&](int rel) {
-    copies(fwd_ring + (rel % RING) * C * HPP, vb + clampi(pl.z0 - R + rel, D) * P, V, C, W,
-           wide);
+    copies(fwd_ring + (rel % RING) * C * HPP, vb + vol_plane(g, pl.z0 - R + rel) * P, Vv, C,
+           W, wide);
   };
   for (int rel = 0; rel <= 2 * R; ++rel) {
     stage(rel);
@@ -798,8 +812,9 @@ size_t fwd_ring_bytes(int R, int C) {
 int fwd_launch(const float* vol, const float* disp, float* out, const Geom& g,
                cudaStream_t stream) {
   const int R = (int)g.R;
-  const long long V = (long long)g.D * g.H * g.W;
-  if (R <= 3 && fwd_ring_bytes(R, g.C) <= (size_t)kSmemMax && (g.C > 3 ? g.C : 3) * V < (1LL << 31)) {
+  const long long P = (long long)g.H * g.W, V = g.D * P, Vv = vol_depth(g) * P;
+  if (R <= 3 && fwd_ring_bytes(R, g.C) <= (size_t)kSmemMax && g.C * Vv < (1LL << 31) &&
+      3 * V < (1LL << 31)) {
     switch (R) {
       case 1: return fwd_tile<1>(vol, disp, out, g, stream);
       case 2: return fwd_tile<2>(vol, disp, out, g, stream);
@@ -811,20 +826,18 @@ int fwd_launch(const float* vol, const float* disp, float* out, const Geom& g,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int warp_bounded_fwd(const float* vol, const float* disp, float* out,
-                                int B, int C, int D, int H, int W, int R,
-                                void* stream) {
+int fwd_entry(const float* vol, const float* disp, float* out, int B, int C, int D, int H,
+              int W, int R, int zh, void* stream) {
   Geom g{B, C, D, H, W, (float)R};
   g.vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(vol) % 16 == 0;
+  g.zh = zh;
   return fwd_launch(vol, disp, out, g, (cudaStream_t)stream);
 }
 
-extern "C" int warp_bounded_dgrad(const float* vol, const float* disp,
-                                  const float* g_in, float* out, int B, int C,
-                                  int D, int H, int W, int R, void* stream) {
-  const Geom g{B, C, D, H, W, (float)R};
+int dgrad_entry(const float* vol, const float* disp, const float* g_in, float* out, int B,
+                int C, int D, int H, int W, int R, int zh, void* stream) {
+  Geom g{B, C, D, H, W, (float)R};
+  g.zh = zh;
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t smem = dgrad_ring_bytes(R, C);
   if (R <= 3 && smem <= (size_t)kSmemMax) {
@@ -837,6 +850,36 @@ extern "C" int warp_bounded_dgrad(const float* vol, const float* disp,
   const dim3 threads(32, 8);
   dgrad_gather_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, disp, g_in, out, g);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// D, H, W are the output's dims; vol is (B, C, D, H, W)
+extern "C" int warp_bounded_fwd(const float* vol, const float* disp, float* out,
+                                int B, int C, int D, int H, int W, int R,
+                                void* stream) {
+  return fwd_entry(vol, disp, out, B, C, D, H, W, R, 0, stream);
+}
+
+extern "C" int warp_bounded_dgrad(const float* vol, const float* disp,
+                                  const float* g_in, float* out, int B, int C,
+                                  int D, int H, int W, int R, void* stream) {
+  return dgrad_entry(vol, disp, g_in, out, B, C, D, H, W, R, 0, stream);
+}
+
+// z-halo modes: vol is (B, C, D + 2R, H, W), its R first and last planes the
+// real neighbour rows of a z-slab (ir_sgmcmc_tpu/parallel/halo.py); disp,
+// g and the output are (B, ., D, H, W)
+extern "C" int warp_bounded_fwd_zhalo(const float* vol, const float* disp, float* out,
+                                      int B, int C, int D, int H, int W, int R,
+                                      void* stream) {
+  return fwd_entry(vol, disp, out, B, C, D, H, W, R, R, stream);
+}
+
+extern "C" int warp_bounded_dgrad_zhalo(const float* vol, const float* disp,
+                                        const float* g_in, float* out, int B, int C,
+                                        int D, int H, int W, int R, void* stream) {
+  return dgrad_entry(vol, disp, g_in, out, B, C, D, H, W, R, R, stream);
 }
 
 extern "C" int warp_bounded_tblend(const float* disp, const float* g_in, float* out,

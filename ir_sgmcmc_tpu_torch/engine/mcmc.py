@@ -185,7 +185,8 @@ def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor):
 
 
 def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
-                         fixed: dict, moving: dict, param_mode: str = "per_chain"):
+                         fixed: dict, moving: dict, param_mode: str = "per_chain",
+                         per_row: bool = False):
     """Build ``transition(state, collect_weight, noise=None) -> (state,
     metrics)`` over all chains of ``state``.
 
@@ -197,6 +198,10 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     ``param_mode``: ``"per_chain"`` (every chain its own GMM/reg set and
     optimizer states, leading ``(C,)`` axis) or ``"shared"`` (the
     reference's semantics, :func:`make_sgld_transition_shared`).
+
+    ``per_row``: the images of ``fixed`` and ``moving`` are ``(C, D, H,
+    W)``, one per chain (the folded pairs of ``engine/pairs.py``), not one
+    ``(D, H, W)`` pair shared by the chains.
     """
     if param_mode not in ("per_chain", "shared"):
         raise ValueError(f"unknown MCMC_params: {param_mode!r}")
@@ -206,7 +211,7 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     def potential(v_noised, reg_p, gmm, opt_gmm_state, unif):
         # the forward chain does not read the GMM, so it runs as one batch
         # over the chains in either mode
-        out = forward_sample(bundle, fixed, moving, v_noised, unif)
+        out = forward_sample(bundle, fixed, moving, v_noised, unif, per_row=per_row)
         res = out["residuals"]
         if shared:
             # one GMM, C sequential detached Adam steps: chain c's data term
@@ -295,16 +300,16 @@ def make_sgld_transition_shared(bundle: ModelBundle, opt_gmm, opt_reg, tau: floa
 
 def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
                     fixed: dict, moving: dict, chunk: int, burn_in: int,
-                    thin: int, param_mode: str = "per_chain"):
+                    thin: int, param_mode: str = "per_chain", per_row: bool = False):
     """``run(state) -> (state, metrics)``: ``chunk`` SGLD transitions over all
     chains as a Python loop; metrics are stacked ``(chunk, C, …)``.
 
     Thinned displacement samples feed the per-chain Welford accumulators
-    once past ``burn_in`` (every ``thin`` steps).  ``param_mode``:
-    ``"per_chain"`` or ``"shared"`` (see :func:`make_sgld_transition`).
+    once past ``burn_in`` (every ``thin`` steps).  ``param_mode`` and
+    ``per_row``: see :func:`make_sgld_transition`.
     """
     transition = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
-                                      param_mode)
+                                      param_mode, per_row)
 
     def run(state: MCMCState):
         per_step = []

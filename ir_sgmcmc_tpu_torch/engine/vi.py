@@ -32,8 +32,8 @@ from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import sample_q_v, uniform_voxel_noise
 from ..ops.grids import det_jacobian, voxel_to_normalised
-from ..ops.resample import (block_residual_overflow, grid_sample, warp_block_gather,
-                            warp_bounded)
+from ..ops.resample import (block_residual_overflow, grid_sample, grid_sample_each,
+                            warp_block_gather, warp_bounded)
 from ..ops.stencil import gradient
 from ..optim.adam_decay import AdamDecayState, apply_updates
 from .bundle import ModelBundle
@@ -60,13 +60,16 @@ def count_folds(transformation: torch.Tensor) -> torch.Tensor:
 
 def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
                    v_unsmoothed: torch.Tensor, noise: torch.Tensor | None,
-                   anchor: dict | None = None) -> dict:
+                   anchor: dict | None = None, per_row: bool = False) -> dict:
     """Smooth -> integrate (+ warp) -> LCC residuals, over a leading batch.
 
     ``v_unsmoothed`` lives on ``bundle.field_dims`` (the control grid for
     SVFFD, whose integration spreads it to the dense grid); ``noise`` is the
     ``U(-alpha, alpha)`` voxel noise ``(C, 3, D, H, W)`` on the dense grid
-    (unused, and may be None, when ``uniform_noise_alpha`` is None).
+    (unused, and may be None, when ``uniform_noise_alpha`` is None).  The
+    images of ``fixed`` and ``moving`` are ``(D, H, W)``, shared by the
+    batch, or with ``per_row`` ``(C, D, H, W)``, one per row (the
+    pair-stacked chunks of ``engine/pairs.py``).
 
     * ``"post"`` with a noise magnitude: integrate without the image, then
       ONE warp of the moving image at ``T + noise``.  At dims >= 64 that
@@ -94,15 +97,22 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
     alpha = bundle.uniform_noise_alpha
     gather = not hasattr(tr, "integrate") or getattr(tr, "use_gather", False)
     post_noise = alpha is not None and bundle.noise_scheme == "post"
+    im = moving["im"]
+    if per_row and im.ndim != 4:
+        raise ValueError(f"per-row images are (C, D, H, W), got {tuple(im.shape)}")
     v = bundle.smooth(v_unsmoothed)
     zero = torch.zeros(v.shape[:-4], dtype=torch.int64, device=v.device)
     anchor_sat = zero
+
+    def sample(t):
+        return grid_sample_each(im[:, None], t)[:, 0] if per_row else grid_sample(im, t)
+
     if gather:
         transformation, displacement = tr(v)
         t = transformation
         if alpha is not None:
             t = t + voxel_to_normalised(noise)
-        warped = grid_sample(moving["im"], t)
+        warped = sample(t)
         clamp_bound = math.inf  # no warp of this path clamps
     elif post_noise:
         transformation, displacement, _ = tr.integrate(v)
@@ -113,15 +123,20 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
             radius = int(bundle.block_radius)
             bound = int(-(-float(tr.max_disp + alpha) // 1))
             n = d_total.shape[0]
-            vol = moving["im"].expand((n, 1) + tuple(bundle.dims)).contiguous()
+            vol = (im[:, None] if per_row else im.expand((n, 1) + tuple(bundle.dims)))
+            vol = vol.contiguous()
             warped = warp_block_gather(vol, d_total, bound, radius, block)[:, 0]
             anchor_sat = block_residual_overflow(d_total.detach(), bound, radius, block)
         else:
-            t = transformation + voxel_to_normalised(noise)
-            warped = grid_sample(moving["im"], t)
+            warped = sample(transformation + voxel_to_normalised(noise))
         clamp_bound = float(tr.displacement_clamp_bound)
     else:
-        transformation, displacement, warped = tr.integrate(v, im=moving["im"])
+        if per_row:  # each row's image rides the cascade as its one channel
+            transformation, displacement, warped = tr.integrate(v, im=im[:, None],
+                                                                per_row=True)
+            warped = warped[:, 0]
+        else:
+            transformation, displacement, warped = tr.integrate(v, im=im)
         if alpha is not None:
             # the radius covers the magnitude: alpha > 1 is not cut to ±1
             radius = max(1, math.ceil(float(alpha)))
@@ -195,8 +210,20 @@ def _draws(bundle: ModelBundle, q_v: dict, gen: torch.Generator, batch: int):
     return eps, x, unif
 
 
+def _step_draws(bundle: ModelBundle, state: VIState, pairs: bool):
+    """A step's ``(eps, x, unif)`` from the state's key words and step; for
+    a pair-stacked state each pair's own draws, stacked."""
+    dev = state.q_v["mu"].device
+    if not pairs:
+        return _draws(bundle, state.q_v, key_generator(state.key, state.step, dev), 2)
+    per_pair = [_draws(bundle, {k: t[i] for k, t in state.q_v.items()},
+                       key_generator(state.key[i], int(state.step[i]), dev), 2)
+                for i in range(state.key.shape[0])]
+    return tuple(None if parts[0] is None else torch.stack(parts) for parts in zip(*per_pair))
+
+
 def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
-                 moving: dict, remat: bool = False):
+                 moving: dict, remat: bool = False, pairs: bool = False):
     """Build ``step(state, noise=None) -> (state, metrics)``, one VI iteration.
 
     The antithetic pair ``mu ± delta`` runs as ONE batch of 2 through
@@ -215,35 +242,69 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
     (smoothing, integration, warp, LCC, regulariser) at a time instead of
     holding both chains' activations.  Same draws, same GMM update order,
     same gradients; only the activation schedule changes.
+
+    ``pairs=True``, pair-stacked (images ``(P, D, H, W)`` in ``fixed`` and
+    ``moving``, a leading ``(P,)`` axis on every leaf of the state, ``step``
+    and the key words included; ``engine/pairs.py``): the P pairs' antithetic samples
+    run as ONE batch of 2P (sample ``s`` of pair ``i`` at row ``s·P + i``),
+    each pair with its own q(v), GMM, reg and Adam states, and its two GMM
+    steps batched over the pairs; losses and metrics are per pair.  Pair
+    ``i`` draws from its own key and step, so it takes the draws of its
+    single-pair run; ``noise`` is then each pair's ``(eps, x, unif)``
+    stacked on a leading ``(P,)`` axis.  Remat runs the 2P rows in turn.
     """
     reg_loss = bundle.reg_loss
     learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
     mask = fixed["mask"]
     q_keys = ("mu", "log_var", "u")
 
-    def chain_forward(v, unif, reg_p):
-        """Per-chain residuals, reg terms and counters of ``v (n, 3, …)``."""
-        out = forward_sample(bundle, fixed, moving, v, unif)
+    def rows(t):
+        """A per-pair tensor on the forward chain's 2P rows (single pair:
+        as it is, broadcast over the two samples)."""
+        return torch.cat([t, t]) if pairs else t
+
+    fixed_rows, moving_rows = fixed, moving
+    if pairs:
+        fixed_rows = {**fixed, "im": rows(fixed["im"])}
+        moving_rows = {**moving, "im": rows(moving["im"])}
+
+    def chain_forward(v, unif, reg_p, sl=slice(None)):
+        """Per-chain residuals, reg terms and counters of ``v (n, 3, …)``,
+        rows ``sl`` of the forward chain."""
+        fixed_sl, moving_sl = fixed_rows, moving_rows
+        if pairs:
+            fixed_sl = {**fixed_rows, "im": fixed_rows["im"][sl]}
+            moving_sl = {**moving_rows, "im": moving_rows["im"][sl]}
+        out = forward_sample(bundle, fixed_sl, moving_sl, v, unif, per_row=pairs)
         reg, log_y = reg_loss(reg_p, out["v"])
         return out["residuals"], reg, log_y, out["ndv"], out["sat"], out["sat_resid"]
 
     def forward(v, unif, reg_p):
+        reg_rows = {k: rows(t) for k, t in reg_p.items()}
         if not remat:
-            return chain_forward(v, unif, reg_p)
-        keys = list(reg_p)
+            return chain_forward(v, unif, reg_rows)
+        keys = list(reg_rows)
 
-        def one(v_i, unif_i, *reg_vals):
-            return chain_forward(v_i, unif_i, dict(zip(keys, reg_vals)))
+        def one(sl, v_i, unif_i, *reg_vals):
+            return chain_forward(v_i, unif_i, dict(zip(keys, reg_vals)), sl)
 
-        outs = [checkpoint(one, v[i:i + 1], None if unif is None else unif[i:i + 1],
-                           *reg_p.values(), use_reentrant=False)
+        outs = [checkpoint(one, slice(i, i + 1), v[i:i + 1],
+                           None if unif is None else unif[i:i + 1],
+                           *(t[i:i + 1] if pairs else t for t in reg_rows.values()),
+                           use_reentrant=False)
                 for i in range(v.shape[0])]
         return tuple(torch.cat(parts) for parts in zip(*outs))
 
     def loss_fn(q_v, reg_p, gmm, opt_gmm_state, eps, x, unif):
+        lead = tuple(q_v["mu"].shape[:-4])  # (P,) pair-stacked, else ()
+        if pairs:
+            x = x.reshape(lead + (1,) * 4)
         s1, s2 = sample_q_v(None, q_v, antithetic=True, eps=eps, x=x)
         v = torch.stack([s1, s2])
-        residuals, regs, log_ys, ndv, sat, sat_resid = forward(v, unif, reg_p)
+        outs = forward(v.reshape((-1,) + tuple(v.shape[-4:])), unif, reg_p)
+        # per sample, then per pair: (2, *lead, …)
+        residuals, regs, log_ys, ndv, sat, sat_resid = (
+            t.reshape((2,) + lead + tuple(t.shape[1:])) for t in outs)
         ents = entropy_sample(v, q_v["mu"], q_v["log_var"], q_v["u"])
 
         datas, alphas = [], []
@@ -258,11 +319,11 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
         data_term = 0.5 * (datas[0] + datas[1]) - bundle.gmm_prior_terms(gmm)
         reg_term = 0.5 * (regs[0] + regs[1])
         if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
-            reg_term = reg_term - 0.5 * (torch.sum(bundle.reg_loc_prior(log_ys[0]))
-                                         + torch.sum(bundle.reg_loc_prior(log_ys[1])))
-            reg_term = reg_term - torch.sum(bundle.reg_scale_prior(reg_p["log_scale"]))
+            reg_term = reg_term - 0.5 * (bundle.reg_loc_prior(log_ys[0])
+                                         + bundle.reg_loc_prior(log_ys[1]))
+            reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
         elif learnable_reg and isinstance(reg_loss, RegLossL2):
-            reg_term = reg_term - torch.sum(bundle.reg_w_reg_prior(reg_p["log_w_reg"]))
+            reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
         entropy_term = 0.5 * (ents[0] + ents[1]) + entropy_analytic(q_v["log_var"], q_v["u"])
         loss = data_term + reg_term - entropy_term
         metrics = {
@@ -275,9 +336,10 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
 
     def step(state: VIState, noise=None):
         if noise is None:
-            gen = key_generator(state.key, state.step, state.q_v["mu"].device)
-            noise = _draws(bundle, state.q_v, gen, 2)
+            noise = _step_draws(bundle, state, pairs)
         eps, x, unif = noise
+        if pairs and unif is not None:  # (P, 2, …) -> the rows s·P + i
+            unif = unif.transpose(0, 1).reshape((-1,) + tuple(unif.shape[2:]))
         with torch.enable_grad():
             q_v = {k: state.q_v[k].detach().requires_grad_(True) for k in q_keys}
             reg_keys = list(state.reg)
@@ -288,7 +350,7 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
             wrt = [q_v[k] for k in q_keys]
             if learnable_reg:
                 wrt += [reg_p[k] for k in reg_keys]
-            grads = torch.autograd.grad(loss, wrt)
+            grads = torch.autograd.grad(loss.sum(), wrt)
 
         upd, opt_q_v_state = opt_q_v.update(dict(zip(q_keys, grads[:3])), state.opt_q_v)
         q_v_new = apply_updates({k: state.q_v[k].detach() for k in q_keys}, upd)
@@ -301,9 +363,10 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
         metrics = {k: t.detach() for k, t in metrics.items()}
         # largest voxel-wise L2-norm change per variational parameter
         for name in q_keys:
-            old_n = torch.linalg.vector_norm(state.q_v[name], dim=0)
-            new_n = torch.linalg.vector_norm(q_v_new[name], dim=0)
-            metrics[f"max_update_{name}"] = torch.max(torch.abs(new_n - old_n))
+            old_n = torch.linalg.vector_norm(state.q_v[name], dim=-4)
+            new_n = torch.linalg.vector_norm(q_v_new[name], dim=-4)
+            metrics[f"max_update_{name}"] = torch.amax(torch.abs(new_n - old_n),
+                                                       dim=(-3, -2, -1))
         metrics["gmm_scales"] = GMM.scales(gmm)
         metrics["gmm_proportions"] = GMM.proportions(gmm)
         new_state = VIState(q_v=q_v_new, gmm=gmm, reg=reg_new, opt_q_v=opt_q_v_state,

@@ -6,9 +6,10 @@ the dispatch between them (CPU tensor -> plain, CUDA tensor -> kernel).
 
 
 def all_kernels():
-    """Every ported kernel, in port order (B1-B7)."""
+    """Every ported kernel, in port order (B1-B7), then the z-halo modes of
+    B5 and B6."""
     from .block_warp import B3, B4
     from .split_warp import B1, B2
-    from .warp_bounded import B5, B6, B7
+    from .warp_bounded import B5, B5Z, B6, B6Z, B7
 
-    return [B1, B2, B3, B4, B5, B6, B7]
+    return [B1, B2, B3, B4, B5, B6, B7, B5Z, B6Z]

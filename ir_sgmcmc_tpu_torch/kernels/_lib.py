@@ -38,6 +38,8 @@ _SIGNATURES = {
     "warp_bounded_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_tblend": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "warp_bounded_fwd_zhalo": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "warp_bounded_dgrad_zhalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -161,36 +163,44 @@ class Kernel:
     the main operand ``(B, C, D, H, W)``, the bytes the function must move
     (each input read once, each output written once) and the f32
     operations it must do (counted from its formula: the non-zero taps
-    only, clamps and selects not counted).
+    only, clamps and selects not counted).  A ``z_halo`` kernel reads a
+    volume ``2 * radius`` planes deeper than its output, ``shape`` being the
+    output's: :meth:`bytes` adds those planes' words.
     """
 
     def __init__(self, symbol: str, source: str, replaces: str, bytes_per_voxel,
-                 flops_per_voxel):
+                 flops_per_voxel, z_halo: bool = False):
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
         self.bytes_per_voxel = bytes_per_voxel
         self.flops_per_voxel = flops_per_voxel
+        self.z_halo = z_halo
         self.launches = 0
 
     def _voxels(self, shape) -> tuple[int, int]:
         B, C, D, H, W = shape
         return B * D * H * W, C
 
-    def bytes(self, shape) -> int:
-        """Bytes the function must move at main-operand shape ``shape``."""
+    def bytes(self, shape, radius: int = 0) -> int:
+        """Bytes the function must move at main-operand shape ``shape`` (and,
+        for a z-halo kernel, radius ``radius``)."""
         n, C = self._voxels(shape)
-        return round(n * self.bytes_per_voxel(C))
+        halo = 0
+        if self.z_halo:
+            B, C, D, H, W = shape
+            halo = 4 * B * C * 2 * int(radius) * H * W
+        return round(n * self.bytes_per_voxel(C)) + halo
 
     def flops(self, shape) -> int:
         n, C = self._voxels(shape)
         return round(n * self.flops_per_voxel(C))
 
-    def bound_ms(self, shape) -> tuple[float, str]:
+    def bound_ms(self, shape, radius: int = 0) -> tuple[float, str]:
         """The least time an H100 SXM could take, and what bounds it:
         ``("bytes" | "operations")``, the larger of bytes over HBM bandwidth
         and operations over the f32 rate."""
-        by_bytes = 1e3 * self.bytes(shape) / HBM_BYTES_PER_S
+        by_bytes = 1e3 * self.bytes(shape, radius) / HBM_BYTES_PER_S
         by_ops = 1e3 * self.flops(shape) / F32_FLOP_PER_S
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 

@@ -19,6 +19,15 @@ The plain versions are the JAX package's XLA forms
 ``_fold_edge``), written with a leading batch axis.  A CPU tensor takes the
 plain version; a CUDA tensor takes the kernel, and a launch or build
 failure raises.
+
+B5 and B6 have a z-halo mode (``z_halo=True``, the Pallas kernels' own
+flag), for a z-slab of a volume split along z: ``vol`` is ``(B, C, D + 2R,
+H, W)`` and its R first and last planes are the slab's real neighbour rows,
+so a tap at output plane ``z`` and offset ``o`` reads vol plane ``z + R +
+o`` with no clamp in z; y and x keep the edge padding.  ``disp``, ``g`` and
+the output are ``(B, ., D, H, W)``.  Its callers in the JAX package are the
+spatially sharded steps (``ir_sgmcmc_tpu/parallel/halo.py``); the kernels
+are separate C entries with their own launch counters.
 """
 
 from __future__ import annotations
@@ -39,6 +48,13 @@ B5 = Kernel("warp_bounded_fwd", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
 B6 = Kernel("warp_bounded_dgrad", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
             "ir_sgmcmc_tpu/ops/pallas_warp.py:211",
             bytes_per_voxel=lambda C: 4 * (2 * C + 6), flops_per_voxel=lambda C: 64 + 16 * C)
+# z-halo modes: the same work per output voxel, and 2R more vol planes read
+B5Z = Kernel("warp_bounded_fwd_zhalo", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
+             "ir_sgmcmc_tpu/ops/pallas_warp.py:458", bytes_per_voxel=B5.bytes_per_voxel,
+             flops_per_voxel=B5.flops_per_voxel, z_halo=True)
+B6Z = Kernel("warp_bounded_dgrad_zhalo", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
+             "ir_sgmcmc_tpu/ops/pallas_warp.py:211", bytes_per_voxel=B6.bytes_per_voxel,
+             flops_per_voxel=B6.flops_per_voxel, z_halo=True)
 B7 = Kernel("warp_bounded_tblend", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
             "ir_sgmcmc_tpu/ops/pallas_warp.py:372",
             bytes_per_voxel=lambda C: 4 * (2 * C + 3), flops_per_voxel=lambda C: 18 + 16 * C)
@@ -78,11 +94,18 @@ def fold_edge(gp: torch.Tensor, P: int, axes=(-3, -2, -1)) -> torch.Tensor:
     return gp
 
 
-def warp_bounded_plain(vol: torch.Tensor, disp: torch.Tensor, R: int) -> torch.Tensor:
+def _padded(vol: torch.Tensor, R: int, z_halo: bool) -> torch.Tensor:
+    """``vol`` edge-padded by ``R`` in (y, x), and in z unless it carries
+    its z-halo already."""
+    return F.pad(vol, (R,) * 4 + ((0, 0) if z_halo else (R, R)), mode="replicate")
+
+
+def warp_bounded_plain(vol: torch.Tensor, disp: torch.Tensor, R: int,
+                       z_halo: bool = False) -> torch.Tensor:
     """B5's function: the ``(2R+1)³`` blend of edge-padded shifted copies."""
-    shape = tuple(vol.shape[-3:])
+    shape = tuple(disp.shape[-3:])
     dx, dy, dz = _clipped_axes(disp, R)
-    padded = F.pad(vol, (R,) * 6, mode="replicate")
+    padded = _padded(vol, R, z_halo)
     offsets = range(-R, R + 1)
     wx = [_tri(dx - o) for o in offsets]
     wy = [_tri(dy - o) for o in offsets]
@@ -98,12 +121,12 @@ def warp_bounded_plain(vol: torch.Tensor, disp: torch.Tensor, R: int) -> torch.T
 
 
 def warp_bounded_dgrad_plain(vol: torch.Tensor, disp: torch.Tensor, g: torch.Tensor,
-                             R: int) -> torch.Tensor:
+                             R: int, z_halo: bool = False) -> torch.Tensor:
     """B6's function: ``∂(Σ_c g_c·out_c)/∂disp`` before the ``|disp| > R``
     mask, ``(B, 3, D, H, W)``."""
-    shape = tuple(vol.shape[-3:])
+    shape = tuple(disp.shape[-3:])
     dx, dy, dz = _clipped_axes(disp, R)
-    padded = F.pad(vol, (R,) * 6, mode="replicate")
+    padded = _padded(vol, R, z_halo)
     offsets = range(-R, R + 1)
     wx, wy, wz = ([_tri(d - o) for o in offsets] for d in (dx, dy, dz))
     dwx, dwy, dwz = ([_dtri(d - o) for o in offsets] for d in (dx, dy, dz))
@@ -143,32 +166,41 @@ def warp_bounded_tblend_plain(disp: torch.Tensor, g: torch.Tensor, R: int) -> to
 
 # ---- CUDA wrappers -------------------------------------------------------------
 
-def _check(vol_or_g: torch.Tensor, disp: torch.Tensor, R: int, name: str):
+def _check(vol_or_g: torch.Tensor, disp: torch.Tensor, R: int, name: str,
+           z_halo: bool = False):
+    """``(B, C, D, H, W)`` of the output; in z-halo mode ``vol_or_g`` is
+    ``2R`` planes deeper than ``disp``."""
     if vol_or_g.ndim != 5:
         raise ValueError(f"{name}: expected (B, C, D, H, W), got {tuple(vol_or_g.shape)}")
     if int(R) != R or R < 1:
         raise ValueError(f"radius must be a positive integer, got {R!r}")
-    B, C, D, H, W = vol_or_g.shape
-    check_operand(name, vol_or_g, (B, C, D, H, W))
+    B, C, Dv, H, W = vol_or_g.shape
+    D = Dv - 2 * int(R) if z_halo else Dv
+    if D < 1:
+        raise ValueError(f"{name}: depth {Dv} leaves no plane inside a z-halo of {R}")
+    check_operand(name, vol_or_g, (B, C, Dv, H, W))
     check_operand("disp", disp, (B, 3, D, H, W), device=vol_or_g.device)
     return B, C, D, H, W
 
 
-def warp_bounded_fwd_cuda(vol: torch.Tensor, disp: torch.Tensor, R: int) -> torch.Tensor:
+def warp_bounded_fwd_cuda(vol: torch.Tensor, disp: torch.Tensor, R: int,
+                          z_halo: bool = False) -> torch.Tensor:
     """B5 on the card."""
-    B, C, D, H, W = _check(vol, disp, R, "vol")
-    out = torch.empty_like(vol)
-    B5.launch(vol.device, ptr(vol), ptr(disp), ptr(out), B, C, D, H, W, int(R))
+    B, C, D, H, W = _check(vol, disp, R, "vol", z_halo)
+    out = vol.new_empty((B, C, D, H, W))
+    (B5Z if z_halo else B5).launch(vol.device, ptr(vol), ptr(disp), ptr(out),
+                                   B, C, D, H, W, int(R))
     return out
 
 
 def warp_bounded_dgrad_cuda(vol: torch.Tensor, disp: torch.Tensor, g: torch.Tensor,
-                            R: int) -> torch.Tensor:
+                            R: int, z_halo: bool = False) -> torch.Tensor:
     """B6 on the card (unmasked)."""
-    B, C, D, H, W = _check(vol, disp, R, "vol")
+    B, C, D, H, W = _check(vol, disp, R, "vol", z_halo)
     check_operand("g", g, (B, C, D, H, W), device=vol.device)
     out = torch.empty_like(disp)
-    B6.launch(vol.device, ptr(vol), ptr(disp), ptr(g), ptr(out), B, C, D, H, W, int(R))
+    (B6Z if z_halo else B6).launch(vol.device, ptr(vol), ptr(disp), ptr(g), ptr(out),
+                                   B, C, D, H, W, int(R))
     return out
 
 
@@ -182,16 +214,16 @@ def warp_bounded_tblend_cuda(disp: torch.Tensor, g: torch.Tensor, R: int) -> tor
 
 # ---- dispatch ------------------------------------------------------------------
 
-def warp_bounded_fwd(vol, disp, R: int) -> torch.Tensor:
+def warp_bounded_fwd(vol, disp, R: int, z_halo: bool = False) -> torch.Tensor:
     if vol.is_cuda:
-        return warp_bounded_fwd_cuda(vol, disp, R)
-    return warp_bounded_plain(vol, disp, R)
+        return warp_bounded_fwd_cuda(vol, disp, R, z_halo)
+    return warp_bounded_plain(vol, disp, R, z_halo)
 
 
-def warp_bounded_dgrad(vol, disp, g, R: int) -> torch.Tensor:
+def warp_bounded_dgrad(vol, disp, g, R: int, z_halo: bool = False) -> torch.Tensor:
     if vol.is_cuda:
-        return warp_bounded_dgrad_cuda(vol, disp, g, R)
-    return warp_bounded_dgrad_plain(vol, disp, g, R)
+        return warp_bounded_dgrad_cuda(vol, disp, g, R, z_halo)
+    return warp_bounded_dgrad_plain(vol, disp, g, R, z_halo)
 
 
 def warp_bounded_tblend(disp, g, R: int) -> torch.Tensor:

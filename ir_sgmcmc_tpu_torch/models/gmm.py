@@ -100,7 +100,7 @@ class GMM:
         """Virtual-decimation factor from lag-1 residual autocorrelation."""
         res_masked = torch.where(mask, residual, torch.zeros_like(residual))
         vox = (-3, -2, -1)
-        n = torch.sum(mask)
+        n = torch.sum(mask, dim=vox)  # masked voxels (per row for a per-row mask)
         var = torch.sum(res_masked ** 2, dim=vox) / n
 
         def lag1(axis):

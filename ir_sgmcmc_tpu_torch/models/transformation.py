@@ -90,13 +90,15 @@ class SVF3D:
         transformation, disp, _ = self.integrate(v)
         return transformation, disp
 
-    def integrate(self, v: torch.Tensor, im: torch.Tensor | None = None):
+    def integrate(self, v: torch.Tensor, im: torch.Tensor | None = None,
+                  per_row: bool = False):
         """Integrate ``v (B, 3, D, H, W)``; optionally warp ``im`` by the
         transformation.
 
         Returns ``(transformation, displacement, im_warped)``.  ``im`` is
-        ``(D, H, W)`` or ``(C, D, H, W)``, shared by the batch; the warped
-        image is ``(B, D, H, W)`` or ``(B, C, D, H, W)``.  In the ``"split"``
+        ``(D, H, W)`` or ``(C, D, H, W)``, shared by the batch, or with
+        ``per_row`` ``(B, C, D, H, W)``, one per row; the warped image is
+        ``(B, D, H, W)`` or ``(B, C, D, H, W)``.  In the ``"split"``
         form the image takes one radius-1 warp by ``ψ = φ^m`` every
         ``m = N // K`` split steps (``K = no_image_compositions``); in the
         ``"warp"`` form it rides the compositions as the last channel(s) of
@@ -104,9 +106,16 @@ class SVF3D:
         warped once by ``grid_sample`` at the transformation, and without an
         image ``im_warped`` is None.
         """
+        if per_row and im is not None and im.ndim != 5:
+            raise ValueError(f"per-row images are (B, C, D, H, W), got {tuple(im.shape)}")
         if self.use_gather:
             transformation, disp = self._call_gather(v)
-            warped = None if im is None else grid_sample(im, transformation)
+            if im is None:
+                warped = None
+            elif per_row:
+                warped = grid_sample_each(im, transformation)
+            else:
+                warped = grid_sample(im, transformation)
             return transformation, disp, warped
         disp = v / float(2 ** self.no_steps)
         for _ in range(self.no_taylor):
@@ -128,8 +137,11 @@ class SVF3D:
             for _ in range(N - 1):
                 disp = dstep(disp)
         else:
-            vol = im if im.ndim == 4 else im[None]
-            vol = vol.expand((v.shape[0],) + tuple(vol.shape))
+            if per_row:
+                vol = im
+            else:
+                vol = im if im.ndim == 4 else im[None]
+                vol = vol.expand((v.shape[0],) + tuple(vol.shape))
             if self.composition_form == "split":
                 K = self.no_image_compositions
                 m = N // K
@@ -151,7 +163,7 @@ class SVF3D:
                     for _ in range(N - 1):
                         state = warp_bounded(state, u_phi, 1) + u_phi_g
                     disp, g = state[:, :3], state[:, 3:]
-            if im.ndim == 3:
+            if not per_row and im.ndim == 3:
                 g = g[:, 0]
         transformation = identity_grid(self.dims, device=v.device) + voxel_to_normalised(disp)
         return transformation, disp, g
@@ -253,8 +265,9 @@ class SVFFD3D:
     def __call__(self, cp: torch.Tensor):
         return self.svf(self.ffd.dense_velocity(cp))
 
-    def integrate(self, cp: torch.Tensor, im: torch.Tensor | None = None):
-        return self.svf.integrate(self.ffd.dense_velocity(cp), im)
+    def integrate(self, cp: torch.Tensor, im: torch.Tensor | None = None,
+                  per_row: bool = False):
+        return self.svf.integrate(self.ffd.dense_velocity(cp), im, per_row)
 
 
 def make_transformation(kind: str, dims, cps=None, no_steps: int = 12, max_disp: int = 8,

@@ -1,5 +1,5 @@
 """Two-phase VI -> SG-MCMC registration trainer (port of
-``ir_sgmcmc_tpu/trainer.py``, its sequential path).
+``ir_sgmcmc_tpu/trainer.py``).
 
 The engines run the hot loops; the host only:
 
@@ -37,13 +37,14 @@ Every transformation model of the JAX package runs: the dense SVF, SVFFD
 Welford accumulators and artifacts stay on the dense grid), the B-spline
 FFD and ``use_gather``.  ``MCMC_params: "shared"`` runs the reference's
 shared GMM/reg set; ``vi_remat`` (``"auto"``: on from a dense field of
-100 MB, about 204³) runs VI's antithetic chains in turn with recompute.
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-``pair_parallel`` over more than one pair (A13) and ``mcmc_anchor: true``
-(not ported by rule).  ``distribute``,
-``spatial_shards`` and ``vi_spatial_shards`` are accepted and, on one
-card, change nothing, as in the JAX trainer on one device.  There is no
-kernel fallback: a kernel that fails to build or launch raises.
+100 MB, about 204³, of one pair) runs VI's antithetic chains in turn with
+recompute.  ``pair_parallel: true`` over several pairs registers them as
+one batch (``engine/pairs.py``; :meth:`Trainer._run_pairs_parallel`).  Not
+ported: ``mcmc_anchor: true`` raises ``NotImplementedError`` (ROADMAP
+rule).  ``distribute``, ``spatial_shards`` and ``vi_spatial_shards`` are
+accepted and, on one card, change nothing, as in the JAX trainer on one
+device.  There is no kernel fallback: a kernel that fails to build or
+launch raises.
 
 ``Trainer.timings`` accumulates wall seconds per span of host work (the
 engines' chunks, evaluation, period processing, artifact writes, the
@@ -53,6 +54,7 @@ phase's time goes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
@@ -66,6 +68,8 @@ from .config import Config
 from .engine import (VIState, gmm_warmup, init_chains, make_mcmc_chunk, make_vi_chunk,
                      make_vi_step, posterior_statistics)
 from .engine.mcmc import welford_finalize, welford_init, welford_update
+from .engine.pairs import (make_pair_mcmc_chunk, make_pair_vi_chunk, stack_trees, take_pairs,
+                           unstack_tree)
 from .engine.vi import key_generator
 from .models.sampler import sample_q_v
 from .ops.grids import count_non_diffeomorphic, det_jacobian
@@ -93,6 +97,15 @@ def _numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _tensors(tree):
+    """The tensor leaves of dicts and named tuples."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
 
 
 def _host(tree: dict) -> dict:
@@ -174,6 +187,7 @@ class Trainer:
         self._refuse_unported()
         self.timings: dict = {}
         self._timings_lock = threading.Lock()  # the writer thread adds to it too
+        self.pair_groups: list = []  # pairs per batch, per pair-stacked phase on the card
 
         keys = ["data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha",
                 "reg_energy", "ndv", "sat"]
@@ -181,10 +195,6 @@ class Trainer:
         self.writer.add_text("config", json.dumps(config.cfg, indent=2, default=str))
 
     def _refuse_unported(self) -> None:
-        if bool(self.t_cfg.get("pair_parallel", False)) and len(self.dataset) > 1:
-            raise NotImplementedError(
-                "pair_parallel over more than one pair (the pair-stacked "
-                "chunks) is not ported (ROADMAP A13)")
         if self.run_mcmc and bool(self.t_cfg.get("mcmc_anchor", False)):
             raise NotImplementedError(
                 "mcmc_anchor=true (anchored residual warping) is not ported "
@@ -211,6 +221,15 @@ class Trainer:
     # ------------------------------------------------------------------ run
     def run(self):
         """Register every pair in the dataset; returns per-pair summaries."""
+        if bool(self.t_cfg.get("pair_parallel", False)) and len(self.dataset) > 1:
+            if self.mcmc_param_mode == "per_chain":
+                summaries = self._run_pairs_parallel()
+                self.writer.close()
+                return summaries
+            self.logger.warning(
+                "pair_parallel requested but MCMC_params='shared' (sequential GMM "
+                "updates) is not supported in the pair-stacked chunks — registering "
+                "pairs sequentially")
         summaries = [self._run_pair(i) for i in range(len(self.dataset))]
         self.writer.close()
         return summaries
@@ -248,6 +267,300 @@ class Trainer:
             key=torch.tensor([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], dtype=torch.int64),
             step=0,
         )
+
+    # ------------------------------------------------------ pair-parallel
+    def _run_pairs_parallel(self) -> list:
+        """Register ALL dataset pairs pair-stacked (``engine/pairs.py``).
+
+        Each pair keeps its own parameters, chains and accumulators, so the
+        VI and MCMC phases run pair-stacked: one kernel launch serves every
+        pair of a batch, and the batch holds as many pairs as the card's
+        free memory does (:meth:`_pair_group`; on the CPU all of them).  Host-side evaluation, artifact saving and the VI test stay
+        per pair, on unstacked state after each phase.  As in the JAX
+        trainer, by design: guards fire on the worst pair and abort the
+        whole batch (the same data aborts its sequential run too); the
+        per-sample MCMC dumps are replaced by phase-end artifacts; and
+        checkpoints hold the pair-stacked state (in the JAX layout), record
+        the pair count and resume only into a run of as many pairs.
+        """
+        n_pairs = len(self.dataset)
+        self.logger.info("pair-parallel: %d pairs on %s", n_pairs, self.device)
+        if self.dataset.im_spacing is not None:
+            sp = np.ravel(np.asarray(self.dataset.im_spacing, np.float32))
+            self.spacing = tuple(np.resize(sp, 3).tolist())
+
+        pair_dirs = [self._save_dirs_for(i) for i in range(n_pairs)]
+        fixeds, movings, states = [], [], []
+        for i in range(n_pairs):
+            fixed_np, moving_np, q_v0 = self.dataset[i]
+            fixed, moving = self._to_device(fixed_np), self._to_device(moving_np)
+            if fixeds and any(fixed[k].shape != fixeds[0][k].shape for k in fixed):
+                raise ValueError(
+                    f"pair {i} has a different volume shape than pair 0 — "
+                    f"pair_parallel stacks pairs and needs equal dims "
+                    f"(the loader's pad-to-cube dims setting)")
+            savers.save_fixed_im(pair_dirs[i], self.spacing, fixed_np["im"])
+            savers.save_moving_im(pair_dirs[i], self.spacing, moving_np["im"])
+            savers.save_fixed_mask(pair_dirs[i], self.spacing, fixed_np["mask"])
+            savers.save_moving_mask(pair_dirs[i], self.spacing, moving_np["mask"])
+            states.append(gmm_warmup(self.bundle, self.opt_gmm,
+                                     self._initial_state(q_v0, i), fixed, moving))
+            fixeds.append(fixed)
+            movings.append(moving)
+
+        summaries = [{"pair": i} for i in range(n_pairs)]
+        labels = list(self.structures.values())
+        for i in range(n_pairs):
+            dsc0 = dice(fixeds[i]["seg"], movings[i]["seg"], labels)
+            summaries[i]["dsc_before"] = float(dsc0.mean())
+            self.logger.info("pair %d: pre-registration mean Dice %.4f",
+                             i, summaries[i]["dsc_before"])
+
+        # a pair-stacked checkpoint records its pair count; anything else (a
+        # count mismatch, a sequential per-pair checkpoint) is refused
+        vi_resume = mcmc_resume = None
+        if self.resume_path:
+            meta = peek_meta(self.resume_path)
+            ck_pairs = int(meta.get("pair_parallel", 0) or 0)
+            if ck_pairs != n_pairs:
+                raise ValueError(
+                    f"{self.resume_path}: checkpoint holds "
+                    f"{ck_pairs if ck_pairs else 'non-pair-stacked'} pair(s) but this "
+                    f"run registers {n_pairs} — resume needs the same dataset and "
+                    f"pair_parallel setting")
+            phase = meta.get("phase")
+            if phase == "VI":
+                vi_resume = self.resume_path
+            elif phase == "MCMC":
+                mcmc_resume = self.resume_path
+            else:
+                raise ValueError(f"{self.resume_path}: checkpoint metadata names neither "
+                                 f"the VI nor the MCMC phase (meta={meta})")
+
+        fixed_st, moving_st = stack_trees(fixeds), stack_trees(movings)
+        if self.run_vi and self.no_iters_vi > 0 and mcmc_resume is None:
+            state_st, vi_time = self._run_pair_vi_phase(fixed_st, moving_st,
+                                                        stack_trees(states), vi_resume)
+            states = [unstack_tree(state_st, i) for i in range(n_pairs)]
+            for i in range(n_pairs):
+                summaries[i]["vi_time_s"] = vi_time
+                with self._pair_view(i, pair_dirs[i]):
+                    summaries[i].update(self._test_vi(fixeds[i], movings[i], states[i]))
+        if self.run_mcmc:
+            results = self._run_pair_mcmc_phase(fixeds, movings, fixed_st, moving_st, states,
+                                                pair_dirs, mcmc_resume)
+            for s, r in zip(summaries, results):
+                s.update(r)
+        return summaries
+
+    @contextlib.contextmanager
+    def _pair_view(self, i: int, dirs: dict):
+        """Artifacts into pair ``i``'s tree and scalars under ``pair{i}/``
+        (pair 0 keeps the run's own) inside the ``with`` block."""
+        self.save_dirs = dirs
+        self.writer.prefix = f"pair{i}/" if i else ""
+        try:
+            yield
+        finally:
+            self.writer.prefix = ""
+
+    def _pair_group(self, chunk, state, fixed_st: dict, moving_st: dict) -> int | None:
+        """Pairs per batch of the pair-stacked chunks ``chunk(n, group=None,
+        images=(fixed, moving))``.  On the CPU all of them (None).  On the
+        card, as many as its free memory holds at one pair's peak, measured
+        on one step of pair 0 whose result is dropped, after room for two
+        more copies of the pair-stacked ``state`` (the groups' outputs, and
+        their concatenation, beside the input).  The card's peak-memory
+        counter is reset for the measurement."""
+        n_pairs = int(state.step.shape[0])
+        if self.device.type != "cuda" or n_pairs == 1:
+            return None
+        dev, one = self.device, slice(0, 1)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        chunk(1, images=(take_pairs(fixed_st, one), take_pairs(moving_st, one)))(
+            take_pairs(state, one))
+        torch.cuda.synchronize(dev)
+        peak = max(1, torch.cuda.max_memory_allocated(dev) - base)
+        state_bytes = sum(t.numel() * t.element_size() for t in _tensors(state) if t.is_cuda)
+        free, _ = torch.cuda.mem_get_info(dev)
+        room = (free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+                - 2 * state_bytes)
+        group = max(1, min(n_pairs, int(0.9 * room) // peak))
+        self.logger.info("pair-parallel: one pair peaks at %.3f GiB, %.3f GiB free: %d of %d "
+                         "pairs per batch", peak / 2**30, room / 2**30, group, n_pairs)
+        self.pair_groups.append(group)
+        return group
+
+    def _run_pair_vi_phase(self, fixed_st, moving_st, state_st: VIState, resume=None):
+        """The pair-stacked VI loop: per-pair scalars, the saturation guard
+        on the worst pair, checkpoints with meta ``pair_parallel``.
+        Returns ``(state, wall seconds)``."""
+        n_pairs = int(state_st.step.shape[0])
+        done = 0
+        if resume:
+            state_st, meta = load_checkpoint(resume, state_st)
+            done = int(meta.get("vi_iters", 0))
+            self.logger.info("resumed pair-stacked VI from %s at %s", resume, meta)
+        cap = int(self.t_cfg.get("max_device_chunk", 200))
+
+        def chunk(n, group=None, images=(fixed_st, moving_st)):
+            return make_pair_vi_chunk(self.bundle, self.opt_q_v, self.opt_gmm, self.opt_reg,
+                                      *images, chunk=n, remat=self.vi_remat, group=group)
+
+        group = (self._pair_group(chunk, state_st, fixed_st, moving_st)
+                 if done < self.no_iters_vi else None)
+        log_period = max(1, min(self.log_period_vi, self.no_iters_vi))
+        t0 = time.perf_counter()
+        try:
+            while done < self.no_iters_vi:
+                this = min(log_period, self.no_iters_vi - done)
+                t_a = time.perf_counter()
+                while this > 0:
+                    n = min(cap, this)
+                    state_st, ms = chunk(n, group)(state_st)
+                    this -= n
+                    done += n
+                last = _host({k: v[:, -1] for k, v in ms.items()})  # (P, …) per pair
+                self._add_time("pairs/vi_steps", time.perf_counter() - t_a)
+                self.writer.set_step(done)
+                for i in range(n_pairs):
+                    self.writer.prefix = f"pair{i}/" if i else ""
+                    for k in ("data_term", "reg_term", "entropy_term", "total_loss",
+                              "vd_alpha", "reg_energy", "ndv", "sat"):
+                        self.writer.add_scalar(f"VI/{k}", float(last[k][i]))
+                self.writer.prefix = ""
+                self._check_guards(last, done, "VI")
+                self.logger.info("VI %d/%d loss %s ndv %s (per pair)", done, self.no_iters_vi,
+                                 np.array2string(last["total_loss"], precision=1),
+                                 last["ndv"])
+                self._maybe_checkpoint(self.config.save_dirs["models"] / "vi_latest.npz",
+                                       state_st, self._ckpt_meta("VI", done, n_pairs),
+                                       force=done >= self.no_iters_vi)
+        finally:
+            savers.flush()
+        vi_time = time.perf_counter() - t0
+        self.logger.info("VI phase took %.1fs for %d pairs (%.2f aggregate iters/sec)",
+                         vi_time, n_pairs, n_pairs * self.no_iters_vi / vi_time)
+        return state_st, vi_time
+
+    def _run_pair_mcmc_phase(self, fixeds, movings, fixed_st, moving_st, states, pair_dirs,
+                             resume=None) -> list:
+        """The pair-stacked SG-MCMC loop: chains initialised per pair from
+        each pair's VI key (salt 202, as the sequential path), the fold and
+        saturation guards on the worst pair, block-radius auto-escalation
+        that resumes every pair from the last clean period, checkpoints with
+        meta ``pair_parallel``, then each pair's posterior, evaluation and
+        phase-end samples.  Returns one summary update per pair."""
+        n_pairs = len(states)
+        total = self.no_iters_burn_in + self.no_samples_mcmc
+        mcmc_st = stack_trees([init_chains(
+            self.bundle, key_generator(s.key, s.step, self.device, salt=202),
+            no_chains=self.no_chains, mode=self.mcmc_init,
+            q_v=s.q_v if self.mcmc_init == "VI" else None, gmm=s.gmm, reg=s.reg,
+            opt_gmm=self.opt_gmm, opt_reg=self.opt_reg, device=self.device)
+            for s in states])
+        done = 0
+        if resume:
+            mcmc_st, meta = load_checkpoint(resume, mcmc_st)
+            self.logger.info("resumed pair-stacked MCMC from %s at %s", resume, meta)
+            done = int(meta.get("mcmc_steps", 0))
+            self._restore_radius(meta)
+        cap = int(self.t_cfg.get("max_device_chunk", 200))
+        thin = int(self.t_cfg.get("mcmc_thin", 1))
+
+        def chunk(n, group=None, images=(fixed_st, moving_st)):
+            """Built from ``self.bundle`` as it stands (an escalated radius
+            at once)."""
+            return make_pair_mcmc_chunk(self.bundle, self.opt_gmm, self.opt_reg,
+                                        self.config.tau, *images, chunk=n,
+                                        burn_in=self.no_iters_burn_in, thin=thin, group=group)
+
+        group = self._pair_group(chunk, mcmc_st, fixed_st, moving_st) if done < total else None
+
+        def run_steps(mcmc_st, n):
+            """``n`` transitions in chunks of at most ``cap``."""
+            ms = None
+            while n > 0:
+                this = min(cap, n)
+                mcmc_st, ms = chunk(this, group)(mcmc_st)
+                n -= this
+            return mcmc_st, ms
+
+        last_good = None  # (done, state) of the newest clean period
+        escalations = []
+        log_period = max(1, min(self.log_period_mcmc, total))
+        t0 = time.perf_counter()
+        aborted = None
+        try:
+            while done < total:
+                this = min(log_period, total - done)
+                try:
+                    t_a = time.perf_counter()
+                    mcmc_st, ms = run_steps(mcmc_st, this)
+                    done += this
+                    last = _host({k: v[:, -1] for k, v in ms.items()})  # (P, C, …)
+                    self._add_time("pairs/mcmc_chunks", time.perf_counter() - t_a)
+                    self.writer.set_step(done)
+                    for i in range(n_pairs):
+                        self.writer.prefix = f"pair{i}/" if i else ""
+                        self._write_chain_scalars({k: v[i] for k, v in last.items()})
+                    self.writer.prefix = ""
+                    self._check_guards(last, done, "MCMC", " (worst pair)")
+                except DisplacementSaturationAbort as e:
+                    new_r = self._escalated_radius(e, last_good is not None)
+                    if new_r is None:
+                        raise
+                    done, mcmc_st = last_good
+                    escalations.append(self._escalate(e, new_r, done, " (pair-parallel, all "
+                                                                     "pairs)"))
+                    continue
+                last_good = (done, mcmc_st)  # the engines never update in place
+                self.logger.info("MCMC %d/%d data %s ndv_max %d (pairs x chains)", done,
+                                 total, np.array2string(last["data_term"], precision=1),
+                                 int(last["ndv"].max()))
+                self._maybe_checkpoint(self.config.save_dirs["models"] / "mcmc_latest.npz",
+                                       mcmc_st, self._ckpt_meta("MCMC", done, n_pairs),
+                                       force=done >= total)
+        except TrainerAbort as e:
+            self.logger.error("MCMC aborted: %s", e)
+            aborted = str(e)
+        finally:
+            mcmc_time = time.perf_counter() - t0
+            savers.flush()
+
+        agg = n_pairs * self.no_chains * done / mcmc_time if done else 0.0
+        self.logger.info("MCMC phase: %d steps x %d pairs x %d chains in %.1fs "
+                         "(%.2f aggregate samples/sec)", done, n_pairs, self.no_chains,
+                         mcmc_time, agg)
+        results = []
+        t_e = time.perf_counter()
+        for i in range(n_pairs):
+            r = {"mcmc_time_s": mcmc_time, "mcmc_aggregate_samples_per_sec": agg}
+            if escalations:
+                r["block_radius_escalations"] = list(escalations)
+            results.append(r)
+            if aborted is not None:
+                r["mcmc_aborted"] = aborted
+                continue
+            mcmc_i = unstack_tree(mcmc_st, i)
+            with self._pair_view(i, pair_dirs[i]):
+                if float(mcmc_i.welford.count.sum()) > 1:
+                    mean, std = posterior_statistics(mcmc_i)
+                    savers.save_displacement_mean_and_std_dev(
+                        self.save_dirs, self.spacing, mean, std, fixeds[i]["mask"], "MCMC")
+                outs = self._make_eval(fixeds[i], movings[i])(mcmc_i.v)
+                fixed_seg_np = _numpy(fixeds[i]["seg"])
+                dscs = []
+                for c in range(self.no_chains):
+                    out_c = {k: v[c] for k, v in outs.items()}
+                    dscs.append(self._log_seg_metrics(fixed_seg_np, out_c, "MCMC", chain=c))
+                    self._submit_sample(done - self.no_iters_burn_in, out_c, "MCMC", chain=c)
+                r["mcmc_mean_dsc"] = float(np.mean(dscs))
+        savers.flush()
+        self._add_time("pairs/mcmc_artifacts", time.perf_counter() - t_e)
+        return results
 
     def _run_pair(self, pair_idx: int) -> dict:
         self.save_dirs = self._save_dirs_for(pair_idx)
@@ -442,6 +755,71 @@ class Trainer:
             raise err
         self.logger.warning(msg)
 
+    def _check_guards(self, last: dict, step: int, phase: str, where: str = "") -> None:
+        """The saturation guard and, in MCMC, the fold guard on the worst
+        row of a period's last metrics (a chain, or a pair)."""
+        self._check_saturation(int(last["sat"].max()), int(last["sat_resid"].max()), step,
+                               phase)
+        no_voxels = float(np.prod(self.bundle.dims))
+        worst = int(last["ndv"].max())
+        if phase == "MCMC" and worst > self.ndv_tol * no_voxels:
+            raise NonDiffeomorphicAbort(
+                f"chain transformation folded at {worst} voxels "
+                f"(> {self.ndv_tol:.1%} of {int(no_voxels)}) at step {step}{where}")
+
+    def _escalated_radius(self, e: DisplacementSaturationAbort, have_clean: bool):
+        """The block radius to resume with after the saturation abort ``e``,
+        or None: only an in-block residual overflow of the "post"
+        block-gather warp escalates, up to 4, with auto-escalation on and a
+        clean period to resume from."""
+        b = self.bundle
+        auto = bool(self.t_cfg.get("block_warp", {}).get("auto_escalate", True))
+        resid_binding = getattr(e, "sat_resid", 0) > self.sat_tol * float(np.prod(b.dims))
+        if (auto and resid_binding and have_clean and b.block_radius < 4
+                and b.noise_scheme == "post" and b.block_warp
+                and not getattr(b.transformation, "use_gather", False)):
+            return b.block_radius + 1
+        return None
+
+    def _escalate(self, e, new_r: int, step: int, what: str = "") -> dict:
+        """Raise the block radius to ``new_r`` (the chunks are rebuilt from
+        ``self.bundle``); the record for the summary."""
+        self.logger.warning(
+            "MCMC auto-recovery%s: %s — escalating trainer.block_warp.radius %d -> %d and "
+            "resuming from the last clean period (step %d)", what, e,
+            self.bundle.block_radius, new_r, step)
+        self.bundle = dataclasses.replace(self.bundle, block_radius=new_r)
+        return {"step": step, "radius": new_r}
+
+    def _restore_radius(self, meta: dict) -> None:
+        """Checkpoints record the (possibly auto-escalated) block radius."""
+        ck_radius = int(meta.get("block_radius", 0) or 0)
+        if ck_radius > int(self.bundle.block_radius):
+            self.logger.info("resume: restoring escalated trainer.block_warp.radius %d from "
+                             "the checkpoint (configured: %d)",
+                             ck_radius, self.bundle.block_radius)
+            self.bundle = dataclasses.replace(self.bundle, block_radius=ck_radius)
+
+    def _ckpt_meta(self, phase: str, done: int, n_pairs: int = 0) -> dict:
+        """A checkpoint's meta: the phase, its steps, the current block
+        radius (MCMC; restored on resume), the pair count of a pair-stacked
+        state."""
+        if phase == "VI":
+            meta = {"phase": "VI", "phase_done": 0, "vi_iters": done}
+        else:
+            meta = {"phase": "MCMC", "phase_done": 1, "mcmc_steps": done,
+                    "block_radius": int(self.bundle.block_radius)}
+        if n_pairs:
+            meta["pair_parallel"] = n_pairs
+        meta["config"] = self.config.name
+        return meta
+
+    def _write_chain_scalars(self, last: dict) -> None:
+        """One pair's per-chain MCMC scalars (leaves ``(C,)``)."""
+        for k in ("data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat"):
+            for c in range(self.no_chains):
+                self.writer.add_scalar(f"MCMC/{k}/chain_{c}", float(last[k][c]))
+
     # ------------------------------------------------------------ VI phase
     def _run_vi_phase(self, fixed, moving, state: VIState, start: int = 0) -> VIState:
         if self.vi_remat:
@@ -476,7 +854,7 @@ class Trainer:
                 for k in ("data_term", "reg_term", "entropy_term", "total_loss",
                           "vd_alpha", "reg_energy", "ndv", "sat"):
                     self.tracker.update(k, float(last[k]))
-                self._check_saturation(int(last["sat"]), int(last["sat_resid"]), done, "VI")
+                self._check_guards(last, done, "VI")
                 for i, (s, p) in enumerate(zip(np.atleast_1d(last["gmm_scales"]),
                                                np.atleast_1d(last["gmm_proportions"]))):
                     self.writer.add_scalar(f"GMM/scale_{i}", float(s))
@@ -495,12 +873,9 @@ class Trainer:
                     float(last["data_term"]), float(last["reg_term"]),
                     float(last["entropy_term"]), mean_dsc, int(last["ndv"]),
                 )
-                self._maybe_checkpoint(
-                    self.save_dirs["models"] / "vi_latest.npz", state,
-                    {"phase": "VI", "phase_done": 0, "vi_iters": done,
-                     "config": self.config.name},
-                    force=done >= self.no_iters_vi,
-                )
+                self._maybe_checkpoint(self.save_dirs["models"] / "vi_latest.npz", state,
+                                       self._ckpt_meta("VI", done),
+                                       force=done >= self.no_iters_vi)
                 self._add_time("vi/eval+log", time.perf_counter() - t1)
                 self.logger.debug("VI period %d: steps %.2fs eval+log %.2fs", done,
                                   t1 - t0, time.perf_counter() - t1)
@@ -609,7 +984,6 @@ class Trainer:
     # ---------------------------------------------------------- MCMC phase
     def _run_mcmc_phase(self, fixed, moving, vi_state: VIState) -> dict:
         bundle = self.bundle
-        no_voxels = float(np.prod(bundle.dims))
         tau = self.config.tau
         total = self.no_iters_burn_in + self.no_samples_mcmc
 
@@ -632,27 +1006,20 @@ class Trainer:
             # a structural mismatch here is a user error (dims, chain count)
             mcmc, resume_meta = load_checkpoint(mcmc_resume, mcmc)
             self.logger.info("resumed MCMC from %s at %s", mcmc_resume, resume_meta)
-            # checkpoints record the (possibly auto-escalated) block radius
-            ck_radius = int(resume_meta.get("block_radius", 0) or 0)
-            if ck_radius > int(bundle.block_radius):
-                self.logger.info(
-                    "resume: restoring escalated trainer.block_warp.radius "
-                    "%d from the checkpoint (configured: %d)",
-                    ck_radius, bundle.block_radius)
-                bundle = self.bundle = dataclasses.replace(bundle, block_radius=ck_radius)
+            self._restore_radius(resume_meta)
 
         cap = int(self.t_cfg.get("max_device_chunk", 200))
         thin = int(self.t_cfg.get("mcmc_thin", 1))
 
         def run_steps(mcmc, n):
             """Advance ``n`` transitions in chunks of at most ``cap``; the
-            chunk is built from ``bundle`` as it stands (an escalated radius
-            takes effect at once)."""
+            chunk is built from ``self.bundle`` as it stands (an escalated
+            radius takes effect at once)."""
             ms = None
             while n > 0:
                 this = min(cap, n)
                 mcmc, ms = make_mcmc_chunk(
-                    bundle, self.opt_gmm, self.opt_reg, tau, fixed, moving, chunk=this,
+                    self.bundle, self.opt_gmm, self.opt_reg, tau, fixed, moving, chunk=this,
                     burn_in=self.no_iters_burn_in, thin=thin,
                     param_mode=self.mcmc_param_mode)(mcmc)
                 n -= this
@@ -674,19 +1041,9 @@ class Trainer:
             last = fetch.get()
             t_p1 = time.perf_counter()
             self.writer.set_step(done_at)
-            for k in ("data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat"):
-                for c in range(self.no_chains):
-                    self.writer.add_scalar(f"MCMC/{k}/chain_{c}", float(last[k][c]))
-            self._check_saturation(int(last["sat"].max()), int(last["sat_resid"].max()),
-                                   done_at, "MCMC")
-
-            # diffeomorphism guard: abort when any chain folds at > tol voxels
-            worst = int(last["ndv"].max())
-            if worst > self.ndv_tol * no_voxels:
-                raise NonDiffeomorphicAbort(
-                    f"chain transformation folded at {worst} voxels "
-                    f"(> {self.ndv_tol:.1%} of {int(no_voxels)}) at step {done_at}"
-                )
+            self._write_chain_scalars(last)
+            # the saturation guard, and the fold guard on the worst chain
+            self._check_guards(last, done_at, "MCMC")
 
             if done_at >= total:
                 # final-period quality at the same trajectory point every
@@ -716,15 +1073,8 @@ class Trainer:
                 np.array2string(last["reg_term"], precision=1),
                 last["ndv"],
             )
-            self._maybe_checkpoint(
-                self.save_dirs["models"] / "mcmc_latest.npz", state,
-                {"phase": "MCMC", "phase_done": 1, "mcmc_steps": done_at,
-                 # the CURRENT radius (auto-escalation may have raised it),
-                 # restored on resume
-                 "block_radius": int(self.bundle.block_radius),
-                 "config": self.config.name},
-                force=done_at >= total,
-            )
+            self._maybe_checkpoint(self.save_dirs["models"] / "mcmc_latest.npz", state,
+                                   self._ckpt_meta("MCMC", done_at), force=done_at >= total)
             self._add_time("mcmc/process", time.perf_counter() - t_p0)
 
         pending = None
@@ -734,7 +1084,6 @@ class Trainer:
         # counter is the in-block residual one, raise the radius (cap 4) and
         # resume from the last clean period; the escalated radius goes into
         # the checkpoint meta and is restored on resume
-        auto_escalate = bool(self.t_cfg.get("block_warp", {}).get("auto_escalate", True))
         try:
             while True:
                 try:
@@ -769,25 +1118,12 @@ class Trainer:
                         pending = None
                     break
                 except DisplacementSaturationAbort as e:
-                    resid_binding = getattr(e, "sat_resid", 0) > self.sat_tol * no_voxels
-                    can_escalate = (
-                        auto_escalate and resid_binding
-                        and last_good is not None
-                        and bundle.block_radius < 4
-                        and bundle.noise_scheme == "post"
-                        and bundle.block_warp)
-                    if not can_escalate:
+                    new_r = self._escalated_radius(e, last_good is not None)
+                    if new_r is None:
                         raise
-                    new_r = bundle.block_radius + 1
                     resume_step = int(last_good.step)
-                    self.logger.warning(
-                        "MCMC auto-recovery: %s — escalating trainer.block_"
-                        "warp.radius %d -> %d and resuming from the last "
-                        "clean period (step %d)",
-                        e, bundle.block_radius, new_r, resume_step)
-                    bundle = self.bundle = dataclasses.replace(bundle, block_radius=new_r)
                     summary.setdefault("block_radius_escalations", []).append(
-                        {"step": resume_step, "radius": new_r})
+                        self._escalate(e, new_r, resume_step))
                     mcmc = last_good
                     done = resume_step
                     pending = None

@@ -170,7 +170,7 @@ def test_autograd_functions_on_card_match_cpu(cuda):
         grads = torch.autograd.grad((o * g.to(dev)).sum() + (w * gv.to(dev)).sum(),
                                     (dd, uu, xx))
         outs[dev.type] = [t.detach().cpu() for t in (o, w, *grads)]
-    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1, 0, 0, 0]
+    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1, 0, 0, 0, 0, 0]
     for got, ref, atol in zip(outs["cuda"], outs["cpu"], (2e-5, 1e-5, 3e-5, 3e-5, 5e-4)):
         torch.testing.assert_close(got, ref, atol=atol, rtol=1e-4)
 
@@ -218,6 +218,51 @@ def test_bounded_kernels_match_plain(cuda, shape, radius):
     torch.testing.assert_close(wb.warp_bounded_tblend_cuda(disp, g, radius),
                                wb.warp_bounded_tblend_plain(disp, g, radius),
                                atol=1e-5, rtol=1e-5)
+
+
+# (output shape, radius): the vol is 2R planes deeper
+ZHALO_SHAPES = [((2, 1, 16, 24, 40), 1), ((1, 4, 17, 10, 70), 2), ((2, 3, 5, 6, 7), 3),
+                ((1, 2, 9, 12, 40), 4), ((1, 13, 5, 6, 7), 3), ((2, 1, 1, 9, 33), 2)]
+
+
+@pytest.mark.parametrize("shape,radius", ZHALO_SHAPES)
+def test_zhalo_kernels_match_plain(cuda, shape, radius):
+    """The z-halo modes of B5 and B6 (vol ``2R`` planes deeper, no z clamp)
+    against their plain versions, at the tolerance of the default mode:
+    the rings at R 1-3 (4-byte staging at widths 70, 7 and 33), the
+    per-voxel gathers at R 4 and at 13 channels, one output plane."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    B, C, D, H, W = shape
+    vol, disp, g = _bounded_inputs(cuda, shape, radius)
+    vol = torch.randn((B, C, D + 2 * radius, H, W), device=cuda)
+    torch.testing.assert_close(wb.warp_bounded_fwd_cuda(vol, disp, radius, z_halo=True),
+                               wb.warp_bounded_plain(vol, disp, radius, z_halo=True),
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(wb.warp_bounded_dgrad_cuda(vol, disp, g, radius, z_halo=True),
+                               wb.warp_bounded_dgrad_plain(vol, disp, g, radius, z_halo=True),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("radius", [1, 2, 4])
+def test_zhalo_slabs_concatenate_on_card(cuda, radius):
+    """4 z-slabs through the z-halo kernels, each with its real neighbour
+    rows (edge rows at the two ends), concatenate bitwise to the unsharded
+    B5 and B6 launches: the same taps of the same values in the same
+    order."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    shape = (2, 1, 32, 24, 40)
+    vol, disp, g = _bounded_inputs(cuda, shape, radius)
+    zpad = torch.nn.functional.pad(vol, (0, 0, 0, 0, radius, radius), mode="replicate")
+    n = shape[2] // 4
+    parts = [(zpad[:, :, z:z + n + 2 * radius].contiguous(), disp[:, :, z:z + n].contiguous(),
+              g[:, :, z:z + n].contiguous()) for z in range(0, shape[2], n)]
+    out = torch.cat([wb.warp_bounded_fwd_cuda(v, d, radius, z_halo=True) for v, d, _ in parts], 2)
+    dg = torch.cat([wb.warp_bounded_dgrad_cuda(v, d, gg, radius, z_halo=True)
+                    for v, d, gg in parts], 2)
+    assert torch.equal(out, wb.warp_bounded_fwd_cuda(vol, disp, radius))
+    assert torch.equal(dg, wb.warp_bounded_dgrad_cuda(vol, disp, g, radius))
 
 
 @pytest.mark.parametrize("shape,radius", [((2, 1, 40, 24, 130), 1), ((1, 4, 17, 10, 70), 2),

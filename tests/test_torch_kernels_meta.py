@@ -25,6 +25,10 @@ MAIN_PATH = {
     "warp_bounded_fwd": ((2, 1) + N128, 84),
     "warp_bounded_dgrad": ((2, 1) + N128, 134),
     "warp_bounded_tblend": ((2, 1) + N128, 84),
+    # the z-halo modes of B5 and B6 at chip_smoke.py's R 1 slab shape: the
+    # output's shape (the vol is 2R planes deeper; radius 0 counts none)
+    "warp_bounded_fwd_zhalo": ((2, 1) + N128, 84),
+    "warp_bounded_dgrad_zhalo": ((2, 1) + N128, 134),
 }
 
 
@@ -45,6 +49,23 @@ def test_kernel_bytes_and_bound(symbol):
     # the counts scale with the voxels
     B, C, D, H, W = shape
     assert kernel.bytes((2 * B, C, D, H, W)) == pytest.approx(2 * nbytes, rel=1e-9)
+
+
+@pytest.mark.parametrize("symbol", ["warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo"])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_zhalo_kernel_bytes_count_the_halo_planes(symbol, radius):
+    """A z-halo kernel reads ``2R`` more vol planes than its output has:
+    ``4·B·C·2R·H·W`` bytes beyond the mode without a halo."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    kernel = next(k for k in all_kernels() if k.symbol == symbol)
+    plain = wb.B5 if symbol.startswith("warp_bounded_fwd") else wb.B6
+    shape = (2, 4, 32, 24, 40)
+    extra = 4 * 2 * 4 * 2 * radius * 24 * 40
+    assert kernel.bytes(shape, radius) == plain.bytes(shape) + extra
+    assert plain.bytes(shape, radius) == plain.bytes(shape)  # no halo, no planes
+    assert kernel.bound_ms(shape, radius)[0] == pytest.approx(
+        1e3 * (plain.bytes(shape) + extra) / 3.35e12, rel=1e-12)
 
 
 def _c_entries():

@@ -373,15 +373,12 @@ def _apply(config, change: dict):
     for block, args in change.items():
         if block == "trainer":
             config.cfg["trainer"].update(args)
-        elif block == "no_pairs":
-            config.cfg["data_loader"]["args"]["no_pairs"] = args
         else:
             config.cfg[block] = args
     return config
 
 
 UNPORTED = {
-    "pair_parallel": ({"trainer": {"pair_parallel": True}, "no_pairs": 2}, "A13"),
     "mcmc_anchor": ({"trainer": {"mcmc_anchor": True}}, "Not ported"),
     "bfloat16": ({"transformation_module": {"type": "SVF_3D",
                                             "args": {"compute_dtype": "bfloat16"}}},
