@@ -298,8 +298,8 @@ def _split_rows(gen, dtype) -> list:
     names = ("B1-bf16", "B2-bf16") if bf16 else ("B1", "B2")
     errs = {fwd: 0.0, bwd: 0.0}
     tol = {k: st.TOL[k.symbol] for k in (fwd, bwd)}
-    for shape, slab in st.SPLIT_SHAPES:
-        d, u, g = st.split_operands(gen, shape, slab, dtype)
+    for shape, slab, offset in st.SPLIT_SHAPES:
+        d, u, g = st.split_operands(gen, shape, slab, dtype, offset)
         out = sw.split_warp_fwd_cuda(d, u)
         if out.dtype != dtype:
             raise AssertionError(f"{names[0]} {shape}: output dtype {out.dtype}")

@@ -48,20 +48,52 @@
 // u- (vm - v)) so results agree to rounding.  NaN propagates as in
 // jnp/torch clip and max/min.
 //
-// Both kernels are templates on the storage type T of every operand and
-// output in device memory: float (the entries split_warp_fwd/_bwd) or
-// __nv_bfloat16 (split_warp_fwd_bf16/_bwd_bf16, the Pallas kernels' bf16
-// mode, pallas_split_warp.py:348-350 and :403-406).  Only the global
-// loads and stores depend on T: a bf16 value is widened to f32 as it is
-// staged, all arithmetic and the shared-memory staging stay f32, and each
-// output is rounded once (round to nearest even, as astype/.to() round).
-// 4-byte cp.async cannot move one 2-byte element, and the x-halo starts one
-// voxel left of a 32-aligned tile, so bf16 pairs are misaligned there: the
-// bf16 instantiation stages each plane with plain coalesced 2-byte loads,
-// synchronously, into the same f32 ring (its commit/wait calls then have
-// no copies to wait for).  At C = 3 it must move 18 (B1) and 30 (B2) bytes
-// per voxel, half of f32's; reaching that bound (paired or 16-byte loads
-// with a scalar border path) is later work.
+// The f32 design above is the primary template on the storage type T
+// (split_warp_fwd/_bwd).  The Pallas kernels' bf16 mode
+// (pallas_split_warp.py:348-350 and :403-406; split_warp_fwd_bf16/_bwd_bf16)
+// has its own kernel bodies, the explicit specialisations for
+// __nv_bfloat16.  They compute the same f32 expressions on widened bf16
+// values and round each output once (round to nearest even, as
+// astype/.to() round); only the way the bytes reach the arithmetic differs.
+//   - Staging: the ring holds raw bf16 words.  A block owns a 64 x 8 (x, y)
+//     tile and marches through TZ16 = 32 z-planes.  Each haloed row enters
+//     as 8 x 16-byte cp.async.cg of its 64 interior words (x0 is a multiple
+//     of 64) plus, for each x-halo column, the aligned 4-byte pair that
+//     holds it, its index clamped in device memory.  The kernel picks this
+//     path per block when W % 8 == 0, every operand and output pointer is
+//     16-byte aligned (it checks the pointers) and the tile does not cross
+//     the x border; otherwise the same kernel stages its plane with clamped
+//     2-byte loads, synchronously.  Two planes are in flight while the
+//     block computes; a plane's copies are issued just after the barrier at
+//     which every warp has finished with the plane whose ring slot they
+//     fill.
+//   - Stencil: one warp per haloed row (10 warps), two x-neighbours per
+//     lane, read as __nv_bfloat162 and widened to float2.  x-neighbours come
+//     from the lane's own pair or a warp shuffle; only lanes 0 and 31 read an
+//     x-halo word, and out-of-volume neighbours take the centre value, which
+//     is the replicated border.  Only the y-neighbours go through shared
+//     memory as f32: A = L_x d (B1, B2) and T1 = L_z^T g (B2).  B = L_y A
+//     stays in a 3-plane register ring.
+//   - B1: two barriers per plane (the plane landed; A written).
+//   - B2: one barrier per plane.  At step k every warp writes A of plane k
+//     and T1 of plane k-1, each into one of two buffers, while the output
+//     rows take B and dd_y from A of plane k-1 and write the outputs (T2 =
+//     L_y^T T1, gd = L_x^T T2, gu) of plane k-2, from what earlier steps
+//     wrote and from the planes k-2 .. k that the ring keeps.  The last
+//     warp (a halo row, without outputs) computes T1 at the two x-halo
+//     columns of all 10 rows, one lane per point, and from it, through
+//     shuffles, T2 there, so that gd can take T2 at x0 - 1 and x0 + 64.
+//     The z- and y-border folds of the transposes run only where a plane or
+//     row is at the border (branches taken by whole warps).
+//
+// What bounds the bf16 kernels: at C = 3 they must move 18 (B1) and 30 (B2)
+// bytes per voxel, half of f32's: 75 and 126 MB at 2x3x128^3, 22.5 and
+// 37.6 us at 3.35 TB/s.  chip_probe_split.py puts them beside a copy of
+// their bytes and B2's staging schedule without its stencil.  Neither
+// reaches its bound: the staging of the haloed planes alone reaches ~61%
+// (a copy ~82%), and B2's stencil is latency-bound (2 blocks of 10 warps
+// per SM at its 96 registers), its outputs costing about as much as the
+// staging.  Times are in PERF.md (kernel table).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,19 +115,12 @@ constexpr int LPT = (HP + NT - 1) / NT;  // cp.async per thread per array
 constexpr int FWD_RING = 2;        // staged planes of B1: current + next
 constexpr int BWD_RING = 4;        // B2: z-1, z, z+1 of the output + next
 
-// widen a bf16 on load, round once on store
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+// round once on store
 template <typename T>
 __device__ __forceinline__ T narrow(float v);
 template <>
 __device__ __forceinline__ float narrow<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ float clip1(float v) {
@@ -157,27 +182,23 @@ struct Tile {
     return (long long)min(max(z0 - 1 + k, 0), D - 1) * P;
   }
 
-  // stage plane k of NSRC 3-channel operands into dst as f32:
-  // array s*3+c of the plane is dst[(s*3+c)*HP + r*HX + q].  f32 starts
-  // 4-byte cp.async copies (the caller commits and waits); bf16 loads,
-  // widens and stores at once.
-  template <int NSRC, typename T>
-  __device__ void stage(float* dst, const T* const (&src)[NSRC], int k,
+  // stage plane k of NSRC 3-channel operands into dst:
+  // array s*3+c of the plane is dst[(s*3+c)*HP + r*HX + q], by 4-byte
+  // cp.async copies (the caller commits and waits)
+  template <int NSRC>
+  __device__ void stage(float* dst, const float* const (&src)[NSRC], int k,
                         int D, int tid) const {
     const long long zo = plane(k, D);
 #pragma unroll
     for (int s = 0; s < NSRC; ++s)
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const T* from = src[s] + c * V + zo;
+        const float* from = src[s] + c * V + zo;
         float* to = dst + (s * 3 + c) * HP;
 #pragma unroll
         for (int j = 0; j < LPT; ++j) {
           if (!slot[j]) continue;
-          if constexpr (std::is_same_v<T, float>)
-            cp_async4(to + tid + j * NT, from + goff[j]);
-          else
-            to[tid + j * NT] = widen(from[goff[j]]);
+          cp_async4(to + tid + j * NT, from + goff[j]);
         }
       }
   }
@@ -374,27 +395,447 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---- bf16: the explicit specialisations (design in the header) ------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TX16 = 64;               // tile width: 2 voxels per lane
+constexpr int TZ16 = 32;               // z-planes per block: 256 blocks at 2x128^3
+constexpr int NT16 = 32 * HY;          // one warp per haloed row
+constexpr int C16 = 8;                 // column of x0 in a staged row
+constexpr int RS16 = C16 + TX16 + 8;   // words per staged row: pair, 64, pair
+constexpr int PA16 = HY * RS16;        // words per staged plane of one array
+constexpr int FWD16_RING = 3;          // B1: planes staged, 2 in flight
+constexpr int BWD16_AHEAD = 2;         // B2: planes in flight beside the
+constexpr int BWD16_RING = BWD16_AHEAD + 3;  // three a step reads
+constexpr int FWD16_MIN_BLOCKS = 2;    // register caps: blocks per SM
+constexpr int BWD16_MIN_BLOCKS = 2;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <typename... P>
+__device__ __forceinline__ bool aligned16(const P*... p) {
+  return ((reinterpret_cast<unsigned long long>(p) | ...) & 15ull) == 0;
+}
+
+// p[s] for a run-time s, by selects (no local-memory array)
+template <int N>
+__device__ __forceinline__ const bf16* pick(const bf16* const (&p)[N], int s) {
+  const bf16* q = p[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) q = s == j ? p[j] : q;
+  return q;
+}
+
+// One block's place in the volume and how it stages a plane.
+struct Tile16 {
+  int x0, y0, z0, nz, b;
+  long long P, V;
+  bool vec;  // 16-byte staging: W % 8 == 0, aligned pointers, tile inside x
+
+  __device__ Tile16(const Geom& g, bool aligned) {
+    const int nzc = (g.D + TZ16 - 1) / TZ16;
+    x0 = blockIdx.x * TX16;
+    y0 = blockIdx.y * TY;
+    b = blockIdx.z / nzc;
+    z0 = (blockIdx.z % nzc) * TZ16;
+    nz = min(TZ16, g.D - z0);
+    P = (long long)g.H * g.W;
+    V = g.D * P;
+    vec = aligned && g.W % 8 == 0 && x0 + TX16 <= g.W;
+  }
+
+  // device-memory offset of relative plane k (z0-1+k) and of haloed row r,
+  // both clamped to the volume
+  __device__ long long plane(int k, int D) const {
+    return (long long)min(max(z0 - 1 + k, 0), D - 1) * P;
+  }
+  __device__ int row(int r, const Geom& g) const {
+    return min(max(y0 - 1 + r, 0), g.H - 1) * g.W;
+  }
+
+  // stage plane k of NSRC 3-channel operands into dst as raw bf16: array a
+  // = s*3+c, haloed row r, x = x0 + q is dst[a*PA16 + r*RS16 + C16 + q].
+  // 16-byte path: cp.async of the interior and of the aligned pairs that
+  // hold x0-1 (at C16-2) and x0+64 (at C16+TX16), the caller commits and
+  // waits; otherwise clamped 2-byte loads of x0-1 .. x0+64, stored at once.
+  template <int NSRC>
+  __device__ void stage(bf16* dst, const bf16* const (&src)[NSRC], int k,
+                        const Geom& g, int tid) const {
+    constexpr int NA = 3 * NSRC;
+    const long long zo = plane(k, g.D);
+    if (vec) {
+      for (int i = tid; i < NA * HY * (TX16 / 8); i += NT16) {
+        const int a = i / (HY * (TX16 / 8)), r = i / (TX16 / 8) % HY, q = i % (TX16 / 8);
+        const bf16* from = pick(src, a / 3) + (a % 3) * V + zo + row(r, g) + x0 + 8 * q;
+        cp_async16(reinterpret_cast<float*>(dst + a * PA16 + r * RS16 + C16 + 8 * q),
+                   reinterpret_cast<const float*>(from));
+      }
+      for (int i = tid; i < NA * HY * 2; i += NT16) {
+        const int a = i / (HY * 2), r = i / 2 % HY;
+        const bool right = i % 2;
+        const int xs = right ? min(x0 + TX16, g.W - 2) : max(x0 - 2, 0);
+        const bf16* from = pick(src, a / 3) + (a % 3) * V + zo + row(r, g) + xs;
+        cp_async4(reinterpret_cast<float*>(dst + a * PA16 + r * RS16 +
+                                           (right ? C16 + TX16 : C16 - 2)),
+                  reinterpret_cast<const float*>(from));
+      }
+    } else {
+#pragma unroll 1  // unrolled, its addresses cost both kernels registers
+      for (int i = tid; i < NA * HY * (TX16 + 2); i += NT16) {
+        const int a = i / (HY * (TX16 + 2)), r = i / (TX16 + 2) % HY, q = i % (TX16 + 2);
+        const int xx = min(max(x0 - 1 + q, 0), g.W - 1);
+        dst[a * PA16 + r * RS16 + C16 - 1 + q] =
+            pick(src, a / 3)[(a % 3) * V + zo + row(r, g) + xx];
+      }
+    }
+  }
+};
+
+// a lane's two voxels (x0 + 2 lane, + 1) of haloed row r of array a, widened
+__device__ __forceinline__ float2 ld_pair(const bf16* s, int a, int r, int lane) {
+  return __bfloat1622float2(
+      reinterpret_cast<const __nv_bfloat162*>(s + a * PA16 + r * RS16 + C16)[lane]);
+}
+__device__ __forceinline__ __nv_bfloat162 ld_raw(const bf16* s, int a, int r, int lane) {
+  return reinterpret_cast<const __nv_bfloat162*>(s + a * PA16 + r * RS16 + C16)[lane];
+}
+// the x-halo word of the lane's side: x0 - 1 for lanes 0-15, x0 + 64 for 16-31
+__device__ __forceinline__ float ld_halo(const bf16* s, int a, int r, int lane) {
+  return __bfloat162float(s[a * PA16 + r * RS16 + (lane < 16 ? C16 - 1 : C16 + TX16)]);
+}
+
+// x-neighbours of a lane's pair v: m left of v.x, p right of v.y, from the
+// neighbour lanes, and for lanes 0 and 31 from the halo word h
+struct XNb {
+  float m, p;
+};
+__device__ __forceinline__ XNb x_nb(float2 v, float h, int lane) {
+  const float m = __shfl_up_sync(FULL, v.y, 1), p = __shfl_down_sync(FULL, v.x, 1);
+  return {lane == 0 ? h : m, lane == 31 ? h : p};
+}
+// the same with the border replicated: lb (rb) says that x0 + 2 lane - 1
+// (x0 + 2 lane + 2) lies outside the volume, where the centre value stands
+__device__ __forceinline__ XNb x_nb_clamped(float2 v, float h, int lane, bool lb,
+                                            bool rb) {
+  const XNb n = x_nb(v, h, lane);
+  return {lb ? v.x : n.m, rb ? v.y : n.p};
+}
+
+__device__ __forceinline__ float2 clip2(float2 v) { return {clip1(v.x), clip1(v.y)}; }
+
+// store a lane's pair at o (x, x+1): one 4-byte store on the 16-byte path,
+// else each voxel inside the volume
+__device__ __forceinline__ void store_pair(bf16* o, float vx, float vy, bool vec, int x,
+                                           int W) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(vx, vy);
+  } else {
+    if (x < W) o[0] = __float2bfloat16_rn(vx);
+    if (x + 1 < W) o[1] = __float2bfloat16_rn(vy);
+  }
+}
+
+template <>
+__global__ void __launch_bounds__(NT16, FWD16_MIN_BLOCKS)
+    split_fwd_kernel<bf16>(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                           bf16* __restrict__ out, Geom g) {
+  __shared__ __align__(16) bf16 stg[FWD16_RING][6 * PA16];  // d(3), u(3)
+  __shared__ __align__(16) float sA[3][HY][TX16];            // A = L_x d
+  const int tid = threadIdx.x, lane = tid % 32, r = tid / 32;  // r: haloed row
+  const Tile16 t(g, aligned16(d, u, out));
+  const bf16* src[2] = {d + (long long)t.b * 3 * t.V, u + (long long)t.b * 3 * t.V};
+  const int x = t.x0 + 2 * lane, y = t.y0 + r - 1;
+  const bool lb = x == 0, rb = x + 2 >= g.W;
+  const bool owns = r >= 1 && r <= TY;  // the warp's row is an output row
+  bf16* outp = out + (long long)t.b * 3 * t.V + (long long)y * g.W + x;
+
+  float2 bm[3], b0[3], bp[3];
+  for (int c = 0; c < 3; ++c) bm[c] = b0[c] = bp[c] = make_float2(0.0f, 0.0f);
+  __nv_bfloat162 u_out[3];  // raw u of the plane before the newest
+  const int nk = t.nz + 2;
+  for (int p = 0; p < FWD16_RING - 1; ++p) {
+    if (p < nk) t.stage(stg[p], src, p, g, tid);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<FWD16_RING - 2>();
+    __syncthreads();  // plane k has landed; every warp is done with plane k-1
+    const int kn = k + FWD16_RING - 1;
+    if (kn < nk) t.stage(stg[kn % FWD16_RING], src, kn, g, tid);
+    cp_async_commit();
+    const bf16* s = stg[k % FWD16_RING];
+    const float2 ux = ld_pair(s, 3, r, lane);
+    float2 a0[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float2 dv = ld_pair(s, c, r, lane);
+      const XNb n = x_nb_clamped(dv, ld_halo(s, c, r, lane), lane, lb, rb);
+      a0[c] = make_float2(lerp2(dv.x, dv.y, n.m, clip1(ux.x)),
+                          lerp2(dv.y, n.p, dv.x, clip1(ux.y)));
+      reinterpret_cast<float2*>(sA[c][r])[lane] = a0[c];
+    }
+    __nv_bfloat162 u_new[3];
+    if (owns) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) u_new[c] = ld_raw(s, 3 + c, r, lane);
+    }
+    __syncthreads();
+    if (!owns) continue;
+    const float2 wy = clip2(__bfloat1622float2(u_new[1]));
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float2 am = reinterpret_cast<const float2*>(sA[c][r - 1])[lane];
+      const float2 ap = reinterpret_cast<const float2*>(sA[c][r + 1])[lane];
+      bm[c] = b0[c];
+      b0[c] = bp[c];
+      bp[c] = make_float2(lerp2(a0[c].x, ap.x, am.x, wy.x), lerp2(a0[c].y, ap.y, am.y, wy.y));
+    }
+    if (k >= 2 && y < g.H) {  // output plane z = z0 + k - 2 (plane k-1)
+      const float2 wz = clip2(__bfloat1622float2(u_out[2]));
+      const long long zo = (long long)(t.z0 + k - 2) * t.P;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float2 uo = __bfloat1622float2(u_out[c]);
+        store_pair(outp + c * t.V + zo, uo.x + lerp2(b0[c].x, bp[c].x, bm[c].x, wz.x),
+                   uo.y + lerp2(b0[c].y, bp[c].y, bm[c].y, wz.y), t.vec, x, g.W);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) u_out[c] = u_new[c];
+  }
+}
+
+constexpr int BWD16_STAGE = 9 * PA16;  // words: d(3), u(3), g(3) of a plane
+constexpr int TILE16 = 3 * HY * TX16;  // floats: 3 channels over the haloed rows
+constexpr size_t BWD16_SMEM = sizeof(bf16) * BWD16_RING * BWD16_STAGE +
+                              sizeof(float) * (2 * 2 * TILE16 + 2 * 3 * HY * 2);
+
+// lerp2_t at an index that is neither the first nor the last of its axis
+__device__ __forceinline__ float lerp2_t_in(float c0, float cm, float cp, float w0,
+                                            float wm, float wp) {
+  return (1.0f - fabsf(w0)) * c0 + pos(wm) * cm - neg(wp) * cp;
+}
+// lerp2_t with the border folds only where the caller knows i may be at a
+// border (a branch taken alike by the whole warp)
+template <bool EDGE>
+__device__ __forceinline__ float lerp2_te(float c0, float cm, float cp, float w0,
+                                          float wm, float wp, int i, int n) {
+  return EDGE ? lerp2_t(c0, cm, cp, w0, wm, wp, i, n) : lerp2_t_in(c0, cm, cp, w0, wm, wp);
+}
+
+// One barrier per plane: at step k every warp writes A of plane k and T1 of
+// plane k-1 into one of two buffers each, and the output rows read what the
+// steps before wrote (A of plane k-1 for B, T1 and T2 at the x-halo of plane
+// k-2 for its outputs), so no warp waits for another within a step.
+template <>
+__global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
+    split_bwd_kernel<bf16>(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                           const bf16* __restrict__ gin, bf16* __restrict__ gd,
+                           bf16* __restrict__ gu, Geom g) {
+  extern __shared__ __align__(16) unsigned char smem16[];
+  bf16* stg = reinterpret_cast<bf16*>(smem16);  // [RING][9][HY][RS16]
+  float* sA = reinterpret_cast<float*>(stg + BWD16_RING * BWD16_STAGE);  // [2][3][HY][TX16]
+  float* sT1 = sA + 2 * TILE16;        // [2][3][HY][TX16]  T1 = L_z^T g
+  float* sT2h = sT1 + 2 * TILE16;      // [2][3][HY][2]     T2 at x0 - 1, x0 + 64
+  const int tid = threadIdx.x, lane = tid % 32, r = tid / 32;
+  const int W = g.W, H = g.H, D = g.D;
+  const Tile16 t(g, aligned16(d, u, gin, gd, gu));
+  const long long base = (long long)t.b * 3 * t.V;
+  const bf16* src[3] = {d + base, u + base, gin + base};
+  const int x = t.x0 + 2 * lane, y = t.y0 + r - 1;
+  const bool lb = x == 0, rb = x + 2 >= W;
+  const bool owns = r >= 1 && r <= TY;
+  const bool in0 = y >= 0 && y < H && x < W, in1 = y >= 0 && y < H && x + 1 < W;
+  const long long here = base + (long long)y * W + x;
+
+  // B = L_y A at the lane's voxels, planes k-3 and k-2; dd_y of plane k-2
+  float2 b_q[3], b_r[3], ddy_r[3];
+  for (int c = 0; c < 3; ++c) b_q[c] = b_r[c] = ddy_r[c] = make_float2(0.0f, 0.0f);
+
+  const int nk = t.nz + 2;  // staged planes; the outputs are planes 1 .. nk-2
+  for (int p = 0; p < BWD16_AHEAD; ++p) {
+    if (p < nk) t.stage(stg + p * BWD16_STAGE, src, p, g, tid);
+    cp_async_commit();
+  }
+  for (int k = 0; k <= nk; ++k) {
+    cp_async_wait<BWD16_AHEAD - 1>();
+    __syncthreads();  // plane k has landed; every warp is done with step k-1
+    const int kn = k + BWD16_AHEAD;  // into the slot of plane k-3
+    if (kn < nk) t.stage(stg + (kn % BWD16_RING) * BWD16_STAGE, src, kn, g, tid);
+    cp_async_commit();
+    // staged planes k (sp), k-1 (s0) and k-2 (sm)
+    const bf16* sp = stg + (k % BWD16_RING) * BWD16_STAGE;
+    const bf16* s0 = stg + ((k + BWD16_RING - 1) % BWD16_RING) * BWD16_STAGE;
+    const bf16* sm = stg + ((k + BWD16_RING - 2) % BWD16_RING) * BWD16_STAGE;
+    const int z = t.z0 + k - 2;  // plane k-1
+
+    // A = L_x d of plane k
+    if (k < nk) {
+      const float2 ux = ld_pair(sp, 3, r, lane);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float2 dv = ld_pair(sp, c, r, lane);
+        const XNb n = x_nb_clamped(dv, ld_halo(sp, c, r, lane), lane, lb, rb);
+        reinterpret_cast<float2*>(sA + (k % 2) * TILE16 + (c * HY + r) * TX16)[lane] =
+            make_float2(lerp2(dv.x, dv.y, n.m, clip1(ux.x)), lerp2(dv.y, n.p, dv.x, clip1(ux.y)));
+      }
+    }
+    // T1 = L_z^T g of plane k-1; the last warp: T1 and T2 at the x-halo
+    // columns, lane l taking row l % 16 (< HY) of the left (l < 16) or right
+    // column, the rows' T1 from the neighbour lanes
+    if (k >= 2 && k < nk) {
+      float* t1w = sT1 + ((k - 1) % 2) * TILE16;
+      const auto t1_plane = [&](auto edge) {
+        constexpr bool E = decltype(edge)::value;
+        const float2 w0 = clip2(ld_pair(s0, 5, r, lane));
+        const float2 wm = clip2(ld_pair(sm, 5, r, lane));
+        const float2 wp = clip2(ld_pair(sp, 5, r, lane));
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float2 g0 = ld_pair(s0, 6 + c, r, lane);
+          const float2 gm = z >= 1 ? ld_pair(sm, 6 + c, r, lane) : make_float2(0.0f, 0.0f);
+          const float2 gp = z <= D - 2 ? ld_pair(sp, 6 + c, r, lane) : make_float2(0.0f, 0.0f);
+          reinterpret_cast<float2*>(t1w + (c * HY + r) * TX16)[lane] = make_float2(
+              in0 ? lerp2_te<E>(g0.x, gm.x, gp.x, w0.x, wm.x, wp.x, z, D) : 0.0f,
+              in1 ? lerp2_te<E>(g0.y, gm.y, gp.y, w0.y, wm.y, wp.y, z, D) : 0.0f);
+        }
+      };
+      if (z == 0 || z == D - 1)
+        t1_plane(std::true_type{});
+      else
+        t1_plane(std::false_type{});
+      if (r == HY - 1) {
+        const int hside = lane / 16, hr = min(lane % 16, HY - 1);
+        const int hx = hside ? t.x0 + TX16 : t.x0 - 1, hy = t.y0 + hr - 1;
+        const bool hx_in = hx >= 0 && hx < W, h_in = hx_in && hy >= 0 && hy < H;
+        const int o = hr * RS16 + (hside ? C16 + TX16 : C16 - 1);
+        const auto at = [&](const bf16* s, int a, int off) {
+          return __bfloat162float(s[a * PA16 + o + off]);
+        };
+        const float w0 = clip1(at(s0, 5, 0)), wm = clip1(at(sm, 5, 0)), wp = clip1(at(sp, 5, 0));
+        const float wy0 = clip1(at(s0, 4, 0));
+        const float wym = clip1(at(s0, 4, hr > 0 ? -RS16 : 0));
+        const float wyp = clip1(at(s0, 4, hr < HY - 1 ? RS16 : 0));
+        float* t2w = sT2h + ((k - 1) % 2) * 3 * HY * 2;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float gmh = z >= 1 ? at(sm, 6 + c, 0) : 0.0f;
+          const float gph = z <= D - 2 ? at(sp, 6 + c, 0) : 0.0f;
+          const float t1h = h_in ? lerp2_t(at(s0, 6 + c, 0), gmh, gph, w0, wm, wp, z, D) : 0.0f;
+          const float tm = __shfl_up_sync(FULL, t1h, 1), tp = __shfl_down_sync(FULL, t1h, 1);
+          if (lane % 16 >= 1 && lane % 16 <= TY)  // an output row
+            t2w[(c * HY + hr) * 2 + hside] = hx_in ? lerp2_t(t1h, tm, tp, wy0, wym, wyp, hy, H)
+                                                   : 0.0f;
+        }
+      }
+    }
+    if (!owns) continue;
+
+    // the output rows: B = L_y A and dd_y of plane k-1
+    float2 b_p[3], ddy_p[3];
+    if (k >= 1) {
+      const float2 uy = ld_pair(s0, 4, r, lane);
+      const float2 wy = clip2(uy);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float2* a =
+            reinterpret_cast<const float2*>(sA + ((k - 1) % 2) * TILE16 + (c * HY + r) * TX16) +
+            lane;
+        const float2 am = a[-TX16 / 2], a0 = a[0], ap = a[TX16 / 2];
+        b_p[c] = make_float2(lerp2(a0.x, ap.x, am.x, wy.x), lerp2(a0.y, ap.y, am.y, wy.y));
+        ddy_p[c] = make_float2(uy.x >= 0.0f ? ap.x - a0.x : a0.x - am.x,
+                               uy.y >= 0.0f ? ap.y - a0.y : a0.y - am.y);
+      }
+    }
+    // the outputs of plane k-2: T2 = L_y^T T1, gd = L_x^T T2, gu
+    const auto outputs = [&](auto edge) {
+      constexpr bool E = decltype(edge)::value;
+      const float* t1r = sT1 + (k % 2) * TILE16;
+      const float* t2hr = sT2h + (k % 2) * 3 * HY * 2;
+      const float2 ux = ld_pair(sm, 3, r, lane), uy = ld_pair(sm, 4, r, lane);
+      const float2 uz = ld_pair(sm, 5, r, lane);
+      const XNb uxn = x_nb_clamped(ux, ld_halo(sm, 3, r, lane), lane, lb, rb);
+      const float wx0 = clip1(ux.x), wx1 = clip1(ux.y), wxm = clip1(uxn.m), wxp = clip1(uxn.p);
+      const float2 wy0 = clip2(uy), wym = clip2(ld_pair(sm, 4, r - 1, lane));
+      const float2 wyp = clip2(ld_pair(sm, 4, r + 1, lane));
+      const long long zo = here + (long long)(z - 1) * t.P;
+      float2 gux = make_float2(0.0f, 0.0f), guy = gux, guz = gux;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float2 dv = ld_pair(sm, c, r, lane);
+        const XNb n = x_nb_clamped(dv, ld_halo(sm, c, r, lane), lane, lb, rb);
+        const float2 ddx = make_float2(ux.x >= 0.0f ? dv.y - dv.x : dv.x - n.m,
+                                       ux.y >= 0.0f ? n.p - dv.y : dv.y - dv.x);
+        const float2* t1 = reinterpret_cast<const float2*>(t1r + (c * HY + r) * TX16) + lane;
+        const float2 tm = t1[-TX16 / 2], t10 = t1[0], tp = t1[TX16 / 2];
+        const float2 t2 = make_float2(
+            x < W ? lerp2_te<E>(t10.x, tm.x, tp.x, wy0.x, wym.x, wyp.x, y, H) : 0.0f,
+            x + 1 < W ? lerp2_te<E>(t10.y, tm.y, tp.y, wy0.y, wym.y, wyp.y, y, H) : 0.0f);
+        const XNb n2 = x_nb(t2, t2hr[(c * HY + r) * 2 + lane / 16], lane);
+        store_pair(gd + zo + c * t.V, lerp2_t(t2.x, n2.m, t2.y, wx0, wxm, wx1, x, W),
+                   lerp2_t(t2.y, t2.x, n2.p, wx1, wx0, wxp, x + 1, W), t.vec, x, W);
+        gux.x += t2.x * ddx.x;
+        gux.y += t2.y * ddx.y;
+        guy.x += t10.x * ddy_r[c].x;
+        guy.y += t10.y * ddy_r[c].y;
+        const float2 g0 = ld_pair(sm, 6 + c, r, lane);
+        const float2 ddz = make_float2(uz.x >= 0.0f ? b_p[c].x - b_r[c].x : b_r[c].x - b_q[c].x,
+                                       uz.y >= 0.0f ? b_p[c].y - b_r[c].y : b_r[c].y - b_q[c].y);
+        guz.x += g0.x * ddz.x;
+        guz.y += g0.y * ddz.y;
+      }
+      bf16* gub = gu + zo;
+      store_pair(gub, gux.x * (fabsf(ux.x) < 1.0f ? 1.0f : 0.0f),
+                 gux.y * (fabsf(ux.y) < 1.0f ? 1.0f : 0.0f), t.vec, x, W);
+      store_pair(gub + t.V, guy.x * (fabsf(uy.x) < 1.0f ? 1.0f : 0.0f),
+                 guy.y * (fabsf(uy.y) < 1.0f ? 1.0f : 0.0f), t.vec, x, W);
+      store_pair(gub + 2 * t.V, guz.x * (fabsf(uz.x) < 1.0f ? 1.0f : 0.0f),
+                 guz.y * (fabsf(uz.y) < 1.0f ? 1.0f : 0.0f), t.vec, x, W);
+    };
+    if (k >= 3 && y < H) {
+      if (y == 0 || y == H - 1)
+        outputs(std::true_type{});
+      else
+        outputs(std::false_type{});
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      b_q[c] = b_r[c];
+      b_r[c] = b_p[c];
+      ddy_r[c] = ddy_p[c];
+    }
+  }
+}
+
 dim3 grid_for(const Geom& g) {
   return dim3((g.W + TX - 1) / TX, (g.H + TY - 1) / TY,
               g.B * ((g.D + TZ - 1) / TZ));
 }
 
+dim3 grid16(const Geom& g) {
+  return dim3((g.W + TX16 - 1) / TX16, (g.H + TY - 1) / TY,
+              g.B * ((g.D + TZ16 - 1) / TZ16));
+}
+
 template <typename T>
 int launch_fwd(const void* d, const void* u, void* out, const Geom& g,
                void* stream) {
-  split_fwd_kernel<T><<<grid_for(g), NT, 0, (cudaStream_t)stream>>>(
-      (const T*)d, (const T*)u, (T*)out, g);
+  constexpr bool f32 = std::is_same_v<T, float>;
+  split_fwd_kernel<T><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, 0,
+                        (cudaStream_t)stream>>>((const T*)d, (const T*)u, (T*)out, g);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd(const void* d, const void* u, const void* g_in, void* gd,
                void* gu, const Geom& g, void* stream) {
+  constexpr bool f32 = std::is_same_v<T, float>;
+  constexpr size_t smem = f32 ? BWD_SMEM : BWD16_SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      split_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)BWD_SMEM);
+      split_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  split_bwd_kernel<T><<<grid_for(g), NT, BWD_SMEM, (cudaStream_t)stream>>>(
+  split_bwd_kernel<T><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, smem,
+                        (cudaStream_t)stream>>>(
       (const T*)d, (const T*)u, (const T*)g_in, (T*)gd, (T*)gu, g);
   return (int)cudaGetLastError();
 }

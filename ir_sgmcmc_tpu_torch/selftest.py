@@ -58,10 +58,14 @@ TOL = {"split_warp_fwd": (2e-5, 0.0), "split_warp_bwd": (3e-5, 1e-4),
        "warp_bounded_tblend": (1e-5, 1e-5), "warp_bounded_fwd_zhalo": (1e-5, 1e-5),
        "warp_bounded_dgrad_zhalo": (1e-5, 1e-5)}
 
-# (shape, slab) of B1/B2: the main path's, a tiny one and one that straddles
-# the 32 x 8 tiles and 16-plane z-chunks with u saturated in a z-slab
-SPLIT_SHAPES = (((CHAINS, 3) + MAIN, None), ((1, 3, 2, 9, 33), None),
-                ((2, 3, 40, 24, 130), (14, 19)))
+# (shape, slab, offset) of B1/B2: the main path's, a tiny one, one that
+# straddles the tiles and 16-plane z-chunks with u saturated in a z-slab,
+# then for the bf16 kernels' staging paths: W 40 (W % 8 == 0, a 64-wide
+# tile across the x border), W 64 (16-byte copies everywhere) and operands
+# at storage offset 1, not 16-byte aligned (2-byte loads)
+SPLIT_SHAPES = (((CHAINS, 3) + MAIN, None, 0), ((1, 3, 2, 9, 33), None, 0),
+                ((2, 3, 40, 24, 130), (14, 19), 0), ((2, 3, 16, 24, 40), None, 0),
+                ((2, 3, 16, 24, 64), None, 0), ((1, 3, 17, 10, 64), None, 1))
 
 # (shape, bound, radius) of the block warp: the dense path's (bound 9, R 2,
 # block 8), ragged shapes whose dims divide by 8 but are neither cubes nor
@@ -85,12 +89,14 @@ BOUNDED_SHAPES = (((CHAINS, 1) + MAIN, 1), ((CHAINS, 4) + SMALL, 2), ((2, 1, 40,
 ZHALO_SHAPES = (((CHAINS, 1) + MAIN, 1), ((1, 4, 17, 10, 70), 2), ((1, 2, 9, 12, 40), 4))
 
 
-def split_operands(gen, shape, slab=None, dtype=torch.float32):
+def split_operands(gen, shape, slab=None, dtype=torch.float32, offset=0):
     """d, u, g for B1/B2; no exact ties at u = 0 or |u| = 1, where autograd
     of the plain step and the kernel take different (equally valid)
     subgradients.  ``slab``: z-planes where u is saturated beyond ±1.
     ``dtype`` bf16 rounds the three, which puts some u at ±1 exactly: there
-    the bf16 kernel and its plain version both take no offset gradient."""
+    the bf16 kernel and its plain version both take no offset gradient.
+    ``offset``: each is a contiguous view at that storage offset (in
+    elements) of a larger buffer."""
     dev = gen.device
     d = torch.randn(shape, generator=gen, device=dev) * 2.0
     u = torch.randn(shape, generator=gen, device=dev) * 0.9
@@ -100,7 +106,15 @@ def split_operands(gen, shape, slab=None, dtype=torch.float32):
         z = slice(*slab)
         u[:, :, z] = torch.where(u[:, :, z] < 0, -1.5, 1.5) + u[:, :, z]
     g = torch.randn(shape, generator=gen, device=dev)
-    return tuple(t.to(dtype) for t in (d, u, g))
+    return tuple(_at_offset(t.to(dtype), offset) for t in (d, u, g))
+
+
+def _at_offset(t, offset: int):
+    """``t`` copied into a contiguous view at storage offset ``offset``."""
+    if offset == 0:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
 
 
 def block_operands(gen, shape, bound, radius, saturate=False, block=8):
@@ -270,8 +284,10 @@ def run_selftest(dev=None, log: bool = True) -> dict:
     for shape in SELFTEST_SHAPES:
         _families(dev, gen, shape, check)
 
-    for (shape, slab), dtype in itertools.product(SPLIT_SHAPES, (torch.float32, torch.bfloat16)):
-        _split_checks(check, split_operands(gen, shape, slab, dtype), f"{tuple(shape)}")
+    for (shape, slab, offset), dtype in itertools.product(SPLIT_SHAPES,
+                                                          (torch.float32, torch.bfloat16)):
+        _split_checks(check, split_operands(gen, shape, slab, dtype, offset),
+                      f"{tuple(shape)}" + (f" offset {offset}" if offset else ""))
 
     blocks = [(s, b, r, 8, s[2:] != MAIN) for s, b, r in BLOCK_SHAPES]
     blocks += [(s, b, r, k, True) for s, b, r, k in BLOCK_VOXEL_SHAPES]

@@ -101,21 +101,37 @@ BF16_ATOL = {"fwd": 2e-5, "bwd": 3e-5}
 BF16_RTOL = 8e-3
 
 
-@pytest.mark.parametrize("shape,slab", [
-    ((2, 3, 16, 24, 40), None), ((1, 3, 2, 9, 33), None), ((3, 3, 17, 10, 70), None),
-    ((2, 3, 40, 24, 130), None), ((2, 3, 40, 24, 130), (14, 19))])
-def test_split_bf16_kernels_match_plain(cuda, shape, slab):
-    """B1-bf16/B2-bf16 against their plain versions (f32 arithmetic, one
-    rounding) at the shapes of the f32 kernels' test, ties included: bf16
-    rounding puts offsets at ``|u| = 1``, where both take no offset
-    gradient.  In a saturated slab the offset gradient is exactly 0."""
-    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+def _bf16_inputs(dev, shape, slab=None, offset=0):
+    """``_split_inputs`` in bf16, ``slab`` saturated, each operand a
+    contiguous view at storage offset ``offset`` of a larger buffer."""
+    from ir_sgmcmc_tpu_torch.selftest import _at_offset
 
-    d, u, g = _split_inputs(cuda, shape)
+    d, u, g = _split_inputs(dev, shape)
     if slab is not None:
         z = slice(*slab)
         u[:, :, z] = torch.where(u[:, :, z] < 0, -1.5, 1.5) + u[:, :, z]
-    d, u, g = (t.to(torch.bfloat16) for t in (d, u, g))
+    return tuple(_at_offset(t.to(torch.bfloat16), offset) for t in (d, u, g))
+
+
+# the f32 kernels' shapes (W 40: a tile across the x border; 33, 70, 130: W
+# not a multiple of 8, 2-byte staging), then W 64 (16-byte staging
+# everywhere) and operands 2 bytes past a 16-byte boundary (2-byte staging)
+BF16_SPLIT_SHAPES = [((2, 3, 16, 24, 40), None, 0), ((1, 3, 2, 9, 33), None, 0),
+                     ((3, 3, 17, 10, 70), None, 0), ((2, 3, 40, 24, 130), None, 0),
+                     ((2, 3, 40, 24, 130), (14, 19), 0), ((2, 3, 16, 24, 64), None, 0),
+                     ((2, 3, 16, 24, 64), None, 1), ((2, 3, 16, 24, 40), None, 1)]
+
+
+@pytest.mark.parametrize("shape,slab,offset", BF16_SPLIT_SHAPES)
+def test_split_bf16_kernels_match_plain(cuda, shape, slab, offset):
+    """B1-bf16/B2-bf16 against their plain versions (f32 arithmetic, one
+    rounding) on both staging paths, ties included: bf16 rounding puts
+    offsets at ``|u| = 1``, where both take no offset gradient.  In a
+    saturated slab the offset gradient is exactly 0."""
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    d, u, g = _bf16_inputs(cuda, shape, slab, offset)
+    assert d.storage_offset() == offset and d.is_contiguous()
     out = sw.split_warp_fwd_cuda(d, u)
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), sw.split_compose_plain(d, u).float(),
@@ -126,9 +142,25 @@ def test_split_bf16_kernels_match_plain(cuda, shape, slab):
     torch.testing.assert_close(gd.float(), gd_p.float(), atol=BF16_ATOL["bwd"], rtol=BF16_RTOL)
     torch.testing.assert_close(gu.float(), gu_p.float(), atol=BF16_ATOL["bwd"], rtol=BF16_RTOL)
     if slab is not None:
+        z = slice(*slab)
         assert torch.equal(gu[:, :, z], torch.zeros_like(gu[:, :, z]))
     with pytest.raises(ValueError, match="dtype"):
         sw.split_warp_fwd_cuda(d, u.float())  # mixed dtypes
+
+
+@pytest.mark.parametrize("shape,offset", [((2, 3, 16, 24, 64), 0), ((2, 3, 16, 24, 40), 0),
+                                          ((2, 3, 16, 24, 64), 1)])
+def test_split_bf16_kernels_deterministic(cuda, shape, offset):
+    """B1-bf16 and B2-bf16 give the same bits run to run on both staging
+    paths (no atomics; each output written by one thread)."""
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    d, u, g = _bf16_inputs(cuda, shape, offset=offset)
+    first = (sw.split_warp_fwd_cuda(d, u),) + sw.split_warp_bwd_cuda(d, u, g)
+    for _ in range(3):
+        again = (sw.split_warp_fwd_cuda(d, u),) + sw.split_warp_bwd_cuda(d, u, g)
+        for a, b in zip(first, again):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("shape,bound,radius,block,saturate", BLOCK_SHAPES)

@@ -198,3 +198,26 @@ def test_convert_and_noise_follow_the_device():
         for convert in (mcmc_state_from_numpy, vi_state_from_numpy):
             with pytest.raises(RuntimeError, match='device="cpu"'):
                 convert(tree)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_operands_at_a_storage_offset(dtype):
+    """The selftest's B1/B2 operands at ``offset`` 1 (the misaligned entry
+    of ``SPLIT_SHAPES``, which takes the bf16 kernels' 2-byte staging) are
+    contiguous views 1 element into a larger buffer, with the values of
+    the aligned draw, and the plain versions take them."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    shape, slab, offset = next(e for e in st.SPLIT_SHAPES if e[2])
+    shape = shape[:2] + (4,) + shape[3:]  # the same (y, x) plane, fewer z-planes
+    aligned = st.split_operands(torch.Generator().manual_seed(3), shape, slab, dtype)
+    shifted = st.split_operands(torch.Generator().manual_seed(3), shape, slab, dtype, offset)
+    for a, s in zip(aligned, shifted):
+        assert s.dtype == dtype and s.is_contiguous() and s.storage_offset() == offset
+        assert s.untyped_storage().nbytes() == (s.numel() + offset) * s.element_size()
+        assert torch.equal(a, s)
+    d, u, g = shifted
+    assert torch.equal(sw.split_compose_plain(d, u), sw.split_compose_plain(*aligned[:2]))
+    for x, y in zip(sw.split_warp_vjp_plain(d, u, g), sw.split_warp_vjp_plain(*aligned)):
+        assert torch.equal(x, y)

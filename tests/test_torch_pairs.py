@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
+
 from ir_sgmcmc_tpu_torch.config import Config
 from ir_sgmcmc_tpu_torch.data import sphere_pair
 from ir_sgmcmc_tpu_torch.engine import (ModelBundle, VIState, init_chains, make_mcmc_chunk,

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
+
 from ir_sgmcmc_tpu.data import synthetic as jsyn
 from ir_sgmcmc_tpu_torch.data import synthetic as tsyn
 

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
+
 from ir_sgmcmc_tpu_torch.config import Config
 from ir_sgmcmc_tpu_torch.engine import VIState
 from ir_sgmcmc_tpu_torch.trainer import DisplacementSaturationAbort, Trainer

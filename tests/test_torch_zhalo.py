@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401  (caps torch's threads per xdist worker)
+
 from ir_sgmcmc_tpu.ops.pallas_warp import warp_bounded_dgrad_pallas, warp_bounded_pallas
 from ir_sgmcmc_tpu.ops.resample import _bwd_dgrads_xla
 from ir_sgmcmc_tpu.parallel.halo import _warp_bounded_zhalo
