@@ -282,7 +282,7 @@ extern "C" int probe_tblend_ry1(const float* disp, const float* g_in, float* out
 template <bool COPY>
 int fwd_stage_launch(const float* vol, const float* disp, float* out, const Geom& g,
                      cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(fwd_stage_kernel<1, COPY>);
+  const cudaError_t attr = allow_smem(fwd_stage_kernel<1, COPY>);
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem = sizeof(float) * FwdRing<1>::RING * g.C * FwdRing<1>::HPP;
   fwd_stage_kernel<1, COPY><<<tile_grid(g, g.C, TY), NT, smem, stream>>>(vol, disp, out, g);

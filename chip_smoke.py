@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port (``ir_sgmcmc_tpu_torch``) on one card.
+"""GPU smoke run of the PyTorch port (``ir_sgmcmc_tpu_torch``) on one card
+(phase 12(d) also on a second card where the host has one).
 
     python3 chip_smoke.py
 
@@ -28,7 +29,9 @@ Phases, each of which raises on failure (exit code != 0):
    R 1 and a ragged 4-channel R 2 shape (the ring kernels) and at R 4 (the
    per-voxel kernels), timed at the first with their library calls, and
    the slab identity: 4 z-slabs of a 128³ volume, each with its real
-   neighbour rows, concatenate to the unsharded B5 and B6 outputs;
+   neighbour rows, concatenate to the unsharded B5 and B6 outputs; B7's
+   z-pad mode (B7Z, y/x folded, the 2R z pad planes kept) at the same
+   three shapes, timed and held to its library call at the first;
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
@@ -98,7 +101,27 @@ Phases, each of which raises on failure (exit code != 0):
    1 + 10 transitions of phase 8's SVFFD model in bf16 (the same
    launches asserted); (c)
    the same for GMM warm-up + 1 + 10 VI steps on "post", beside the same
-   steps in float32; (d) a 64³ bf16 transition, card against CPU.
+   steps in float32; (d) a 64³ bf16 transition, card against CPU;
+12. the multi-device layer (``ir_sgmcmc_tpu_torch/parallel``), on virtual
+   shards of the card: (a) ``separable_conv3d_sharded``,
+   ``gradient_d_sharded`` and ``warp_bounded_sharded`` (forward and both
+   gradients, 1 channel R 1 and 3 channels R 2) over a ``('space',)`` mesh
+   of 4 shards at 128³ against the unsharded ops (B5-B7), with B5Z, B6Z
+   and B7Z launched once per shard and warp in each direction, then each
+   of the three on every shard's own (haloed) operands against its plain
+   version (a ``halo:`` line); (b) phase 3's 10 transitions through
+   ``make_mcmc_chunk(chain_mesh=...)`` over 2 shards against the unsharded
+   chunk (bitwise or not, and the error), one chunk under
+   ``torch.cuda.set_sync_debug_mode("error")``, and both samples/sec (a
+   ``chain_mesh:`` line); (c) the demo config through the CLI with
+   ``--devices`` naming the card twice and ``distribute: true``, cut as
+   in phase 7, then with 4
+   pairs over a 2-shard pair mesh, each summary beside the one-device run's
+   (``distributed_trainer:`` and ``distributed_pairs_trainer:`` lines);
+   (d) with two cards or more, the selftest on every card, (a) and (b)
+   again on real cards, and the demo config over ``cuda:0,cuda:1`` beside
+   phase 7's one-card run (a ``trainer_2cards:`` line), else one line
+   saying they were not run.
 
 The operand builders, shape tables and tolerances of phase 2 are the
 selftest's (``ir_sgmcmc_tpu_torch/selftest.py``); every profile is a
@@ -108,8 +131,8 @@ trainer's: its whole CLI run) and read just after.  Then one JSON line of
 kernel results (B3 and B4 once per radius: ``block_warp_fwd`` at R 2 with
 the dense paths' launches, ``block_warp_fwd_r3`` at R 3 with the SVFFD
 paths'; the bf16 modes of B1/B2 with phase 11's launches; the z-halo modes
-with 0 launches: their only callers, the spatially sharded steps, need
-several devices), the ``nvidia-smi``
+of B5/B6 and the z-pad mode of B7 with phase 12's: no kernel may have 0),
+the ``nvidia-smi``
 name/power line, and the final status line.  Imports nothing of JAX.
 Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
 matmuls and cuDNN.
@@ -437,9 +460,13 @@ ZHALO_SLABS = 4
 
 def phase_zhalo_kernels(dev) -> list:
     """The z-halo modes of B5 and B6 (vol ``2R`` planes deeper than disp,
-    no z clamp) against their plain versions at ``ZHALO_SHAPES``, with the
-    tolerance of the default mode; timed, bounded and held to the library
-    calls at ``(2, 1, 128³)`` R 1.  Then the slab identity that the JAX
+    no z clamp) and the z-pad mode of B7 (B7Z: output ``2R`` planes deeper
+    than g, y/x folded, z not) against their plain versions at
+    ``ZHALO_SHAPES``, with the tolerance of the default mode; timed, bounded
+    and held to the library calls at ``(2, 1, 128³)`` R 1 (B7Z's: the input
+    gradient of ``grid_sample`` on a vol ``2R`` planes deeper, sampled at
+    ``zhalo_grid``, whose points never reach its z border: y and x fold, z
+    does not).  Then the slab identity that the JAX
     package's sharded steps rely on (``parallel/halo.py``): the z-halo
     outputs of 4 z-slabs of a 128³ volume, each given its real neighbour
     rows (edge rows at the two ends), concatenate to the unsharded B5 and
@@ -449,7 +476,7 @@ def phase_zhalo_kernels(dev) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(5678)
     atol, rtol = st.TOL[wb.B5Z.symbol]
-    errs = {wb.B5Z: 0.0, wb.B6Z: 0.0}
+    errs = {wb.B5Z: 0.0, wb.B6Z: 0.0, wb.B7Z: 0.0}
     timed = {}
     for shape, R in st.ZHALO_SHAPES:
         B, C, D, H, W = shape
@@ -460,6 +487,8 @@ def phase_zhalo_kernels(dev) -> list:
                      lambda: wb.warp_bounded_plain(vol, disp, R, z_halo=True)),
             wb.B6Z: (lambda: wb.warp_bounded_dgrad_cuda(vol, disp, g, R, z_halo=True),
                      lambda: wb.warp_bounded_dgrad_plain(vol, disp, g, R, z_halo=True)),
+            wb.B7Z: (lambda: wb.warp_bounded_tblend_cuda(disp, g, R, z_pad=True),
+                     lambda: wb.warp_bounded_tblend_zpad_plain(disp, g, R)),
         }
         for k, (kern, plain) in calls.items():
             errs[k] = max(errs[k], _err(kern(), plain(), atol, rtol, f"{k.symbol} {shape} R {R}"))
@@ -472,13 +501,14 @@ def phase_zhalo_kernels(dev) -> list:
             wb.B5Z: (lambda: _grid_sample(vol, grid), None),
             wb.B6Z: (lambda: (_grid_sample_grads(g, vol, grid, [False, True])[1] * scale
                               ).permute(0, 4, 1, 2, 3).contiguous(), _off_ties(at)),
+            wb.B7Z: (lambda: _grid_sample_grads(g, vol, grid, [True, False])[0], None),
         }
         for k, (kern, plain) in calls.items():
             call, mask = library[k]
             timed[k] = (shape, _time_ms(kern), _time_ms(plain),
                         _library_ms(k.symbol, call, kern(), mask))
     rows = [_row(k, timed[k][0], errs[k], atol, rtol, *timed[k][1:], radius=st.ZHALO_SHAPES[0][1])
-            for k in (wb.B5Z, wb.B6Z)]
+            for k in (wb.B5Z, wb.B6Z, wb.B7Z)]
     _print_rows(rows)
 
     # the slab identity at 128³, R 1 and 2
@@ -511,10 +541,10 @@ POST_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
                   "block_warp_dgrad": 1, "warp_bounded_fwd": 0, "warp_bounded_dgrad": 0,
                   "warp_bounded_tblend": 0, "split_warp_fwd_bf16": 0,
                   "split_warp_bwd_bf16": 0, "warp_bounded_fwd_zhalo": 0,
-                  "warp_bounded_dgrad_zhalo": 0}
-# the z-halo modes' only callers are the JAX package's spatially sharded
-# steps, which one card does not run: no path of this script launches them
-ZHALO = ("warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo")
+                  "warp_bounded_dgrad_zhalo": 0, "warp_bounded_tblend_zpad": 0}
+# the z-halo modes of B5/B6 and the z-pad mode of B7: the halo-exchanged
+# warp (parallel/halo.py) alone calls them, on the halo phase's path
+ZHALO = ("warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo", "warp_bounded_tblend_zpad")
 # the bf16 modes of B1/B2 run only with compute_dtype bf16 (phase 11)
 BF16 = ("split_warp_fwd_bf16", "split_warp_bwd_bf16")
 # kernels that the f32 CLI and quality runs must not launch
@@ -667,7 +697,8 @@ def _vi_problem(dims, device, scheme="pre", cps=None, compute_dtype=None):
 VI_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
                "block_warp_dgrad": 0, "warp_bounded_fwd": 9, "warp_bounded_dgrad": 8,
                "warp_bounded_tblend": 8, "split_warp_fwd_bf16": 0, "split_warp_bwd_bf16": 0,
-               "warp_bounded_fwd_zhalo": 0, "warp_bounded_dgrad_zhalo": 0}
+               "warp_bounded_fwd_zhalo": 0, "warp_bounded_dgrad_zhalo": 0,
+               "warp_bounded_tblend_zpad": 0}
 
 
 def phase_vi(dev) -> dict:
@@ -940,9 +971,10 @@ SVFFD_OVERRIDES = ('data_loader;type="SyntheticDataLoader"',
 
 
 @contextlib.contextmanager
-def _cli_run(tag: str, config: str, extra, phase_methods: dict):
+def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=()):
     """The port's CLI in-process on ``config`` at 128³ (``TRAINER_OVERRIDES``
-    and ``extra``), in a temporary save directory that lives as long as the
+    and ``extra``; ``argv_extra``: more CLI arguments, such as
+    ``--devices``), in a temporary save directory that lives as long as the
     ``with`` block.  Each trainer method of ``phase_methods`` (``{phase:
     name}``; ``"warm-up"`` is the engine's ``gmm_warmup``) is timed (with a
     device sync at its ends) and its launches counted by a wrapper that is
@@ -992,7 +1024,7 @@ def _cli_run(tag: str, config: str, extra, phase_methods: dict):
     root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["-c", str(root / config), "--run-id", "smoke",
-                "-o", f"trainer;save_dir={json.dumps(tmp)}"]
+                "-o", f"trainer;save_dir={json.dumps(tmp)}", *argv_extra]
         for o in TRAINER_OVERRIDES + tuple(extra):
             argv += ["-o", o]
         for obj, name, fn in patches:
@@ -1597,6 +1629,280 @@ def phase_bf16_reference(dev) -> None:
           flush=True)
 
 
+# ---- phase 12: the multi-device layer ----------------------------------------------
+
+HALO_SHARDS = 4
+# (channels, radius) of the halo phase's warps at 128³
+HALO_WARPS = ((1, 1), (3, 2))
+# each warp launches its z-halo/z-pad kernel once per shard in each direction
+HALO_LAUNCHES = {sym: HALO_SHARDS * len(HALO_WARPS) for sym in ZHALO}
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_halo(devices, tag: str = "halo") -> dict:
+    """12(a): the spatially sharded ops of ``parallel/halo.py`` over a
+    ``('space',)`` mesh of HALO_SHARDS shards on ``devices`` (a device may
+    repeat) at 128³: ``separable_conv3d_sharded`` (the Sobolev kernel, s 3)
+    and ``gradient_d_sharded`` on a 3-channel field, and
+    ``warp_bounded_sharded`` forward and both gradients at 1 channel R 1 and
+    3 channels R 2, each against its unsharded op on the first device (the
+    warp: ``warp_bounded``, B5-B7); B5Z, B6Z and B7Z launch once per shard
+    and warp in each direction, and nothing else.  Then B5Z, B6Z and B7Z
+    once more on each shard's own operands, at the shapes the sharded warp
+    gives them (its halo-exchanged vol, its slabs of disp and of the
+    cotangent), against their plain versions.  Tolerance atol 1e-5 plus
+    rtol 1e-5 (B7's, and the selftest's for the three), each check also
+    saying whether it is bitwise.  Returns the launch counts of the
+    sharded run."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+    from ir_sgmcmc_tpu_torch.ops.resample import warp_bounded
+    from ir_sgmcmc_tpu_torch.ops.sobolev import sobolev_kernel_1d
+    from ir_sgmcmc_tpu_torch.ops.stencil import gradient, separable_conv3d
+    from ir_sgmcmc_tpu_torch.parallel import (gather, gradient_d_sharded, make_mesh,
+                                              separable_conv3d_sharded, warp_bounded_sharded)
+
+    dev = devices[0]
+    mesh = make_mesh(HALO_SHARDS, axes=("space",), devices=devices)
+    gen = torch.Generator(device=dev).manual_seed(97)
+    field = torch.randn((3,) + DIMS, generator=gen, device=dev)
+    kernel = torch.as_tensor(sobolev_kernel_1d(3, 0.5)[0], dtype=torch.float32, device=dev)
+    refs = {"conv": separable_conv3d(field, kernel), "gradient_d": gradient(field)[:, 2]}
+    cases = []
+    for C, R in HALO_WARPS:
+        vol, disp, g = (t[0] for t in st.bounded_operands(gen, (1, C) + DIMS, R))
+        v, d = vol.clone().requires_grad_(True), disp.clone().requires_grad_(True)
+        ref = warp_bounded(v[None], d[None], R)[0]
+        r_v, r_d = torch.autograd.grad((ref * g).sum(), [v, d])
+        cases.append((C, R, vol, disp, g, (ref.detach(), r_v, r_d)))
+
+    def sharded_warp(vol, disp, g, R):
+        v, d = vol.clone().requires_grad_(True), disp.clone().requires_grad_(True)
+        out = gather(warp_bounded_sharded(v, d, R, mesh))
+        return (out.detach(),) + torch.autograd.grad((out * g).sum(), [v, d])
+
+    kernels = all_kernels()
+    _sync_all()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    got = {"conv": gather(separable_conv3d_sharded(field, kernel, mesh)),
+           "gradient_d": gather(gradient_d_sharded(field, mesh))}
+    warps = [sharded_warp(vol, disp, g, R) for _, R, vol, disp, g, _ in cases]
+    _sync_all()
+    seconds = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    want = {sym: HALO_LAUNCHES.get(sym, 0) for sym in launches}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    checks = {}
+    for name in ("conv", "gradient_d"):
+        checks[name] = (_err(got[name], refs[name], 1e-5, 1e-5, f"{tag} {name}"),
+                        torch.equal(got[name], refs[name]))
+    for (C, R, vol, disp, g, ref), out in zip(cases, warps):
+        for what, a, b in zip(("out", "g_vol", "g_disp"), out, ref):
+            checks[f"warp C {C} R {R} {what}"] = (
+                _err(a, b, 1e-5, 1e-5, f"{tag} warp C {C} R {R} {what}"), torch.equal(a, b))
+    # each shard's kernels at the shapes of the path, against their plain versions
+    shard_errs, n = {}, DIMS[0] // HALO_SHARDS
+    for C, R, vol, disp, g, _ in cases:
+        # shard i's vol: its planes and R neighbour planes on each side, the
+        # edge plane repeated at the two ends
+        zpad = torch.nn.functional.pad(vol[None], (0, 0, 0, 0, R, R), mode="replicate")
+
+        def cut(t, deeper=0):
+            return [t[:, :, i * n:(i + 1) * n + deeper].to(dv).contiguous()
+                    for i, dv in enumerate(mesh.device_list)]
+
+        for i, (vh, d, gs) in enumerate(zip(cut(zpad, 2 * R), cut(disp[None]), cut(g[None]))):
+            for k, kern, plain in (
+                    (wb.B5Z, lambda: wb.warp_bounded_fwd_cuda(vh, d, R, z_halo=True),
+                     lambda: wb.warp_bounded_plain(vh, d, R, z_halo=True)),
+                    (wb.B6Z, lambda: wb.warp_bounded_dgrad_cuda(vh, d, gs, R, z_halo=True),
+                     lambda: wb.warp_bounded_dgrad_plain(vh, d, gs, R, z_halo=True)),
+                    (wb.B7Z, lambda: wb.warp_bounded_tblend_cuda(d, gs, R, z_pad=True),
+                     lambda: wb.warp_bounded_tblend_zpad_plain(d, gs, R))):
+                a, b = kern(), plain()
+                key = f"{k.symbol} vol {tuple(vh.shape)} R {R}"
+                e = _err(a, b, *st.TOL[k.symbol], f"{tag} shard {i} {key}")
+                old = shard_errs.get(key, (0.0, True))
+                shard_errs[key] = (max(old[0], e), old[1] and torch.equal(a, b))
+    # fwd + bwd of the first warp, sharded against unsharded, in turns
+    C, R, vol, disp, g, _ = cases[0]
+
+    def unsharded():
+        v, d = vol.clone().requires_grad_(True), disp.clone().requires_grad_(True)
+        torch.autograd.grad((warp_bounded(v[None], d[None], R)[0] * g).sum(), [v, d])
+
+    walls = {}
+    for name, fn in (("unsharded", unsharded), ("sharded", lambda: sharded_warp(vol, disp, g, R)),
+                     ("sharded", lambda: sharded_warp(vol, disp, g, R)), ("unsharded", unsharded)):
+        fn()
+        _sync_all()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        _sync_all()
+        walls.setdefault(name, []).append(1e3 * (time.perf_counter() - t1) / 5)
+    record = {"devices": [str(d) for d in mesh.device_list], "shape": list(DIMS),
+              "checks": {k: {"max_abs_err": e, "bitwise": b} for k, (e, b) in checks.items()},
+              "shard_kernels_vs_plain": {k: {"max_abs_err": e, "bitwise": b}
+                                         for k, (e, b) in shard_errs.items()},
+              "launches": {k: v for k, v in launches.items() if v}, "seconds": seconds,
+              "warp_fwd_bwd_ms": walls}
+    print(f"{tag}: {json.dumps(record)}", flush=True)
+    return launches
+
+
+def phase_chain_mesh(devices, tag: str = "chain_mesh") -> dict:
+    """12(b): phase 3's problem (128³, 2 chains, "post") through
+    ``make_mcmc_chunk(chain_mesh=...)`` over a ``('chain',)`` mesh of
+    ``devices`` (a device may repeat), TIMED transitions after one warm-up
+    transition, against the unsharded chunk from the same state: B1 7, B2 7,
+    B3 1, B4 1 launches per transition and shard, the state gathered back
+    against the unsharded one (bitwise, or within atol 1e-5 plus rtol 1e-5
+    with the error printed), and one more chunk under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside a
+    chunk).  Prints the samples/sec of both runs: on one card the gap is
+    the cost of issuing every shard's launches from the one thread.
+    Returns the launch counts of the sharded run."""
+    from ir_sgmcmc_tpu_torch.engine import make_mcmc_chunk
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+    from ir_sgmcmc_tpu_torch.parallel import gather, make_mesh, shard_chain_state
+
+    dev = devices[0]
+    mesh = make_mesh(len(devices), axes=("chain",), devices=devices)
+    bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev)
+
+    def chunk(n, chain_mesh=None):
+        return make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed, moving, chunk=n,
+                               burn_in=0, thin=1, chain_mesh=chain_mesh)
+
+    state, _ = chunk(1)(_init(bundle, opt_gmm, opt_reg, dev))
+    shards = shard_chain_state(state, mesh, CHAINS)
+    chunk(1, mesh)(shards)  # warm-up of the sharded path (its result is dropped)
+    kernels = all_kernels()
+    _sync_all()
+    t0 = time.perf_counter()
+    plain, m_plain = chunk(TIMED)(state)
+    _sync_all()
+    t_plain = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out, m_sharded = chunk(TIMED, mesh)(shards)
+    _sync_all()
+    t_sharded = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    for sym, per in POST_PER_STEP.items():
+        if launches[sym] != per * TIMED * len(devices):
+            raise AssertionError(f"{tag}: {sym} launched {launches[sym]} times, expected "
+                                 f"{per * TIMED * len(devices)}")
+    whole = gather(out)
+    checks = {}
+    for name, a, b in (("v", whole.v, plain.v), ("welford mean", whole.welford.mean,
+                                                   plain.welford.mean),
+                       ("data_term", m_sharded["data_term"], m_plain["data_term"])):
+        checks[name] = {"max_abs_err": _err(a, b, 1e-5, 1e-5, f"{tag} {name}"),
+                        "bitwise": torch.equal(a, b)}
+    one = chunk(1, mesh)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one(out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync_all()
+    rates = {"unsharded": CHAINS * TIMED / t_plain, "sharded": CHAINS * TIMED / t_sharded}
+    print(f"{tag}: {json.dumps({'devices': [str(d) for d in mesh.device_list], 'checks': checks, 'samples_per_sec': rates, 'sync_debug_error_chunk': 'passed'})}",
+          flush=True)
+    print(f"{tag}: {CHAINS} chains x {TIMED} transitions: unsharded {rates['unsharded']:.3f} "
+          f"samples/sec, over {len(devices)} shards {rates['sharded']:.3f} samples/sec "
+          f"({rates['sharded'] / rates['unsharded']:.3f}x)", flush=True)
+    return launches
+
+
+# the trainer shards chains over devices only where this is set explicitly
+DISTRIBUTE_CHAINS = ("trainer;distribute=true",)
+
+
+def phase_distributed_trainer(dev, single: dict, pairs_single: dict) -> dict:
+    """12(c): the demo config through the CLI with ``--devices`` naming the
+    card twice and ``distribute: true``, cut as in phase 7 (the chains over
+    a 2-shard ``('chain',)`` mesh, the VI-test draws over a ``('draw',)``
+    mesh), and again with
+    PAIRS pairs and ``pair_parallel`` (a 2-shard ``('pair',)`` mesh), with
+    phase 7's and 9(c)'s checks; prints each summary beside the one-device
+    run's.  Returns the launch counts of both runs."""
+    argv = ("--devices", f"{dev},{dev}")
+    methods = {"VI": "_run_vi_phase", "VI test": "_test_vi", "MCMC": "_run_mcmc_phase"}
+    paths = {}
+    with _cli_run("distributed_trainer", "configs/demo/config_synthetic.json",
+                  DISTRIBUTE_CHAINS, methods, argv) as r:
+        t, s = r["trainer"], r["summaries"][0]
+        if t._mcmc_mesh.shape != {"chain": 2} or t._draw_mesh.shape != {"draw": 2}:
+            raise AssertionError(f"distributed_trainer: meshes {t._mcmc_mesh}, {t._draw_mesh}")
+        missing = [a for a in TRAINER_ARTIFACTS if not list(r["run_dir"].glob(a))]
+        if missing:
+            raise AssertionError(f"distributed_trainer: artifacts missing: {missing}")
+        paths["distributed_trainer"] = r["launches"]
+    print(f"distributed_trainer: {json.dumps({'summary': s, 'one_device': single['summary'], 'wall_s': r['wall_s'], 'one_device_wall_s': single['wall_s'], 'peak_bytes': r['peak_bytes']}, default=float)}",
+          flush=True)
+    methods = {"VI": "_run_pair_vi_phase", "VI test": "_test_vi",
+               "MCMC": "_run_pair_mcmc_phase"}
+    with _cli_run("distributed_pairs_trainer", "configs/demo/config_synthetic.json",
+                  PAIRS_TRAINER_OVERRIDES, methods, argv) as r:
+        t, summaries = r["trainer"], r["summaries"]
+        if t._pair_mesh is None or t._pair_mesh.shape != {"pair": 2}:
+            raise AssertionError(f"distributed_pairs_trainer: pair mesh {t._pair_mesh}")
+        if len(summaries) != PAIRS:
+            raise AssertionError(f"distributed_pairs_trainer: {len(summaries)} summaries")
+        paths["distributed_pairs_trainer"] = r["launches"]
+    record = {"dsc": [{k: x[k] for k in ("dsc_before", "vi_test_mean_dsc", "mcmc_mean_dsc")}
+                      for x in summaries],
+              "one_device_dsc": pairs_single["dsc"],
+              "mcmc_aggregate_samples_per_sec": summaries[0]["mcmc_aggregate_samples_per_sec"],
+              "one_device_mcmc_aggregate_samples_per_sec":
+                  pairs_single["mcmc_aggregate_samples_per_sec"],
+              "pairs_per_batch": t.pair_groups, "wall_s": r["wall_s"],
+              "one_device_wall_s": pairs_single["wall_s"], "peak_bytes": r["peak_bytes"]}
+    print(f"distributed_pairs_trainer: {json.dumps(record, default=float)}", flush=True)
+    return paths
+
+
+def phase_multi_card(n_cards: int, single: dict) -> dict:
+    """12(d): with two cards or more, the selftest on every card (each
+    kernel's shared-memory opt-in is per card), 12(a) and 12(b) again on
+    real cards (the halo shards cycling over the cards, the chains over
+    two), and the demo config through the CLI over ``cuda:0,cuda:1`` with
+    ``distribute: true``, its summary beside phase 7's one-card run
+    (``single``).  Returns the launch counts of each path."""
+    from ir_sgmcmc_tpu_torch import selftest
+
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    for card in cards:
+        r = selftest.run_selftest(card, log=False)
+        if not r["ok"]:
+            raise AssertionError(f"selftest on {card}: {r['checks']}")
+        print(f"multi_card: selftest on {card}: {len(r['checks'])} checks pass", flush=True)
+    paths = {"halo_cards": phase_halo([cards[i % n_cards] for i in range(HALO_SHARDS)],
+                                      "halo_cards"),
+             "chain_mesh_cards": phase_chain_mesh(cards[:CHAINS], "chain_mesh_cards")}
+    with _cli_run("trainer_2cards", "configs/demo/config_synthetic.json", DISTRIBUTE_CHAINS,
+                  {"MCMC": "_run_mcmc_phase"}, ("--devices", "cuda:0,cuda:1")) as r:
+        t = r["trainer"]
+        if t._mcmc_mesh.shape != {"chain": 2} or t._draw_mesh.shape != {"draw": 2}:
+            raise AssertionError(f"trainer_2cards: meshes {t._mcmc_mesh}, {t._draw_mesh}")
+        paths["trainer_2cards"] = r["launches"]
+    print(f"trainer_2cards: {json.dumps({'summary': r['summaries'][0], 'one_card': single['summary'], 'wall_s': r['wall_s'], 'one_card_wall_s': single['wall_s']}, default=float)}",
+          flush=True)
+    return paths
+
+
 def _to_tree(x, device, dtype=None):
     """Tensors of a nested dict / named tuple on ``device``; floating ones
     also cast to ``dtype`` when given."""
@@ -1648,7 +1954,8 @@ def main() -> int:
     phase_reference(dev)
     paths["vi"] = phase_vi(dev)
     phase_vi_reference(dev)
-    paths["trainer"] = phase_trainer(dev)["launches"]
+    trainer_rec = phase_trainer(dev)
+    paths["trainer"] = trainer_rec["launches"]
     paths.update(phase_svffd(dev))
     for cps in (SVFFD_CPS, 4):
         phase_reference(dev, cps)
@@ -1659,7 +1966,8 @@ def main() -> int:
         "svffd_trainer")["launches"]
     paths.update(phase_pairs(dev, slice_rate))
     phase_pairs_reference(dev)
-    paths["pairs_trainer"] = phase_pairs_trainer(dev)["launches"]
+    pairs_rec = phase_pairs_trainer(dev)
+    paths["pairs_trainer"] = pairs_rec["launches"]
     phase_selftest(dev)
     phase_phantom(dev)
     paths["quality"] = phase_quality(dev, QUALITY_ARGS, "quality")
@@ -1667,6 +1975,15 @@ def main() -> int:
     rows += phase_bf16_kernels(dev)
     paths.update(phase_bf16(dev, slice_rate))
     phase_bf16_reference(dev)
+    paths["halo"] = phase_halo([dev] * HALO_SHARDS)
+    paths["chain_mesh"] = phase_chain_mesh([dev] * CHAINS)
+    paths.update(phase_distributed_trainer(dev, trainer_rec, pairs_rec))
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        paths.update(phase_multi_card(n_cards, trainer_rec))
+    else:
+        print("multi_card: one card: 12(d) (the selftest on every card, 12(a)-(b) and the demo "
+              "config on two real cards) not run", flush=True)
 
     kernels = []
     for r in rows:
@@ -1683,12 +2000,9 @@ def main() -> int:
                         "launches": sum(p[k.symbol] for p in on),
                         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": bound, "bound_by": by, "library_ms": r["library_ms"]})
-    unlaunched = [r["name"] for r in kernels if r["launches"] == 0 and r["name"] not in ZHALO]
+    unlaunched = [r["name"] for r in kernels if r["launches"] == 0]
     if unlaunched:
         raise AssertionError(f"kernels never launched on a main path: {unlaunched}")
-    print(f"zhalo: {', '.join(ZHALO)} launched "
-          f"{[sum(p[z] for p in paths.values()) for z in ZHALO]} times on the paths: their "
-          f"only callers, the spatially sharded steps, need several devices", flush=True)
     if not all(math.isfinite(r["ms"]) for r in kernels):
         raise AssertionError("kernel timing failed")
     print(f"smoke: all phases in {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -420,7 +420,8 @@ dim3 window_grid(const Geom& g) { return dim3((g.W + TXB - 1) / TXB, g.H / TYB, 
 template <int R>
 int fwd_window(const float* vol, const float* r, const int* m, float* out, const Geom& g,
                cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // set on every launch: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
       fwd_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
   fwd_window_kernel<R><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, out, g);
@@ -430,7 +431,8 @@ int fwd_window(const float* vol, const float* r, const int* m, float* out, const
 template <int R>
 int dgrad_window(const float* vol, const float* r, const int* m, const float* g_in,
                  float* out, const Geom& g, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // set on every launch: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
       dgrad_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
   dgrad_window_kernel<R><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, g_in,

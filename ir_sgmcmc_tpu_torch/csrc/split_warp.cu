@@ -831,7 +831,8 @@ int launch_bwd(const void* d, const void* u, const void* g_in, void* gd,
                void* gu, const Geom& g, void* stream) {
   constexpr bool f32 = std::is_same_v<T, float>;
   constexpr size_t smem = f32 ? BWD_SMEM : BWD16_SMEM;
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // set on every launch: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
       split_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   split_bwd_kernel<T><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, smem,

@@ -14,6 +14,16 @@
 //    (_tblend_kernel) together with the caller's edge fold: d(sum_c g_c
 //    out_c)/dvol, the transpose blend with the edge padding folded back onto
 //    the border voxels, i.e. ir_sgmcmc_tpu/ops/resample.py::_bwd_tblend_xla.
+// B7Z warp_bounded_tblend_zpad: B7 with the z fold left out, for a z-slab
+//    of a volume split along z (ir_sgmcmc_tpu/parallel/halo.py::
+//    _local_tblend_zpad, the Pallas kernel's output with only the caller's
+//    y fold): the output (B, C, D + 2R, H, W) keeps the R planes on each
+//    side that belong to the neighbouring slabs.  In gather form an output
+//    plane p in [-R, D + R) collects only the taps that land exactly on p:
+//    Wz(s, p - s) = tri(d~_z(s) - (p - s)), unfolded.  The same kernels as
+//    B7 under a template flag (ZP) that swaps the z weights and widens the
+//    z-chunks and the output by R per side; its bound is B7's plus the 2R
+//    extra output planes.
 //
 // Taps.  The Pallas kernels stage z-windows and shift them with lane rolls
 // and clamped-shift masks because Mosaic has no fast gather.  Along each
@@ -135,6 +145,7 @@ struct Geom {
   float R;
   int vec;  // B5: W % 4 == 0 and vol 16-byte aligned, so rows may go by 16 bytes
   int zh;   // z-halo mode: vol carries zh = R real rows per side in z, else 0
+  int zp;   // B7's z-pad mode: the output keeps zp = R unfolded planes per side, else 0
 };
 
 // vol's depth: D, or D + 2R in z-halo mode
@@ -245,13 +256,14 @@ struct Halo {
 };
 
 // One block's place: (x, y) tile of TX x tile_h, batch element, chunk of
-// `chunk` channels, z-chunk.
+// `chunk` channels, z-chunk.  With zp > 0 (B7's z-pad mode) the z-chunks
+// tile the target planes -zp .. D+zp-1, so z0 may be negative.
 struct Place {
   int x0, y0, z0, nz, b, c0, nc;
 };
 
-__device__ __forceinline__ Place place(const Geom& g, int chunk, int tile_h) {
-  const int nzc = (g.D + TZ - 1) / TZ, nchunks = (g.C + chunk - 1) / chunk;
+__device__ __forceinline__ Place place(const Geom& g, int chunk, int tile_h, int zp = 0) {
+  const int nzc = (g.D + 2 * zp + TZ - 1) / TZ, nchunks = (g.C + chunk - 1) / chunk;
   const int zc = blockIdx.z % nzc, rest = blockIdx.z / nzc;
   Place p;
   p.x0 = blockIdx.x * TX;
@@ -259,8 +271,8 @@ __device__ __forceinline__ Place place(const Geom& g, int chunk, int tile_h) {
   p.b = rest / nchunks;
   p.c0 = (rest % nchunks) * chunk;
   p.nc = min(chunk, g.C - p.c0);
-  p.z0 = zc * TZ;
-  p.nz = min(TZ, g.D - p.z0);
+  p.z0 = zc * TZ - zp;
+  p.nz = min(TZ, g.D + zp - p.z0);
   return p;
 }
 
@@ -552,18 +564,22 @@ __global__ void __launch_bounds__(NT, kFwdMinBlocks)
   }
 }
 
-template <int R, int RY, int NC>
+// ZP: the z-pad mode (B7Z).  The z weights are tri(d~ - delta) unfolded and
+// the targets span the planes -R .. D+R-1, written to output planes 0 ..
+// D+2R-1; y and x fold as in the default mode.
+template <int R, int RY, int NC, bool ZP = false>
 __global__ void __launch_bounds__(NT)
     tblend_tile_kernel(const float* __restrict__ disp, const float* __restrict__ gin,
                        float* __restrict__ out, Geom g) {
   using Hl = Halo<R, RY>;
   constexpr int N = Hl::N, HX = Hl::HX, HP = Hl::HP, LPT = Hl::LPT;
+  constexpr int ZPAD = ZP ? R : 0;  // unfolded target planes per side
   extern __shared__ float smem[];  // 2 x [Wz[N] | Wy[N] | Q[nc][N]] planes of HP
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int D = g.D, H = g.H, W = g.W;
-  const Place pl = place(g, NC, TY * RY);
+  const Place pl = place(g, NC, TY * RY, ZPAD);
   const int nc = pl.nc, buf_len = (2 + nc) * N * HP;
-  const long long P = (long long)H * W, V = D * P;
+  const long long P = (long long)H * W, V = D * P, Vo = (D + 2 * ZPAD) * P;
   const float* db = disp + (long long)pl.b * 3 * V;
   const float* gb = gin + ((long long)pl.b * g.C + pl.c0) * V;
   // haloed source points of this thread: (sy, sx), inside the (y, x) plane
@@ -611,7 +627,13 @@ __global__ void __launch_bounds__(NT)
         if (i >= HP) continue;
         float wz[N] = {}, wy[N] = {}, wx[N] = {};
         if (in[j]) {
-          folded<R>(clipf(rd[j][2], Rf), s, D, wz);
+          if constexpr (ZP) {
+            const float dz = clipf(rd[j][2], Rf);
+#pragma unroll
+            for (int t = 0; t < N; ++t) wz[t] = tri(dz - (float)(t - R));
+          } else {
+            folded<R>(clipf(rd[j][2], Rf), s, D, wz);
+          }
           folded<R>(clipf(rd[j][1], Rf), sy[j], H, wy);
           folded<R>(clipf(rd[j][0], Rf), sx[j], W, wx);
         }
@@ -657,13 +679,13 @@ __global__ void __launch_bounds__(NT)
     }
     const int t_out = s - R;  // no later source plane reaches it
     if (x < W && t_out >= pl.z0) {
-      float* o = out + ((long long)pl.b * g.C + pl.c0) * V + (long long)t_out * P + x;
+      float* o = out + ((long long)pl.b * g.C + pl.c0) * Vo + (long long)(t_out + ZPAD) * P + x;
 #pragma unroll
       for (int u = 0; u < RY; ++u)
         if (y + u < H)
 #pragma unroll
           for (int c = 0; c < NC; ++c)
-            if (c < nc) o[c * V + (long long)(y + u) * W] = acc[u][c][0];
+            if (c < nc) o[c * Vo + (long long)(y + u) * W] = acc[u][c][0];
     }
 #pragma unroll
     for (int u = 0; u < RY; ++u)
@@ -677,7 +699,9 @@ __global__ void __launch_bounds__(NT)
 }
 
 // B7 at any radius: one target plane at a time; each source plane's haloed
-// sources in chunks of NT, each staged once per (target plane, chunk).
+// sources in chunks of NT, each staged once per (target plane, chunk).  ZP:
+// the z-pad mode, as in tblend_tile_kernel.
+template <bool ZP>
 __global__ void __launch_bounds__(NT)
     tblend_any_kernel(const float* __restrict__ disp, const float* __restrict__ gin,
                       float* __restrict__ out, Geom g, int R) {
@@ -686,9 +710,10 @@ __global__ void __launch_bounds__(NT)
   __shared__ float sG[kChunk][NT];         // Wz(p, dz) g_c(p)
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int D = g.D, H = g.H, W = g.W;
-  const Place pl = place(g, kChunk, TY);
+  const int zpad = ZP ? R : 0;
+  const Place pl = place(g, kChunk, TY, zpad);
   const int nc = pl.nc, HX = TX + 2 * R, HP = HX * (TY + 2 * R);
-  const long long P = (long long)H * W, V = D * P;
+  const long long P = (long long)H * W, V = D * P, Vo = (D + 2 * zpad) * P;
   const float* db = disp + (long long)pl.b * 3 * V;
   const float* gb = gin + ((long long)pl.b * g.C + pl.c0) * V;
   const int x = pl.x0 + tx, y = pl.y0 + ty;
@@ -705,7 +730,8 @@ __global__ void __launch_bounds__(NT)
           float wz = 0.0f;
           const long long o = in ? (long long)s * P + (long long)py * W + px : 0;
           if (in) {
-            wz = fold_at(fold(clipf(db[2 * V + o], g.R), s, D, R), z - s);
+            const float dz = clipf(db[2 * V + o], g.R);
+            wz = ZP ? tri(dz - (float)(z - s)) : fold_at(fold(dz, s, D, R), z - s);
             fy = fold(clipf(db[V + o], g.R), py, H, R);
             fx = fold(clipf(db[o], g.R), px, W, R);
           }
@@ -735,9 +761,9 @@ __global__ void __launch_bounds__(NT)
       }
     }
     if (live) {
-      float* o = out + ((long long)pl.b * g.C + pl.c0) * V + (long long)z * P +
+      float* o = out + ((long long)pl.b * g.C + pl.c0) * Vo + (long long)(z + zpad) * P +
                  (long long)y * W + x;
-      for (int c = 0; c < nc; ++c) o[c * V] = acc[c];
+      for (int c = 0; c < nc; ++c) o[c * Vo] = acc[c];
     }
   }
 }
@@ -747,11 +773,15 @@ dim3 grid_for(const Geom& g, dim3 block) {
               g.B * g.D);
 }
 
+// z-chunks over the target planes: D, or D + 2R in B7's z-pad mode
 dim3 tile_grid(const Geom& g, int chunk, int tile_h) {
   return dim3((g.W + TX - 1) / TX, (g.H + tile_h - 1) / tile_h,
-              g.B * ((g.C + chunk - 1) / chunk) * ((g.D + TZ - 1) / TZ));
+              g.B * ((g.C + chunk - 1) / chunk) * ((g.D + 2 * g.zp + TZ - 1) / TZ));
 }
 
+// The opt-in to more than 48 KB of dynamic shared memory belongs to the
+// current device's context, so it is set on every launch: set once per
+// process, it would hold only on the card that launched first.
 template <typename K>
 cudaError_t allow_smem(K kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -761,30 +791,47 @@ cudaError_t allow_smem(K kernel) {
 template <int R>
 int dgrad_tile(const float* vol, const float* disp, const float* g_in, float* out,
                const Geom& g, size_t smem, cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(dgrad_tile_kernel<R>);
+  const cudaError_t attr = allow_smem(dgrad_tile_kernel<R>);
   if (attr != cudaSuccess) return (int)attr;
   dgrad_tile_kernel<R><<<tile_grid(g, g.C, TY), NT, smem, stream>>>(vol, disp, g_in, out, g);
   return (int)cudaGetLastError();
 }
 
-template <int R, int RY, int NC>
+template <int R, int RY, int NC, bool ZP = false>
 int tblend_tile_launch(const float* disp, const float* g_in, float* out, const Geom& g,
                        cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(tblend_tile_kernel<R, RY, NC>);
+  const cudaError_t attr = allow_smem(tblend_tile_kernel<R, RY, NC, ZP>);
   if (attr != cudaSuccess) return (int)attr;
   using Hl = Halo<R, RY>;
   const size_t smem = sizeof(float) * 2 * (2 + (g.C < NC ? g.C : NC)) * Hl::N * Hl::HP;
-  tblend_tile_kernel<R, RY, NC><<<tile_grid(g, NC, TY * RY), NT, smem, stream>>>(
+  tblend_tile_kernel<R, RY, NC, ZP><<<tile_grid(g, NC, TY * RY), NT, smem, stream>>>(
       disp, g_in, out, g);
   return (int)cudaGetLastError();
 }
 
 // one channel per block for a single channel, else chunks of kChunk
-template <int R, int RY>
+template <int R, int RY, bool ZP>
 int tblend_tile(const float* disp, const float* g_in, float* out, const Geom& g,
                 cudaStream_t stream) {
-  return g.C == 1 ? tblend_tile_launch<R, RY, 1>(disp, g_in, out, g, stream)
-                  : tblend_tile_launch<R, RY, kChunk>(disp, g_in, out, g, stream);
+  return g.C == 1 ? tblend_tile_launch<R, RY, 1, ZP>(disp, g_in, out, g, stream)
+                  : tblend_tile_launch<R, RY, kChunk, ZP>(disp, g_in, out, g, stream);
+}
+
+// B7 in either mode: the tiled z-march at R 1-3 (two target rows per thread
+// at R 1), else the run-time-R kernel
+template <bool ZP>
+int tblend_entry(const float* disp, const float* g_in, float* out, int B, int C, int D,
+                 int H, int W, int R, void* stream) {
+  Geom g{B, C, D, H, W, (float)R};
+  g.zp = ZP ? R : 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (R) {
+    case 1: return tblend_tile<1, 2, ZP>(disp, g_in, out, g, st);
+    case 2: return tblend_tile<2, 1, ZP>(disp, g_in, out, g, st);
+    case 3: return tblend_tile<3, 1, ZP>(disp, g_in, out, g, st);
+  }
+  tblend_any_kernel<ZP><<<tile_grid(g, kChunk, TY), NT, 0, st>>>(disp, g_in, out, g, R);
+  return (int)cudaGetLastError();
 }
 
 // B6's ring: 2R+3 haloed planes of every channel
@@ -795,7 +842,7 @@ size_t dgrad_ring_bytes(int R, int C) {
 template <int R>
 int fwd_tile(const float* vol, const float* disp, float* out, const Geom& g,
              cudaStream_t stream) {
-  static const cudaError_t attr = allow_smem(fwd_tile_kernel<R>);
+  const cudaError_t attr = allow_smem(fwd_tile_kernel<R>);
   if (attr != cudaSuccess) return (int)attr;
   const size_t smem = sizeof(float) * FwdRing<R>::RING * g.C * FwdRing<R>::HPP;
   fwd_tile_kernel<R><<<tile_grid(g, g.C, TY), NT, smem, stream>>>(vol, disp, out, g);
@@ -885,14 +932,15 @@ extern "C" int warp_bounded_dgrad_zhalo(const float* vol, const float* disp,
 extern "C" int warp_bounded_tblend(const float* disp, const float* g_in, float* out,
                                    int B, int C, int D, int H, int W, int R,
                                    void* stream) {
-  const Geom g{B, C, D, H, W, (float)R};
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (R) {
-    case 1: return tblend_tile<1, 2>(disp, g_in, out, g, st);  // 2 rows per thread
-    case 2: return tblend_tile<2, 1>(disp, g_in, out, g, st);
-    case 3: return tblend_tile<3, 1>(disp, g_in, out, g, st);
-  }
-  tblend_any_kernel<<<tile_grid(g, kChunk, TY), NT, 0, st>>>(
-      disp, g_in, out, g, R);
-  return (int)cudaGetLastError();
+  return tblend_entry<false>(disp, g_in, out, B, C, D, H, W, R, stream);
+}
+
+// B7's z-pad mode (B7Z): disp and g are (B, ., D, H, W), the output (B, C,
+// D + 2R, H, W) keeps the 2R z pad planes unfolded (y and x folded), for a
+// z-slab whose pad planes belong to its neighbours
+// (ir_sgmcmc_tpu/parallel/halo.py::_local_tblend_zpad)
+extern "C" int warp_bounded_tblend_zpad(const float* disp, const float* g_in, float* out,
+                                        int B, int C, int D, int H, int W, int R,
+                                        void* stream) {
+  return tblend_entry<true>(disp, g_in, out, B, C, D, H, W, R, stream);
 }

@@ -9,13 +9,17 @@ from .mcmc import (
     make_sgld_transition_shared,
     posterior_statistics,
 )
-from .pairs import make_pair_mcmc_chunk, make_pair_vi_chunk, stack_trees, unstack_tree
+from .pairs import (make_pair_mcmc_chunk, make_pair_mesh, make_pair_vi_chunk, pair_device_count,
+                    shard_pairs, stack_trees, unstack_tree)
 from .vi import (VIState, count_folds, forward_sample, gmm_warmup, make_vi_chunk,
                  make_vi_step)
 
 __all__ = [
     "stack_trees",
     "unstack_tree",
+    "pair_device_count",
+    "make_pair_mesh",
+    "shard_pairs",
     "make_pair_vi_chunk",
     "make_pair_mcmc_chunk",
     "ModelBundle",

@@ -40,12 +40,17 @@ class ModelBundle:
         if self.sobolev_s is not None:
             k, _ = sobolev_kernel_1d(self.sobolev_s, self.sobolev_lambda)
             self._sobolev_kernel = torch.as_tensor(k, dtype=torch.float32)
+        # the kernel on each device it smooths on: a host copy per call would
+        # wait for the device
+        self._kernel_on = {}
 
     def smooth(self, v: torch.Tensor) -> torch.Tensor:
         """Sobolev-smooth a field (identity backward); no-op when disabled."""
         if self._sobolev_kernel is None:
             return v
-        return sobolev_smooth(v, self._sobolev_kernel)
+        if v.device not in self._kernel_on:
+            self._kernel_on[v.device] = self._sobolev_kernel.to(v.device)
+        return sobolev_smooth(v, self._kernel_on[v.device])
 
     @property
     def field_dims(self) -> tuple:

@@ -14,7 +14,9 @@ Randomness: each chain carries the two 32-bit words of a key
 ``torch.Generator`` on the state's device per chain from its key and the
 step count, so a state (and its conversion from the JAX package) fully
 determines the run; the draws are torch's, not threefry's.  Tests inject
-the JAX draws through ``noise=(eps, unif)`` instead.
+the JAX draws through ``noise=(eps, unif)`` instead.  Cutting the chains
+over a device mesh (``make_mcmc_chunk(chain_mesh=...)``) therefore keeps
+every chain's stream.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import resolve_device
+from ..parallel.mesh import Sharded, gather, run_in_turns
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
@@ -300,32 +303,77 @@ def make_sgld_transition_shared(bundle: ModelBundle, opt_gmm, opt_reg, tau: floa
 
 def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
                     fixed: dict, moving: dict, chunk: int, burn_in: int,
-                    thin: int, param_mode: str = "per_chain", per_row: bool = False):
+                    thin: int, param_mode: str = "per_chain", per_row: bool = False,
+                    chain_mesh=None):
     """``run(state) -> (state, metrics)``: ``chunk`` SGLD transitions over all
     chains as a Python loop; metrics are stacked ``(chunk, C, …)``.
 
     Thinned displacement samples feed the per-chain Welford accumulators
     once past ``burn_in`` (every ``thin`` steps).  ``param_mode`` and
     ``per_row``: see :func:`make_sgld_transition`.
-    """
-    transition = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
-                                      param_mode, per_row)
 
-    def run(state: MCMCState):
-        per_step = []
-        for _ in range(chunk):
-            step = state.step + 1
-            collect = step > burn_in and (step - burn_in) % thin == 0
-            state, metrics = transition(state, 1.0 if collect else 0.0)
-            state = state._replace(step=step)
-            per_step.append(metrics)
-        stacked = {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
-        return state, stacked
+    ``chain_mesh``: a ``('chain',)`` mesh (``parallel.make_mesh``); ``run``
+    then takes and returns a chain-sharded state
+    (``parallel.shard_chain_state``) and each device runs the transition on
+    its own chains, with the images copied to it once.  The devices take
+    turns at every transition, so no card's launch queue fills while
+    another waits, and nothing in a chunk waits on a device, so the cards
+    run at once.  Every chain draws its own stream (its key words and the
+    step), so the chains follow the trajectories of the unsharded run.  The
+    metrics come back gathered on the mesh's first device.  Per-chain
+    parameter sets only, as in the JAX engine (a shared set steps every
+    chain in turn).
+    """
+    if chain_mesh is None:
+        step = _sgld_step(make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
+                                               param_mode, per_row), burn_in, thin)
+
+        def run(state: MCMCState):
+            (state,), (metrics,) = run_in_turns([step], [state], chunk)
+            return state, metrics
+
+        return run
+    if param_mode != "per_chain":
+        raise ValueError("a chain mesh needs per-chain GMM/reg sets (MCMC_params 'per_chain')")
+    devices = chain_mesh.device_list
+
+    def on(images: dict, i: int, dev) -> dict:
+        # per-row images are cut with the chains, shared ones copied
+        n = len(devices)
+        return {k: (t.chunk(n)[i] if per_row else t).to(dev) for k, t in images.items()}
+
+    steps = [_sgld_step(make_sgld_transition(bundle, opt_gmm, opt_reg, tau, on(fixed, i, dev),
+                                             on(moving, i, dev), param_mode, per_row),
+                        burn_in, thin)
+             for i, dev in enumerate(devices)]
+
+    def run(state: Sharded):
+        shards, metrics = run_in_turns(steps, list(state), chunk)
+        dev0 = devices[0]
+        return Sharded(shards, state.mesh, state.cuts), {
+            k: torch.cat([m[k].to(dev0) for m in metrics], dim=1) for k in metrics[0]}
 
     return run
 
 
-def posterior_statistics(state: MCMCState):
-    """Pooled posterior mean/std of the displacement over all chains."""
+def _sgld_step(transition, burn_in: int, thin: int):
+    """``state -> (state, metrics)``: one transition, its thinned sample fed
+    to the Welford accumulators once past ``burn_in``."""
+
+    def step(state: MCMCState):
+        n = state.step + 1
+        weight = 1.0 if n > burn_in and (n - burn_in) % thin == 0 else 0.0
+        state, metrics = transition(state, weight)
+        return state._replace(step=n), metrics
+
+    return step
+
+
+def posterior_statistics(state):
+    """Pooled posterior mean/std of the displacement over all chains; a
+    chain-sharded state merges every shard's accumulators (on the mesh's
+    first device)."""
+    if isinstance(state, Sharded):
+        state = gather(state)
     return welford_finalize(welford_merge(state.welford))
 

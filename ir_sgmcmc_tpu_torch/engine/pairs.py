@@ -1,5 +1,4 @@
-"""Pair-parallel registration on one card (port of
-``ir_sgmcmc_tpu/engine/pairs.py``).
+"""Pair-parallel registration (port of ``ir_sgmcmc_tpu/engine/pairs.py``).
 
 A study registers a population of image pairs, each with its own model
 parameters, optimizer moments, chains and Welford accumulators.  The JAX
@@ -28,20 +27,28 @@ A batch of P pairs peaks at about P times one pair's memory (the JAX
 package's ``lax.map`` holds one pair's working set).  So both chunks take
 ``group``: the pairs run in batches of at most that many, in turn, which
 with ``group=1`` is ``lax.map``'s schedule.  The trainer sizes it from one
-pair's measured peak against the card's free memory.  The mesh helpers of
-the JAX module (``pair_device_count``, ``make_pair_mesh``,
-``shard_pairs``) have no counterpart: one card is one device.
+pair's measured peak against the card's free memory.
+
+Over several devices the pairs are cut over a ``('pair',)`` mesh
+(:func:`make_pair_mesh`, :func:`shard_pairs`, the JAX module's rule: the
+largest device count that tiles the pairs).  With ``mesh=`` the chunks take
+and return a pair-sharded state, and each device runs its own pairs as one
+card does (folded chain rows, batches of ``group``), the devices in turn at
+every step so that all of them stay busy.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .._device import resolve_devices
+from ..parallel.mesh import Mesh, Sharded, place, run_in_turns
 from .mcmc import MCMCState, make_mcmc_chunk
 from .vi import VIState, make_vi_chunk, make_vi_step
 
 __all__ = ["stack_trees", "unstack_tree", "take_pairs", "fold_chains", "unfold_chains",
-           "chain_rows", "make_pair_vi_chunk", "make_pair_mcmc_chunk"]
+           "chain_rows", "pair_device_count", "make_pair_mesh", "shard_pairs",
+           "make_pair_vi_chunk", "make_pair_mcmc_chunk"]
 
 
 def _map(fn, tree):
@@ -90,6 +97,47 @@ def _cat(trees: list):
     if isinstance(first, tuple) and hasattr(first, "_fields"):
         return type(first)(*(_cat([getattr(t, f) for t in trees]) for f in first._fields))
     return torch.cat(trees)
+
+
+def pair_device_count(n_pairs: int, n_devices: int | None = None) -> int:
+    """Largest device count that evenly tiles ``n_pairs`` (default: over
+    every visible CUDA card)."""
+    if n_devices is None:
+        n_devices = len(resolve_devices())
+    d = min(int(n_pairs), int(n_devices))
+    while n_pairs % d:
+        d -= 1
+    return d
+
+
+def make_pair_mesh(n_pairs: int, n_devices: int | None = None, devices=None) -> Mesh:
+    """A ``('pair',)`` mesh over the first :func:`pair_device_count` devices
+    of ``devices`` (default: every visible CUDA card)."""
+    devices = resolve_devices(devices)
+    d = pair_device_count(n_pairs, len(devices) if n_devices is None else n_devices)
+    return Mesh(devices[:d], ("pair",))
+
+
+def shard_pairs(tree, mesh: Mesh) -> Sharded:
+    """Place a pair-stacked tree: every leaf is cut along its leading pair
+    axis over ``'pair'`` (the host leaves, key words and steps, too)."""
+    return place(tree, mesh, lambda x: [(0, "pair")])
+
+
+def _over_mesh(build, mesh: Mesh, chunk: int, state, fixed_st, moving_st):
+    """``chunk`` steps of one-card runners ``build(fixed, moving) -> run(state)
+    -> (state, metrics (P_i, 1, …))``, one per device of ``mesh`` on its own
+    pairs, the devices in turn at every step.  Returns the pair-sharded
+    state and the metrics ``(P, chunk, …)`` on the mesh's first device."""
+    state, fixed, moving = (t if isinstance(t, Sharded) else shard_pairs(t, mesh)
+                            for t in (state, fixed_st, moving_st))
+    local, metrics = run_in_turns([build(f, m) for f, m in zip(fixed, moving)], list(state),
+                                  chunk)
+    dev0 = mesh.device_list[0]
+    # per device (chunk, P_i, 1, …) -> (P_i, chunk, …)
+    return Sharded(local, mesh, state.cuts), {
+        k: torch.cat([m[k].squeeze(2).transpose(0, 1).to(dev0) for m in metrics])
+        for k in metrics[0]}
 
 
 def _in_groups(run, group: int | None):
@@ -146,10 +194,18 @@ def chain_rows(images: dict, no_chains: int) -> dict:
 
 
 def make_pair_vi_chunk(bundle, opt_q_v, opt_gmm, opt_reg, fixed_st: dict, moving_st: dict,
-                       chunk: int, remat: bool = False, group: int | None = None):
+                       chunk: int, remat: bool = False, group: int | None = None,
+                       mesh: Mesh | None = None):
     """``run(state) -> (state, metrics)``: ``chunk`` VI steps of a
     pair-stacked ``VIState`` on pair-stacked images ``(P, D, H, W)``, in
-    batches of at most ``group`` pairs; metrics ``(P, chunk, …)``."""
+    batches of at most ``group`` pairs; metrics ``(P, chunk, …)``.  With a
+    pair ``mesh``, the state (and the images, unless given sharded) are
+    pair-sharded and each device runs its own pairs."""
+    if mesh is not None:
+        def build(f, m):
+            return make_pair_vi_chunk(bundle, opt_q_v, opt_gmm, opt_reg, f, m, 1, remat, group)
+
+        return lambda state: _over_mesh(build, mesh, chunk, state, fixed_st, moving_st)
 
     def run(state: VIState, fixed: dict, moving: dict):
         step = make_vi_step(bundle, opt_q_v, opt_gmm, opt_reg, fixed, moving, remat=remat,
@@ -163,11 +219,18 @@ def make_pair_vi_chunk(bundle, opt_q_v, opt_gmm, opt_reg, fixed_st: dict, moving
 
 def make_pair_mcmc_chunk(bundle, opt_gmm, opt_reg, tau: float, fixed_st: dict,
                          moving_st: dict, chunk: int, burn_in: int, thin: int,
-                         group: int | None = None):
+                         group: int | None = None, mesh: Mesh | None = None):
     """``run(state) -> (state, metrics)``: ``chunk`` SGLD transitions of a
     pair-stacked per-chain ``MCMCState`` (leaves ``(P, C, …)``, ``step
     (P,)``, all pairs at one step) on pair-stacked images ``(P, D, H, W)``,
-    in batches of at most ``group`` pairs; metrics ``(P, chunk, C, …)``."""
+    in batches of at most ``group`` pairs; metrics ``(P, chunk, C, …)``.
+    With a pair ``mesh``, as :func:`make_pair_vi_chunk`."""
+    if mesh is not None:
+        def build(f, m):
+            return make_pair_mcmc_chunk(bundle, opt_gmm, opt_reg, tau, f, m, 1, burn_in, thin,
+                                        group)
+
+        return lambda state: _over_mesh(build, mesh, chunk, state, fixed_st, moving_st)
 
     def run(state: MCMCState, fixed: dict, moving: dict):
         n_pairs, no_chains = state.v.shape[:2]

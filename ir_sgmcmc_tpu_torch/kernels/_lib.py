@@ -40,6 +40,7 @@ _SIGNATURES = {
     "warp_bounded_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_tblend": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "warp_bounded_tblend_zpad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_fwd_zhalo": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad_zhalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -25,9 +25,18 @@ flag), for a z-slab of a volume split along z: ``vol`` is ``(B, C, D + 2R,
 H, W)`` and its R first and last planes are the slab's real neighbour rows,
 so a tap at output plane ``z`` and offset ``o`` reads vol plane ``z + R +
 o`` with no clamp in z; y and x keep the edge padding.  ``disp``, ``g`` and
-the output are ``(B, ., D, H, W)``.  Its callers in the JAX package are the
-spatially sharded steps (``ir_sgmcmc_tpu/parallel/halo.py``); the kernels
-are separate C entries with their own launch counters.
+the output are ``(B, ., D, H, W)``.  The caller is the halo-exchanged warp
+of ``parallel/halo.py`` (the JAX package's ``ir_sgmcmc_tpu/parallel/halo.py``);
+the kernels are separate C entries with their own launch counters.
+
+B7 has a z-pad mode (B7Z, ``warp_bounded_tblend_zpad``): the transpose blend
+with y and x folded onto the border and the ``2R`` z pad planes kept
+unfolded, ``(B, C, D + 2R, H, W)``: output plane ``p + R`` collects the taps
+that land exactly on plane ``p`` in ``[-R, D + R)``.  That is the Pallas
+kernel's output with the caller's y fold and no z fold
+(``ir_sgmcmc_tpu/parallel/halo.py::_local_tblend_zpad``): the pad planes of
+a z-slab carry the gradient mass that belongs to its neighbours, which the
+halo exchange sends to them.
 """
 
 from __future__ import annotations
@@ -58,6 +67,10 @@ B6Z = Kernel("warp_bounded_dgrad_zhalo", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.
 B7 = Kernel("warp_bounded_tblend", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
             "ir_sgmcmc_tpu/ops/pallas_warp.py:372",
             bytes_per_voxel=lambda C: 4 * (2 * C + 3), flops_per_voxel=lambda C: 18 + 16 * C)
+# z-pad mode: the same work per voxel of g, and 2R more output planes written
+B7Z = Kernel("warp_bounded_tblend_zpad", "ir_sgmcmc_tpu_torch/csrc/warp_bounded.cu",
+             "ir_sgmcmc_tpu/ops/pallas_warp.py:372", bytes_per_voxel=B7.bytes_per_voxel,
+             flops_per_voxel=B7.flops_per_voxel, z_halo=True)
 
 
 # ---- plain versions ------------------------------------------------------------
@@ -164,6 +177,12 @@ def warp_bounded_tblend_plain(disp: torch.Tensor, g: torch.Tensor, R: int) -> to
     return fold_edge(tblend_acc_plain(disp, g, R), R)
 
 
+def warp_bounded_tblend_zpad_plain(disp: torch.Tensor, g: torch.Tensor, R: int) -> torch.Tensor:
+    """B7Z's function: the transpose blend with y and x folded and the z pad
+    planes kept, ``(B, C, D + 2R, H, W)``."""
+    return fold_edge(tblend_acc_plain(disp, g, R), R, axes=(-2, -1))
+
+
 # ---- CUDA wrappers -------------------------------------------------------------
 
 def _check(vol_or_g: torch.Tensor, disp: torch.Tensor, R: int, name: str,
@@ -204,11 +223,13 @@ def warp_bounded_dgrad_cuda(vol: torch.Tensor, disp: torch.Tensor, g: torch.Tens
     return out
 
 
-def warp_bounded_tblend_cuda(disp: torch.Tensor, g: torch.Tensor, R: int) -> torch.Tensor:
-    """B7 on the card: the folded volume gradient."""
+def warp_bounded_tblend_cuda(disp: torch.Tensor, g: torch.Tensor, R: int,
+                             z_pad: bool = False) -> torch.Tensor:
+    """B7 on the card: the folded volume gradient, or with ``z_pad`` B7Z,
+    ``(B, C, D + 2R, H, W)`` with the z pad planes unfolded."""
     B, C, D, H, W = _check(g, disp, R, "g")
-    out = torch.empty_like(g)
-    B7.launch(g.device, ptr(disp), ptr(g), ptr(out), B, C, D, H, W, int(R))
+    out = g.new_empty((B, C, D + 2 * int(R), H, W)) if z_pad else torch.empty_like(g)
+    (B7Z if z_pad else B7).launch(g.device, ptr(disp), ptr(g), ptr(out), B, C, D, H, W, int(R))
     return out
 
 
@@ -226,7 +247,9 @@ def warp_bounded_dgrad(vol, disp, g, R: int, z_halo: bool = False) -> torch.Tens
     return warp_bounded_dgrad_plain(vol, disp, g, R, z_halo)
 
 
-def warp_bounded_tblend(disp, g, R: int) -> torch.Tensor:
+def warp_bounded_tblend(disp, g, R: int, z_pad: bool = False) -> torch.Tensor:
     if g.is_cuda:
-        return warp_bounded_tblend_cuda(disp, g, R)
+        return warp_bounded_tblend_cuda(disp, g, R, z_pad)
+    if z_pad:
+        return warp_bounded_tblend_zpad_plain(disp, g, R)
     return warp_bounded_tblend_plain(disp, g, R)

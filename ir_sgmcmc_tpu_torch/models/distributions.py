@@ -12,7 +12,11 @@ _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def _f32(x, like: torch.Tensor | None = None) -> torch.Tensor:
+    """``x`` as float32 on ``like``'s device; a Python number is filled in
+    there (no host-to-device copy, which would wait for the device)."""
     device = like.device if isinstance(like, torch.Tensor) else None
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
@@ -68,9 +72,13 @@ class DirichletPrior:
         if conc.shape[0] != no_classes:
             raise ValueError(f"alpha has {conc.shape[0]} entries, expected {no_classes}")
         self.concentration = conc
+        self._on_device = {}  # a copy per device: no host copy per call
 
     def __call__(self, log_proportions):
-        c = self.concentration.to(log_proportions.device)
+        dev = log_proportions.device
+        if dev not in self._on_device:
+            self._on_device[dev] = self.concentration.to(dev)
+        c = self._on_device[dev]
         return (torch.sum(log_proportions * (c - 1.0), dim=-1)
                 + torch.lgamma(torch.sum(c, dim=-1))
                 - torch.sum(torch.lgamma(c), dim=-1))

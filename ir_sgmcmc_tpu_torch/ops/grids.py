@@ -7,6 +7,8 @@ axis), 1 is y (H axis), 2 is z (D axis).  Normalised coordinates live in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .._device import resolve_device
@@ -32,8 +34,15 @@ def identity_grid(shape, device=None) -> torch.Tensor:
 
 
 def _axis_scale(field: torch.Tensor, numerator: bool) -> torch.Tensor:
-    D, H, W = field.shape[-3:]
-    sizes = torch.tensor([W, H, D], dtype=torch.float32, device=field.device)
+    return _axis_scale_on(tuple(field.shape[-3:]), field.device, numerator)
+
+
+@functools.lru_cache(maxsize=64)
+def _axis_scale_on(shape: tuple, device: torch.device, numerator: bool) -> torch.Tensor:
+    """The per-channel scale, made once per grid and device: a host copy per
+    call would wait for the device (callers never write to it)."""
+    D, H, W = shape
+    sizes = torch.tensor([W, H, D], dtype=torch.float32, device=device)
     scale = 2.0 / (sizes - 1.0) if numerator else (sizes - 1.0) / 2.0
     return scale.reshape(3, 1, 1, 1)
 

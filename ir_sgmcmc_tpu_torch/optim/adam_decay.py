@@ -59,8 +59,9 @@ class AdamDecay:
         t = (new_step - state.reinit_step).to(torch.float32)
         mu = {k: b1 * state.mu[k] + (1.0 - b1) * g for k, g in grads.items()}
         nu = {k: b2 * state.nu[k] + (1.0 - b2) * g * g for k, g in grads.items()}
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=t.device), t)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=t.device), t)
+        # filled on the device, not copied from the host (which would wait)
+        bc1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32, device=t.device), t)
+        bc2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32, device=t.device), t)
         decay = 1.0 + step.to(torch.float32) * self.lr_decay
         updates = {}
         for k in grads:

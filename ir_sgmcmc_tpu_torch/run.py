@@ -3,9 +3,14 @@
     python -m ir_sgmcmc_tpu_torch.run -c configs/demo/config_synthetic.json
     python -m ir_sgmcmc_tpu_torch.run -c config.json -r saved/<name>/<id>/models/vi_latest.npz
     python -m ir_sgmcmc_tpu_torch.run -c config.json -o "trainer;no_iters_VI=64" --device cpu
+    python -m ir_sgmcmc_tpu_torch.run -c config.json --devices cuda:0,cuda:0
 
-The JAX package's ``run.py`` with the same options, plus ``--device``: the
-port runs on the CUDA card unless ``--device cpu`` is given.  Overrides use
+The JAX package's ``run.py`` with the same options, plus ``--device`` and
+``--devices``: the port runs on every visible CUDA card (the VI-test
+draws and ``pair_parallel``'s pairs distributed as the JAX trainer does,
+the chains only with ``trainer.distribute`` set true) unless ``--device`` names one
+device (``cpu`` for the CPU) or ``--devices`` a list, which may repeat a
+device (virtual shards).  Overrides use
 the ``;``-separated nested-key syntax, with ``=value`` parsed as JSON when
 it parses.  Checkpoints of either package resume here.
 """
@@ -33,7 +38,9 @@ def main(argv=None):
                         metavar="a;b;c=value", help="nested config override")
     parser.add_argument("--run-id", default=None, help="run directory id (default: timestamp)")
     parser.add_argument("--device", default=None, choices=("cuda", "cpu"),
-                        help="device (default: the CUDA card)")
+                        help="one device (default: every visible CUDA card)")
+    parser.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                        help="comma-separated devices, e.g. cuda:0,cuda:1 or cpu,cpu")
     args = parser.parse_args(argv)
 
     from .config import Config
@@ -41,7 +48,8 @@ def main(argv=None):
 
     overrides = dict(_parse_override(s) for s in args.override)
     config = Config.from_file(args.config, run_id=args.run_id, overrides=overrides)
-    trainer = Trainer(config, resume=args.resume, device=args.device)
+    devices = args.devices.split(",") if args.devices else None
+    trainer = Trainer(config, resume=args.resume, device=args.device, devices=devices)
     summaries = trainer.run()
     for s in summaries:
         config.logger.info("summary: %s", json.dumps(s, default=float))

@@ -17,7 +17,8 @@ version on the same inputs on the card, at the tolerances of ``TOL``:
   tiles (``SPLIT_SHAPES``, ``BLOCK_SHAPES``, ``BOUNDED_SHAPES``,
   ``ZHALO_SHAPES``, which ``chip_smoke.py`` times): B1/B2 in f32 and in
   bf16 (the saturated z-slab too), B3/B4 at R 1-3 in their
-  window kernels, B5-B7 at R 1-3, the z-halo modes of B5/B6 at R 1, 2, 4;
+  window kernels, B5-B7 at R 1-3, the z-halo modes of B5/B6 and the
+  z-pad mode of B7 at R 1, 2, 4;
 * the per-voxel kernels the window and ring kernels leave to other
   shapes: B3/B4 at block 4 and at R 4, B5-B7 at R 4.
 
@@ -56,7 +57,7 @@ TOL = {"split_warp_fwd": (2e-5, 0.0), "split_warp_bwd": (3e-5, 1e-4),
        "block_warp_fwd": (1e-5, 0.0), "block_warp_dgrad": (5e-4, 1e-4),
        "warp_bounded_fwd": (1e-5, 1e-5), "warp_bounded_dgrad": (1e-5, 1e-5),
        "warp_bounded_tblend": (1e-5, 1e-5), "warp_bounded_fwd_zhalo": (1e-5, 1e-5),
-       "warp_bounded_dgrad_zhalo": (1e-5, 1e-5)}
+       "warp_bounded_dgrad_zhalo": (1e-5, 1e-5), "warp_bounded_tblend_zpad": (1e-5, 1e-5)}
 
 # (shape, slab, offset) of B1/B2: the main path's, a tiny one, one that
 # straddles the tiles and 16-plane z-chunks with u saturated in a z-slab,
@@ -83,9 +84,10 @@ BLOCK_VOXEL_SHAPES = (((2, 2, 12, 8, 20), 5, 2, 4), ((2, 1, 16, 16, 48), 9, 4, 8
 BOUNDED_SHAPES = (((CHAINS, 1) + MAIN, 1), ((CHAINS, 4) + SMALL, 2), ((2, 1, 40, 24, 130), 1),
                   ((1, 2, 17, 10, 70), 2), ((1, 3, 2, 1, 9), 3), ((1, 2, 12, 10, 36), 4))
 
-# (output shape, radius) of the z-halo modes; the vol is 2R planes deeper:
-# the ring kernels at R 1 (timed) and at a ragged 4-channel R 2, the
-# per-voxel kernels at R 4
+# (output shape, radius) of the z-halo modes, and g's shape for B7's z-pad
+# mode; the vol (B7Z: the output) is 2R planes deeper: the ring (tiled)
+# kernels at R 1 (timed) and at a ragged 4-channel R 2, the per-voxel (B7Z:
+# run-time-R) kernels at R 4
 ZHALO_SHAPES = (((CHAINS, 1) + MAIN, 1), ((1, 4, 17, 10, 70), 2), ((1, 2, 9, 12, 40), 4))
 
 
@@ -320,6 +322,8 @@ def run_selftest(dev=None, log: bool = True) -> dict:
               wb.warp_bounded_dgrad_cuda(vol, disp, g, R, z_halo=True),
               wb.warp_bounded_dgrad_plain(vol, disp, g, R, z_halo=True),
               TOL["warp_bounded_dgrad_zhalo"])
+        check(f"warp_bounded_tblend_zpad{tag}", wb.warp_bounded_tblend_cuda(disp, g, R, z_pad=True),
+              wb.warp_bounded_tblend_zpad_plain(disp, g, R), TOL["warp_bounded_tblend_zpad"])
     torch.cuda.synchronize(dev)
     return {"ok": bool(check.ok), "checks": {k: float(f"{v:.3e}") for k, v in check.errs.items()}}
 

@@ -19,10 +19,22 @@ an MCMC period is processed after the next chunk has been dispatched, so a
 guard fires one period after the chunk that tripped it, and the saved
 posterior rolls back to the newest period that passed every guard.
 
-Devices: the trainer runs on the CUDA card unless ``device="cpu"`` is
-passed, and raises without a card.  The engines are functional (no state
-tensor is updated in place), so a state handed to the writer thread needs
-no copy.
+Devices: the trainer runs on every visible CUDA card unless ``devices``
+(a list, which may repeat a device: virtual shards) or ``device`` (one
+device, ``"cpu"`` for the CPU) is given, and raises without a card.  One
+process drives them all, as the JAX trainer does (``parallel/mesh.py``).
+With ``distribute`` on (the default) and several devices, it uses them as
+the JAX trainer does: the VI test's draws over a ``('draw',)`` mesh, one
+per device and round, the pairs of ``pair_parallel`` over a ``('pair',)``
+mesh, and, only where ``distribute: true`` is set explicitly, the MCMC
+chains over a ``('chain',)`` mesh when they divide over the devices
+(per-chain parameter sets only): one thread issues every device's
+launches, and chains over two cards run slower than on one (PERF.md), so
+by default they stay on the first device.  Everything else (GMM
+warm-up, VI, evaluation, artifacts) runs on the first device, and
+checkpoints hold the whole state in the one-device format.  The engines
+are functional (no state tensor is updated in place), so a state handed to
+the writer thread needs no copy.
 
 Random streams: the JAX trainer draws from three threefry streams, the VI
 key ``PRNGKey(seed + pair)``, ``fold_in(key, 101)`` for the VI test and
@@ -41,10 +53,13 @@ shared GMM/reg set; ``vi_remat`` (``"auto"``: on from a dense field of
 recompute.  ``pair_parallel: true`` over several pairs registers them as
 one batch (``engine/pairs.py``; :meth:`Trainer._run_pairs_parallel`).  Not
 ported: ``mcmc_anchor: true`` raises ``NotImplementedError`` (ROADMAP
-rule).  ``distribute``, ``spatial_shards`` and ``vi_spatial_shards`` are
-accepted and, on one card, change nothing, as in the JAX trainer on one
-device.  There is no kernel fallback: a kernel that fails to build or
-launch raises.
+rule), and so do ``spatial_shards`` and ``vi_spatial_shards`` above 1
+where they would cut the MCMC or VI step along D over several devices
+(ROADMAP A, "The spatially sharded training steps"); ``vi_spatial_shards: "auto"``
+runs VI on the first device, which the JAX tests hold equal to the sharded
+step.  On one device all three change nothing, as in the JAX trainer.
+There is no kernel fallback: a kernel that fails to build or launch
+raises.
 
 ``Trainer.timings`` accumulates wall seconds per span of host work (the
 engines' chunks, evaluation, period processing, artifact writes, the
@@ -63,18 +78,19 @@ import time
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import resolve_device, resolve_devices
 from .config import Config
 from .engine import (VIState, gmm_warmup, init_chains, make_mcmc_chunk, make_vi_chunk,
                      make_vi_step, posterior_statistics)
 from .engine.mcmc import welford_finalize, welford_init, welford_update
-from .engine.pairs import (make_pair_mcmc_chunk, make_pair_vi_chunk, stack_trees, take_pairs,
-                           unstack_tree)
+from .engine.pairs import (make_pair_mcmc_chunk, make_pair_mesh, make_pair_vi_chunk,
+                           shard_pairs, stack_trees, take_pairs, unstack_tree)
 from .engine.vi import key_generator
 from .models.sampler import sample_q_v
 from .ops.grids import count_non_diffeomorphic, det_jacobian
 from .ops.resample import warp
 from .ops.stencil import gradient
+from .parallel import Sharded, gather, make_mesh, replicate, shard_chain_state
 from .utils import savers
 from .utils.checkpoint import load_checkpoint, peek_meta, save_checkpoint
 from .utils.metrics import MetricTracker, calc_metrics, dice
@@ -144,13 +160,33 @@ class _Fetch:
         return {k: t.numpy() for k, t in self._host.items()}
 
 
+def _step(state) -> int:
+    """The step count of a state, or of a sharded one (every shard's)."""
+    return int((state[0] if isinstance(state, Sharded) else state).step)
+
+
+def _whole(state):
+    """A state, or a sharded one gathered onto the mesh's first device."""
+    return gather(state) if isinstance(state, Sharded) else state
+
+
 class Trainer:
-    def __init__(self, config: Config, dataset=None, resume: str | None = None, device=None):
+    def __init__(self, config: Config, dataset=None, resume: str | None = None, device=None,
+                 devices=None):
         self.config = config
         self.t_cfg = config["trainer"]
         self.logger = config.logger
         self.writer = config.writer
-        self.device = resolve_device(device)
+        if devices is None:
+            devices = None if device is None else [resolve_device(device)]
+        self.devices = resolve_devices(devices)
+        self.device = self.devices[0]
+        self.distribute = bool(self.t_cfg.get("distribute", True)) and len(self.devices) > 1
+        # the chain mesh runs below one card's samples/sec while one thread
+        # issues every device's launches (PERF.md), so it is not a default:
+        # it needs an explicit ``distribute: true``
+        self.distribute_chains = self.distribute and "distribute" in self.t_cfg
+        self._mcmc_mesh = self._draw_mesh = self._pair_mesh = None
         self.dataset = dataset if dataset is not None else config.build_dataset()
         self.bundle = config.build_bundle()
         self.opt_q_v, self.opt_gmm, self.opt_reg = config.build_optimizers(self.bundle)
@@ -199,6 +235,22 @@ class Trainer:
             raise NotImplementedError(
                 "mcmc_anchor=true (anchored residual warping) is not ported "
                 "(ROADMAP 'Rules of the port', Not ported)")
+        # the JAX trainer's conditions for cutting a step along D
+        n_dev, depth = len(self.devices), int(self.bundle.dims[0])
+        dense = tuple(self.bundle.field_dims) == tuple(self.bundle.dims)
+        spatial = int(self.t_cfg.get("spatial_shards", 1))
+        vi_spatial = self.t_cfg.get("vi_spatial_shards", "auto")
+        if (self.distribute and self.run_mcmc and self.mcmc_param_mode == "per_chain"
+                and spatial > 1 and n_dev % spatial == 0 and dense and depth % spatial == 0
+                and self.no_chains % (n_dev // spatial) == 0):
+            raise NotImplementedError(
+                f"spatial_shards={spatial} (the MCMC step cut along D over {n_dev} devices) "
+                "is not ported (ROADMAP A, 'The spatially sharded training steps')")
+        if (self.distribute and self.run_vi and vi_spatial != "auto" and int(vi_spatial) > 1
+                and dense and depth % int(vi_spatial) == 0 and int(vi_spatial) <= n_dev):
+            raise NotImplementedError(
+                f"vi_spatial_shards={vi_spatial} (the VI step cut along D over several "
+                "devices) is not ported (ROADMAP A, 'The spatially sharded training steps')")
 
     # ------------------------------------------------------------- timing
     def _add_time(self, name: str, seconds: float) -> None:
@@ -276,15 +328,22 @@ class Trainer:
         VI and MCMC phases run pair-stacked: one kernel launch serves every
         pair of a batch, and the batch holds as many pairs as the card's
         free memory does (:meth:`_pair_group`; on the CPU all of them).  Host-side evaluation, artifact saving and the VI test stay
-        per pair, on unstacked state after each phase.  As in the JAX
+        per pair, on unstacked state after each phase.  Over several
+        devices the pairs are cut over a ``('pair',)`` mesh, as in the JAX
+        trainer: each device registers its own pairs.  As in the JAX
         trainer, by design: guards fire on the worst pair and abort the
         whole batch (the same data aborts its sequential run too); the
         per-sample MCMC dumps are replaced by phase-end artifacts; and
-        checkpoints hold the pair-stacked state (in the JAX layout), record
-        the pair count and resume only into a run of as many pairs.
+        checkpoints hold the pair-stacked state (in the JAX layout, gathered
+        from the devices), record the pair count and resume only into a run
+        of as many pairs.
         """
         n_pairs = len(self.dataset)
-        self.logger.info("pair-parallel: %d pairs on %s", n_pairs, self.device)
+        mesh = make_pair_mesh(n_pairs, devices=self.devices)
+        self._pair_mesh = mesh if mesh.size > 1 else None
+        self.logger.info("pair-parallel: %d pairs over %d device(s) %s (%d pair(s) per device)",
+                         n_pairs, mesh.size, [str(d) for d in mesh.device_list],
+                         n_pairs // mesh.size)
         if self.dataset.im_spacing is not None:
             sp = np.ravel(np.asarray(self.dataset.im_spacing, np.float32))
             self.spacing = tuple(np.resize(sp, 3).tolist())
@@ -338,6 +397,8 @@ class Trainer:
                                  f"the VI nor the MCMC phase (meta={meta})")
 
         fixed_st, moving_st = stack_trees(fixeds), stack_trees(movings)
+        if self._pair_mesh is not None:
+            fixed_st, moving_st = (shard_pairs(t, self._pair_mesh) for t in (fixed_st, moving_st))
         if self.run_vi and self.no_iters_vi > 0 and mcmc_resume is None:
             state_st, vi_time = self._run_pair_vi_phase(fixed_st, moving_st,
                                                         stack_trees(states), vi_resume)
@@ -366,12 +427,19 @@ class Trainer:
 
     def _pair_group(self, chunk, state, fixed_st: dict, moving_st: dict) -> int | None:
         """Pairs per batch of the pair-stacked chunks ``chunk(n, group=None,
-        images=(fixed, moving))``.  On the CPU all of them (None).  On the
-        card, as many as its free memory holds at one pair's peak, measured
-        on one step of pair 0 whose result is dropped, after room for two
-        more copies of the pair-stacked ``state`` (the groups' outputs, and
-        their concatenation, beside the input).  The card's peak-memory
-        counter is reset for the measurement."""
+        images=(fixed, moving))``, on each device of a pair mesh its own
+        pairs (``state`` and the images are then pair-sharded).  On the CPU
+        all of them (None).  On the card, as many as its free memory holds
+        at one pair's peak, measured on one step of pair 0 whose result is
+        dropped, after room for two more copies of the pair-stacked
+        ``state`` (the groups' outputs, and their concatenation, beside the
+        input); the free memory is shared among the shards that the mesh
+        puts on the card.  The card's peak-memory counter is reset for the
+        measurement."""
+        shards = 1
+        if isinstance(state, Sharded):
+            shards = state.mesh.count(self.device)
+            state, fixed_st, moving_st = state[0], fixed_st[0], moving_st[0]
         n_pairs = int(state.step.shape[0])
         if self.device.type != "cuda" or n_pairs == 1:
             return None
@@ -379,17 +447,18 @@ class Trainer:
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        chunk(1, images=(take_pairs(fixed_st, one), take_pairs(moving_st, one)))(
+        chunk(1, images=(take_pairs(fixed_st, one), take_pairs(moving_st, one)), mesh=None)(
             take_pairs(state, one))
         torch.cuda.synchronize(dev)
         peak = max(1, torch.cuda.max_memory_allocated(dev) - base)
         state_bytes = sum(t.numel() * t.element_size() for t in _tensors(state) if t.is_cuda)
         free, _ = torch.cuda.mem_get_info(dev)
-        room = (free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-                - 2 * state_bytes)
+        room = ((free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev))
+                // shards - 2 * state_bytes)
         group = max(1, min(n_pairs, int(0.9 * room) // peak))
-        self.logger.info("pair-parallel: one pair peaks at %.3f GiB, %.3f GiB free: %d of %d "
-                         "pairs per batch", peak / 2**30, room / 2**30, group, n_pairs)
+        self.logger.info("pair-parallel: one pair peaks at %.3f GiB, %.3f GiB free per shard "
+                         "(%d on %s): %d of %d pairs per batch", peak / 2**30, room / 2**30,
+                         shards, dev, group, n_pairs)
         self.pair_groups.append(group)
         return group
 
@@ -403,11 +472,14 @@ class Trainer:
             state_st, meta = load_checkpoint(resume, state_st)
             done = int(meta.get("vi_iters", 0))
             self.logger.info("resumed pair-stacked VI from %s at %s", resume, meta)
+        if self._pair_mesh is not None:
+            state_st = shard_pairs(state_st, self._pair_mesh)
         cap = int(self.t_cfg.get("max_device_chunk", 200))
 
-        def chunk(n, group=None, images=(fixed_st, moving_st)):
+        def chunk(n, group=None, images=(fixed_st, moving_st), mesh=self._pair_mesh):
             return make_pair_vi_chunk(self.bundle, self.opt_q_v, self.opt_gmm, self.opt_reg,
-                                      *images, chunk=n, remat=self.vi_remat, group=group)
+                                      *images, chunk=n, remat=self.vi_remat, group=group,
+                                      mesh=mesh)
 
         group = (self._pair_group(chunk, state_st, fixed_st, moving_st)
                  if done < self.no_iters_vi else None)
@@ -443,7 +515,7 @@ class Trainer:
         vi_time = time.perf_counter() - t0
         self.logger.info("VI phase took %.1fs for %d pairs (%.2f aggregate iters/sec)",
                          vi_time, n_pairs, n_pairs * self.no_iters_vi / vi_time)
-        return state_st, vi_time
+        return _whole(state_st), vi_time
 
     def _run_pair_mcmc_phase(self, fixeds, movings, fixed_st, moving_st, states, pair_dirs,
                              resume=None) -> list:
@@ -467,15 +539,18 @@ class Trainer:
             self.logger.info("resumed pair-stacked MCMC from %s at %s", resume, meta)
             done = int(meta.get("mcmc_steps", 0))
             self._restore_radius(meta)
+        if self._pair_mesh is not None:
+            mcmc_st = shard_pairs(mcmc_st, self._pair_mesh)
         cap = int(self.t_cfg.get("max_device_chunk", 200))
         thin = int(self.t_cfg.get("mcmc_thin", 1))
 
-        def chunk(n, group=None, images=(fixed_st, moving_st)):
+        def chunk(n, group=None, images=(fixed_st, moving_st), mesh=self._pair_mesh):
             """Built from ``self.bundle`` as it stands (an escalated radius
             at once)."""
             return make_pair_mcmc_chunk(self.bundle, self.opt_gmm, self.opt_reg,
                                         self.config.tau, *images, chunk=n,
-                                        burn_in=self.no_iters_burn_in, thin=thin, group=group)
+                                        burn_in=self.no_iters_burn_in, thin=thin, group=group,
+                                        mesh=mesh)
 
         group = self._pair_group(chunk, mcmc_st, fixed_st, moving_st) if done < total else None
 
@@ -530,6 +605,7 @@ class Trainer:
             mcmc_time = time.perf_counter() - t0
             savers.flush()
 
+        mcmc_st = _whole(mcmc_st)
         agg = n_pairs * self.no_chains * done / mcmc_time if done else 0.0
         self.logger.info("MCMC phase: %d steps x %d pairs x %d chains in %.1fs "
                          "(%.2f aggregate samples/sec)", done, n_pairs, self.no_chains,
@@ -693,10 +769,12 @@ class Trainer:
 
     def _maybe_checkpoint(self, path, state, meta, force: bool = False) -> None:
         """Time-gated checkpoint, written on the writer thread: at most every
-        ``checkpoint_period_s``, and always at phase ends."""
+        ``checkpoint_period_s``, and always at phase ends.  A sharded state
+        is gathered onto the first device first (the one-device format)."""
         now = time.perf_counter()
         if not force and now - self._last_ckpt_t < self.ckpt_period_s:
             return
+        state = _whole(state)
         savers.submit(self._timed("writer/checkpoint",
                                   lambda: save_checkpoint(path, state, meta)))
         self._last_ckpt_t = time.perf_counter()
@@ -822,6 +900,13 @@ class Trainer:
 
     # ------------------------------------------------------------ VI phase
     def _run_vi_phase(self, fixed, moving, state: VIState, start: int = 0) -> VIState:
+        n_dev, depth = len(self.devices), int(self.bundle.dims[0])
+        if (self.distribute and self.t_cfg.get("vi_spatial_shards", "auto") == "auto"
+                and tuple(self.bundle.field_dims) == tuple(self.bundle.dims)
+                and depth % n_dev == 0):
+            self.logger.info("VI runs on %s: the JAX trainer's vi_spatial_shards 'auto' cuts it "
+                             "along D over %d devices, which is not ported (ROADMAP A, 'The "
+                             "spatially sharded training steps')", self.device, n_dev)
         if self.vi_remat:
             self.logger.info("VI remat on: sequential antithetic chains")
         step_fn = make_vi_step(self.bundle, self.opt_q_v, self.opt_gmm, self.opt_reg,
@@ -919,7 +1004,12 @@ class Trainer:
 
     def _test_vi(self, fixed, moving, state: VIState) -> dict:
         """Posterior draws and their evaluation, the posterior-mean
-        artifacts, and the sampling speed test."""
+        artifacts, and the sampling speed test.
+
+        With ``distribute`` on and at least as many draws as devices, the
+        draws go over a ``('draw',)`` mesh, one per device and round (the
+        JAX trainer's rule), device ``j`` drawing from the VI key with the
+        salt ``101 + j`` (device 0's stream is the one-device run's)."""
         if self.no_samples_vi_test <= 0:
             return {}
         t_start = time.perf_counter()
@@ -928,16 +1018,30 @@ class Trainer:
         fixed_seg_np = _numpy(fixed["seg"])
 
         gen = key_generator(state.key, state.step, self.device, salt=101)
+        draws = [(gen, state.q_v, eval_fn)]  # (generator, q(v), eval) per device
+        if self.distribute and self.no_samples_vi_test >= len(self.devices):
+            self._draw_mesh = make_mesh(len(self.devices), axes=("draw",), devices=self.devices)
+            copies = replicate((state.q_v, fixed, moving), self._draw_mesh)
+            draws += [(key_generator(state.key, state.step, dev, salt=101 + j), q_v,
+                       self._make_eval(f, m))
+                      for j, (dev, (q_v, f, m)) in enumerate(
+                          zip(self._draw_mesh.device_list, copies)) if j > 0]
+            self.logger.info("VI test: %d draws per round over %d devices", len(draws),
+                             len(self.devices))
         welford = welford_init(1, (3,) + tuple(bundle.dims), self.device)
         dscs = []
         save_every = max(1, self.no_samples_vi_test // 10)
-        for i in range(self.no_samples_vi_test):
-            out = _first(eval_fn(sample_q_v(gen, state.q_v)[None]))
-            welford = welford_update(welford, out["displacement"][None], 1.0)
-            self.writer.set_step(i)
-            dscs.append(self._log_seg_metrics(fixed_seg_np, out, "VI_test"))
-            if i % save_every == 0:
-                self._submit_sample(i, out, "VI")
+        i = 0
+        while i < self.no_samples_vi_test:
+            outs = [ev(sample_q_v(g, q_v)[None])
+                    for g, q_v, ev in draws[:self.no_samples_vi_test - i]]
+            for out in map(_first, outs):
+                welford = welford_update(welford, out["displacement"][None].to(self.device), 1.0)
+                self.writer.set_step(i)
+                dscs.append(self._log_seg_metrics(fixed_seg_np, out, "VI_test"))
+                if i % save_every == 0:
+                    self._submit_sample(i, out, "VI")
+                i += 1
         t_draws = time.perf_counter()
         self._add_time("vi_test/draws", t_draws - t_start)
 
@@ -1008,6 +1112,30 @@ class Trainer:
             self.logger.info("resumed MCMC from %s at %s", mcmc_resume, resume_meta)
             self._restore_radius(resume_meta)
 
+        # the JAX trainer's rule: chains over a ('chain',) mesh of every
+        # device when they divide over it (per-chain sets only); images are
+        # copied to each device, evaluation and artifacts stay on the first
+        n_dev = len(self.devices)
+        if (self.distribute and self.mcmc_param_mode == "per_chain"
+                and self.no_chains % n_dev == 0):
+            if self.distribute_chains:
+                self._mcmc_mesh = make_mesh(n_dev, axes=("chain",), devices=self.devices)
+                mcmc = shard_chain_state(mcmc, self._mcmc_mesh, self.no_chains)
+                self.logger.info("distributing %d chains over %d devices %s (slower than one "
+                                 "card while one thread issues every device's launches)",
+                                 self.no_chains, n_dev, [str(d) for d in self.devices])
+            else:
+                self.logger.info("%d chains stay on %s (over %d devices they run slower than "
+                                 "on one card while one thread issues every device's "
+                                 "launches; trainer.distribute=true shards them)",
+                                 self.no_chains, self.device, n_dev)
+
+        def chains_v(mcmc):
+            """Every chain's ``v`` on the first device."""
+            if isinstance(mcmc, Sharded):
+                return torch.cat([s.v.to(self.device) for s in mcmc])
+            return mcmc.v
+
         cap = int(self.t_cfg.get("max_device_chunk", 200))
         thin = int(self.t_cfg.get("mcmc_thin", 1))
 
@@ -1021,7 +1149,7 @@ class Trainer:
                 mcmc, ms = make_mcmc_chunk(
                     self.bundle, self.opt_gmm, self.opt_reg, tau, fixed, moving, chunk=this,
                     burn_in=self.no_iters_burn_in, thin=thin,
-                    param_mode=self.mcmc_param_mode)(mcmc)
+                    param_mode=self.mcmc_param_mode, chain_mesh=self._mcmc_mesh)(mcmc)
                 n -= this
             return mcmc, ms
 
@@ -1030,7 +1158,7 @@ class Trainer:
 
         log_period = max(1, min(self.log_period_mcmc, total))
         summary = {}
-        done = int(mcmc.step)
+        done = _step(mcmc)
         t0 = time.perf_counter()
 
         def process(done_at, fetch, outs, state):
@@ -1093,7 +1221,7 @@ class Trainer:
                         mcmc, ms = run_steps(mcmc, this)
                         done += this
                         t_b = time.perf_counter()
-                        ev = eval_fn(mcmc.v)
+                        ev = eval_fn(chains_v(mcmc))
                         nxt = (done, _Fetch({**_last(ms), "dsc": ev["dsc"]}), ev, mcmc)
                         t_c = time.perf_counter()
                         self._add_time("mcmc/chunks", t_b - t_a)
@@ -1121,7 +1249,7 @@ class Trainer:
                     new_r = self._escalated_radius(e, last_good is not None)
                     if new_r is None:
                         raise
-                    resume_step = int(last_good.step)
+                    resume_step = _step(last_good)
                     summary.setdefault("block_radius_escalations", []).append(
                         self._escalate(e, new_r, resume_step))
                     mcmc = last_good
@@ -1140,8 +1268,9 @@ class Trainer:
         finally:
             summary["mcmc_time_s"] = time.perf_counter() - t0
             t_f = time.perf_counter()
-            if not skip_posterior and float(mcmc.welford.count.sum()) > 1:
-                mean, std = posterior_statistics(mcmc)
+            whole = _whole(mcmc)
+            if not skip_posterior and float(whole.welford.count.sum()) > 1:
+                mean, std = posterior_statistics(whole)
                 savers.save_displacement_mean_and_std_dev(
                     self.save_dirs, self.spacing, mean, std, fixed["mask"], "MCMC")
             t_g = time.perf_counter()
@@ -1156,10 +1285,10 @@ class Trainer:
             t_s = time.perf_counter()
             iters = self.speed_test_iters
             mcmc, _ = run_steps(mcmc, 1)
-            float(torch.sum(mcmc.v))
+            float(torch.sum(chains_v(mcmc)))
             t1 = time.perf_counter()
             mcmc, _ = run_steps(mcmc, iters)
-            float(torch.sum(mcmc.v))
+            float(torch.sum(chains_v(mcmc)))
             dt = time.perf_counter() - t1
             sps = self.no_chains * iters / dt
             self.logger.info("MCMC sampling speed: %.2f samples/sec", sps)

@@ -239,7 +239,7 @@ def test_autograd_functions_on_card_match_cpu(cuda):
         grads = torch.autograd.grad((o * g.to(dev)).sum() + (w * gv.to(dev)).sum(),
                                     (dd, uu, xx))
         outs[dev.type] = [t.detach().cpu() for t in (o, w, *grads)]
-    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1] + [0] * 7
+    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1] + [0] * 8
     for got, ref, atol in zip(outs["cuda"], outs["cpu"], (2e-5, 1e-5, 3e-5, 3e-5, 5e-4)):
         torch.testing.assert_close(got, ref, atol=atol, rtol=1e-4)
 
@@ -338,6 +338,48 @@ def test_zhalo_kernels_match_plain(cuda, shape, radius):
     torch.testing.assert_close(wb.warp_bounded_dgrad_cuda(vol, disp, g, radius, z_halo=True),
                                wb.warp_bounded_dgrad_plain(vol, disp, g, radius, z_halo=True),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,radius", ZHALO_SHAPES)
+def test_tblend_zpad_kernel_matches_plain(cuda, shape, radius):
+    """B7's z-pad mode (B7Z: y/x folded, the 2R z pad planes kept, ``(B, C,
+    D + 2R, H, W)``) against its plain version, at the default mode's
+    tolerance: the tiled kernels at R 1-3 (one and 4-channel chunks, 13
+    channels), the run-time-R kernel at R 4, one plane of g; and bitwise
+    deterministic."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    _, disp, g = _bounded_inputs(cuda, shape, radius)
+    out = wb.warp_bounded_tblend_cuda(disp, g, radius, z_pad=True)
+    assert out.shape == shape[:2] + (shape[2] + 2 * radius,) + shape[3:]
+    torch.testing.assert_close(out, wb.warp_bounded_tblend_zpad_plain(disp, g, radius),
+                               atol=1e-5, rtol=1e-5)
+    assert torch.equal(out, wb.warp_bounded_tblend_cuda(disp, g, radius, z_pad=True))
+
+
+@pytest.mark.parametrize("radius,chan", [(1, 1), (2, 3)])
+def test_halo_warp_on_virtual_shards_matches_unsharded(cuda, radius, chan):
+    """``parallel.warp_bounded_sharded`` over 4 shards of one card: forward
+    and both gradients against the unsharded ``warp_bounded`` (B5-B7) on
+    the card, through B5Z, B6Z and B7Z (one launch per shard each)."""
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+    from ir_sgmcmc_tpu_torch.ops.resample import warp_bounded
+    from ir_sgmcmc_tpu_torch.parallel import gather, make_mesh, warp_bounded_sharded
+
+    shape = (1, chan, 32, 24, 40)
+    vol, disp, probe = _bounded_inputs(cuda, shape, radius)
+    mesh = make_mesh(4, axes=("space",), devices=[cuda] * 4)
+    kernels = (wb.B5Z, wb.B6Z, wb.B7Z)
+    before = [k.launches for k in kernels]
+    v, d = vol[0].clone().requires_grad_(True), disp[0].clone().requires_grad_(True)
+    out = gather(warp_bounded_sharded(v, d, radius, mesh))
+    g_v, g_d = torch.autograd.grad((out * probe[0]).sum(), [v, d])
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 4]
+    v1, d1 = vol.clone().requires_grad_(True), disp.clone().requires_grad_(True)
+    ref = warp_bounded(v1, d1, radius)
+    r_v, r_d = torch.autograd.grad((ref * probe).sum(), [v1, d1])
+    for got, want in ((out, ref[0]), (g_v, r_v[0]), (g_d, r_d[0])):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("radius", [1, 2, 4])

@@ -32,6 +32,9 @@ MAIN_PATH = {
     # output's shape (the vol is 2R planes deeper; radius 0 counts none)
     "warp_bounded_fwd_zhalo": ((2, 1) + N128, 84),
     "warp_bounded_dgrad_zhalo": ((2, 1) + N128, 134),
+    # B7's z-pad mode at chip_smoke.py's R 1 shape: g's shape (the output
+    # is 2R planes deeper; radius 0 counts none)
+    "warp_bounded_tblend_zpad": ((2, 1) + N128, 84),
 }
 
 
@@ -54,15 +57,18 @@ def test_kernel_bytes_and_bound(symbol):
     assert kernel.bytes((2 * B, C, D, H, W)) == pytest.approx(2 * nbytes, rel=1e-9)
 
 
-@pytest.mark.parametrize("symbol", ["warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo"])
+@pytest.mark.parametrize("symbol", ["warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo",
+                                    "warp_bounded_tblend_zpad"])
 @pytest.mark.parametrize("radius", [1, 2])
 def test_zhalo_kernel_bytes_count_the_halo_planes(symbol, radius):
-    """A z-halo kernel reads ``2R`` more vol planes than its output has:
-    ``4·B·C·2R·H·W`` bytes beyond the mode without a halo."""
+    """A z-halo kernel reads ``2R`` more vol planes than its output has, and
+    B7's z-pad mode writes ``2R`` more output planes than g has:
+    ``4·B·C·2R·H·W`` bytes beyond the mode without them."""
     from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
 
     kernel = next(k for k in all_kernels() if k.symbol == symbol)
-    plain = wb.B5 if symbol.startswith("warp_bounded_fwd") else wb.B6
+    plain = {"warp_bounded_fwd_zhalo": wb.B5, "warp_bounded_dgrad_zhalo": wb.B6,
+             "warp_bounded_tblend_zpad": wb.B7}[symbol]
     shape = (2, 4, 32, 24, 40)
     extra = 4 * 2 * 4 * 2 * radius * 24 * 40
     assert kernel.bytes(shape, radius) == plain.bytes(shape) + extra

@@ -206,16 +206,16 @@ def test_uniform_field_noise_matches_jax():
 
 # ---- exports --------------------------------------------------------------------
 
-@pytest.mark.parametrize("package", ["ops", "models", "engine"])
+@pytest.mark.parametrize("package", ["ops", "models", "engine", "parallel"])
 def test_exports_cover_the_jax_packages(package):
-    """Each package exports what the JAX package's does, but the engine's
-    multi-device names (``make_pair_mesh``, ``shard_pairs``): the port runs
-    on one card."""
+    """Each package exports what the JAX package's does, the multi-device
+    names (``parallel``, the engine's ``make_pair_mesh`` and
+    ``shard_pairs``) included."""
     import importlib
 
     jax_names = set(importlib.import_module(f"ir_sgmcmc_tpu.{package}").__all__)
     port = importlib.import_module(f"ir_sgmcmc_tpu_torch.{package}")
     missing = jax_names - set(port.__all__)
-    assert missing == ({"make_pair_mesh", "shard_pairs"} if package == "engine" else set())
+    assert missing == set()
     for name in port.__all__:
         assert getattr(port, name) is not None, name
