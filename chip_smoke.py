@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (``ir_sgmcmc_tpu_torch``) on one card
-(phase 12(d) also on a second card where the host has one).
+(phases 12(d) and 13(d) also on a second card, and 13(d) on four, where the
+host has them).
 
     python3 chip_smoke.py
 
@@ -31,7 +32,13 @@ Phases, each of which raises on failure (exit code != 0):
    the slab identity: 4 z-slabs of a 128³ volume, each with its real
    neighbour rows, concatenate to the unsharded B5 and B6 outputs; B7's
    z-pad mode (B7Z, y/x folded, the 2R z pad planes kept) at the same
-   three shapes, timed and held to its library call at the first;
+   three shapes, timed and held to its library call at the first; the
+   z-halo modes of B1/B2 (B1Z/B2Z: d and u one plane deeper on each side)
+   and of B3/B4 (B3Z/B4Z: the vol a window h planes deeper) at the
+   selftest's ``SPLIT_ZHALO_SHAPES`` and ``BLOCK_ZHALO_SHAPES``, timed at
+   the spatial path's per-shard shapes (2 shards of 128³: d_h ``(2, 3,
+   66, 128, 128)``, the window ``(2, 1, 88, 128, 128)`` at R 2, h 12),
+   B3Z/B4Z held to ``grid_sample`` on the window and its grid gradient;
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
@@ -121,7 +128,24 @@ Phases, each of which raises on failure (exit code != 0):
    (d) with two cards or more, the selftest on every card, (a) and (b)
    again on real cards, and the demo config over ``cuda:0,cuda:1`` beside
    phase 7's one-card run (a ``trainer_2cards:`` line), else one line
-   saying they were not run.
+   saying they were not run;
+13. the spatially sharded steps (``parallel/spatial.py``), on 2 virtual
+   shards of the card: (a) phase 3's 10 transitions through
+   ``make_mcmc_chunk`` on a ``(1, 2)`` ``('chain', 'space')`` mesh against
+   the unsharded chunk from the same state and draws (B1Z 7, B2Z 7, B3Z 1,
+   B4Z 1 launches per transition and shard, B1-B4 none; state and data
+   term within atol 1e-5 plus rtol 1e-5, bitwise or not; one chunk under
+   ``torch.cuda.set_sync_debug_mode("error")``; both samples/sec and each
+   card's peak memory); (b) VI on "post" (GMM warm-up, 10 steps) over a
+   ``('space',)`` mesh of 2 against the unsharded steps (the same
+   launches; the total loss within rtol 1e-4 and one step's q(v) gradient
+   within 1e-4 of its largest element; ``mu`` after the 10 steps printed);
+   a ``spatial:`` line; (c) the demo config through the CLI with
+   ``--devices`` naming the card twice and ``spatial_shards`` and
+   ``vi_spatial_shards`` 2, cut as in phase 7, with phase 7's checks and
+   its Dice beside the one-device run's (a ``spatial_trainer:`` line);
+   (d) with two cards or more, (a)-(c) over two real cards, and with four
+   (a)-(b) at 4 shards over four, else one line saying they were not run.
 
 The operand builders, shape tables and tolerances of phase 2 are the
 selftest's (``ir_sgmcmc_tpu_torch/selftest.py``); every profile is a
@@ -131,7 +155,8 @@ trainer's: its whole CLI run) and read just after.  Then one JSON line of
 kernel results (B3 and B4 once per radius: ``block_warp_fwd`` at R 2 with
 the dense paths' launches, ``block_warp_fwd_r3`` at R 3 with the SVFFD
 paths'; the bf16 modes of B1/B2 with phase 11's launches; the z-halo modes
-of B5/B6 and the z-pad mode of B7 with phase 12's: no kernel may have 0),
+of B5/B6 and the z-pad mode of B7 with phase 12's, those of B1-B4 with
+phase 13's: no kernel may have 0),
 the ``nvidia-smi``
 name/power line, and the final status line.  Imports nothing of JAX.
 Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
@@ -255,9 +280,20 @@ def _init(bundle, opt_gmm, opt_reg, device, seed=0):
 LIB_ATOL, LIB_RTOL = 1e-3, 1e-3
 
 
-def _row(kernel, shape, err, atol, rtol, ms, plain_ms, library_ms=None, radius=None) -> dict:
+def _row(kernel, shape, err, atol, rtol, ms, plain_ms, library_ms=None, radius=None,
+         halo=None) -> dict:
+    """A kernel's result; ``halo``: the z-halo planes on each side that its
+    bound counts (B1Z-B4Z; B5Z-B7Z count ``radius``)."""
     return {"kernel": kernel, "shape": shape, "err": err, "atol": atol, "rtol": rtol,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "radius": radius}
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "radius": radius,
+            "halo": halo}
+
+
+def _bound(r) -> tuple:
+    """A row's ``Kernel.bound_ms``: a z-halo kernel's bound counts its halo
+    planes."""
+    return r["kernel"].bound_ms(r["shape"], r["halo"] if r["halo"] is not None
+                                else r["radius"] or 0)
 
 
 def _grid(disp):
@@ -393,9 +429,10 @@ def phase_kernels(dev) -> list:
 def _print_rows(rows) -> None:
     for r in rows:
         k = r["kernel"]
-        bound, by = k.bound_ms(r["shape"], r["radius"] or 0)
+        bound, by = _bound(r)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         at_r = "" if r["radius"] is None else f" R {r['radius']}"
+        at_r += "" if r["halo"] is None else f" h {r['halo']}"
         print(f"kernel {k.symbol} {tuple(r['shape'])}{at_r}: max_abs_err {r['err']:.3e} (atol "
               f"{r['atol']}, rtol {r['rtol']}) kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}; "
@@ -534,6 +571,82 @@ def phase_zhalo_kernels(dev) -> list:
     return rows
 
 
+def _window_grid(at, h: int):
+    """``grid_sample``'s normalised points in a slab's window ``(D + 2h, H,
+    W)`` at identity + ``at`` (voxels, ``(B, 3, D, H, W)``), z shifted by
+    the halo."""
+    B, _, D, H, W = at.shape
+    z, y, x = torch.meshgrid(*(torch.arange(n, device=at.device, dtype=torch.float32)
+                               for n in (D, H, W)), indexing="ij")
+    return torch.stack([(x + at[:, 0]) * (2.0 / (W - 1)) - 1.0,
+                        (y + at[:, 1]) * (2.0 / (H - 1)) - 1.0,
+                        (z + h + at[:, 2]) * (2.0 / (D + 2 * h - 1)) - 1.0], dim=-1)
+
+
+def phase_spatial_kernels(dev) -> list:
+    """The z-halo modes of B1-B4 (B1Z/B2Z: d and u one plane deeper on each
+    side; B3Z/B4Z: the vol a window ``h`` planes deeper) against their plain
+    versions at the selftest's ``SPLIT_ZHALO_SHAPES`` and
+    ``BLOCK_ZHALO_SHAPES``, with the tolerances of the default modes;
+    timed and bounded at the spatial path's per-shard shapes (2 shards of
+    128³: d_h ``(2, 3, 66, 128, 128)``; the window ``(2, 1, 64 + 2·12, 128,
+    128)`` at R 2).  B3Z and B4Z are held to their library calls
+    (``grid_sample`` on the window, and its grid gradient, whose points
+    never reach the window's z ends); no PyTorch call computes the split
+    step (B1Z/B2Z: none)."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    gen = torch.Generator(device=dev).manual_seed(8765)
+    tol = {k: st.TOL[k.symbol] for k in (sw.B1Z, sw.B2Z, bw.B3Z, bw.B4Z)}
+    errs, timed = dict.fromkeys(tol, 0.0), {}
+    for shape in st.SPLIT_ZHALO_SHAPES:
+        d_h, u_h, g = st.split_zhalo_operands(gen, shape)
+        errs[sw.B1Z] = max(errs[sw.B1Z], _err(sw.split_warp_fwd_zhalo_cuda(d_h, u_h),
+                                              sw.split_compose_zhalo_plain(d_h, u_h),
+                                              *tol[sw.B1Z], f"B1Z {shape}"))
+        for what, a, b in zip(("gd", "gu"), sw.split_compose_zhalo_vjp(d_h, u_h, g),
+                              sw.split_compose_zhalo_vjp_plain(d_h, u_h, g)):
+            errs[sw.B2Z] = max(errs[sw.B2Z], _err(a, b, *tol[sw.B2Z], f"B2Z {what} {shape}"))
+        if shape == st.SPLIT_ZHALO_SHAPES[0]:
+            timed[sw.B1Z] = (shape, _time_ms(lambda: sw.split_warp_fwd_zhalo_cuda(d_h, u_h)),
+                             _time_ms(lambda: sw.split_compose_zhalo_plain(d_h, u_h)), None)
+            timed[sw.B2Z] = (shape, _time_ms(lambda: sw.split_warp_bwd_zhalo_cuda(d_h, u_h, g)),
+                             _time_ms(lambda: sw.split_warp_vjp_zhalo_plain(d_h, u_h, g)), None)
+    for shape, bound, R, block, h in st.BLOCK_ZHALO_SHAPES:
+        vol_h, r, m, g = st.block_zhalo_operands(gen, shape, bound, R, block, h)
+        out = bw.block_warp_zhalo_cuda(vol_h, r, m, R, h, block)
+        dout = bw.block_warp_dgrad_zhalo_cuda(vol_h, r, m, g, R, h, block)
+        errs[bw.B3Z] = max(errs[bw.B3Z], _err(out, bw.block_warp_plain(vol_h, r, m, block, h),
+                                              *tol[bw.B3Z], f"B3Z {shape} R {R} h {h}"))
+        errs[bw.B4Z] = max(errs[bw.B4Z], _err(
+            dout, bw.block_warp_dgrad_plain(vol_h, r, m, g, block, h), *tol[bw.B4Z],
+            f"B4Z {shape} R {R} h {h}"))
+        if shape != st.BLOCK_ZHALO_SHAPES[0][0]:
+            continue
+        at = bw._expand_blocks(m, block).float() + r
+        grid = _window_grid(at, h)
+        Dv, H, W = vol_h.shape[2:]
+        scale = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1), 2.0 / (Dv - 1)], device=dev)
+        lib3 = _library_ms("B3Z", lambda: _grid_sample(vol_h, grid), out)
+        lib4 = _library_ms("B4Z", lambda: (_grid_sample_grads(g, vol_h, grid, [False, True])[1]
+                                           * scale).permute(0, 4, 1, 2, 3).contiguous(),
+                           dout, _off_ties(at))
+        timed[bw.B3Z] = (shape, _time_ms(lambda: bw.block_warp_zhalo_cuda(vol_h, r, m, R, h)),
+                         _time_ms(lambda: bw.block_warp_plain(vol_h, r, m, block, h)), lib3, R, h)
+        timed[bw.B4Z] = (shape, _time_ms(lambda: bw.block_warp_dgrad_zhalo_cuda(vol_h, r, m, g,
+                                                                               R, h)),
+                         _time_ms(lambda: bw.block_warp_dgrad_plain(vol_h, r, m, g, block, h)),
+                         lib4, R, h)
+    rows = [_row(k, timed[k][0], errs[k], *tol[k], *timed[k][1:4], halo=1)
+            for k in (sw.B1Z, sw.B2Z)]
+    rows += [_row(k, timed[k][0], errs[k], *tol[k], *timed[k][1:4], radius=timed[k][4],
+                  halo=timed[k][5]) for k in (bw.B3Z, bw.B4Z)]
+    _print_rows(rows)
+    return rows
+
+
 # launches per transition, and per VI step on "post", of the dense and SVFFD
 # models alike: the integration's 7 split compositions forward and backward
 # and one block-gather warp
@@ -541,14 +654,19 @@ POST_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
                   "block_warp_dgrad": 1, "warp_bounded_fwd": 0, "warp_bounded_dgrad": 0,
                   "warp_bounded_tblend": 0, "split_warp_fwd_bf16": 0,
                   "split_warp_bwd_bf16": 0, "warp_bounded_fwd_zhalo": 0,
-                  "warp_bounded_dgrad_zhalo": 0, "warp_bounded_tblend_zpad": 0}
+                  "warp_bounded_dgrad_zhalo": 0, "warp_bounded_tblend_zpad": 0,
+                  "split_warp_fwd_zhalo": 0, "split_warp_bwd_zhalo": 0,
+                  "block_warp_fwd_zhalo": 0, "block_warp_dgrad_zhalo": 0}
 # the z-halo modes of B5/B6 and the z-pad mode of B7: the halo-exchanged
 # warp (parallel/halo.py) alone calls them, on the halo phase's path
 ZHALO = ("warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo", "warp_bounded_tblend_zpad")
 # the bf16 modes of B1/B2 run only with compute_dtype bf16 (phase 11)
 BF16 = ("split_warp_fwd_bf16", "split_warp_bwd_bf16")
+# the z-halo modes of B1-B4: the spatially sharded steps alone call them (phase 13)
+SPATIAL = ("split_warp_fwd_zhalo", "split_warp_bwd_zhalo", "block_warp_fwd_zhalo",
+           "block_warp_dgrad_zhalo")
 # kernels that the f32 CLI and quality runs must not launch
-NOT_ON_F32_RUNS = ("warp_bounded_dgrad", "warp_bounded_tblend") + ZHALO + BF16
+NOT_ON_F32_RUNS = ("warp_bounded_dgrad", "warp_bounded_tblend") + ZHALO + BF16 + SPATIAL
 
 
 def _timed_run(run, state, steps: int, what: str, per_step: dict):
@@ -971,7 +1089,8 @@ SVFFD_OVERRIDES = ('data_loader;type="SyntheticDataLoader"',
 
 
 @contextlib.contextmanager
-def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=()):
+def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=(),
+             not_launched=NOT_ON_F32_RUNS):
     """The port's CLI in-process on ``config`` at 128³ (``TRAINER_OVERRIDES``
     and ``extra``; ``argv_extra``: more CLI arguments, such as
     ``--devices``), in a temporary save directory that lives as long as the
@@ -979,7 +1098,8 @@ def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=()):
     name}``; ``"warm-up"`` is the engine's ``gmm_warmup``) is timed (with a
     device sync at its ends) and its launches counted by a wrapper that is
     removed after.  Every counter is set to 0 just before the run and read
-    just after.  Yields ``{"summaries", "trainer", "wall_s", "launches",
+    just after: the kernels of ``not_launched`` must read 0, every other
+    kernel more.  Yields ``{"summaries", "trainer", "wall_s", "launches",
     "phases", "peak_bytes", "run_dir"}``."""
     import tempfile
 
@@ -1050,10 +1170,10 @@ def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=()):
                 if not (math.isfinite(s[key]) and s[key] >= s["dsc_before"] - 0.05):
                     raise AssertionError(f"{tag}: pair {s['pair']} {key} {s[key]} against "
                                          f"dsc_before {s['dsc_before']} (bar: 0.05 below it)")
-        bad = [sym for sym, n in launches.items() if (n == 0) != (sym in NOT_ON_F32_RUNS)]
+        bad = [sym for sym, n in launches.items() if (n == 0) != (sym in not_launched)]
         if bad:
-            raise AssertionError(f"{tag}: launches {launches}: B1-B5 must run, B6/B7, the "
-                                 f"bf16 modes and the z-halo modes must not ({bad})")
+            raise AssertionError(f"{tag}: launches {launches}: the kernels of {not_launched} "
+                                 f"must not run, every other must ({bad})")
         peak = max([torch.cuda.max_memory_allocated()]
                    + [p["peak_bytes"] for p in phases.values()])
         yield {"summaries": summaries, "trainer": t, "wall_s": wall, "launches": launches,
@@ -1903,6 +2023,217 @@ def phase_multi_card(n_cards: int, single: dict) -> dict:
     return paths
 
 
+# ---- phase 13: the spatially sharded steps -------------------------------------------
+
+SPATIAL_SHARDS = 2
+# launches per step of the sharded "post" step on each shard: its slab's 7
+# split compositions forward and backward and one block-gather warp
+SPATIAL_PER_SHARD = {"split_warp_fwd_zhalo": 7, "split_warp_bwd_zhalo": 7,
+                     "block_warp_fwd_zhalo": 1, "block_warp_dgrad_zhalo": 1}
+# the sharded steps' tolerance against the unsharded ones on the card: the
+# same per-voxel arithmetic, global sums added in another order
+SPATIAL_ATOL, SPATIAL_RTOL = 1e-5, 1e-5
+# VI's gradient (Adam's first moment) against the unsharded step's, as a
+# share of its largest element
+VI_MOMENT_REL = 1e-4
+
+
+def _spatial_per_step(shards: int) -> dict:
+    return {**dict.fromkeys(POST_PER_STEP, 0),
+            **{sym: n * shards for sym, n in SPATIAL_PER_SHARD.items()}}
+
+
+def _timed_on(devices, run, state, steps: int, what: str, per_step: dict):
+    """:func:`_timed_run` over several devices: every card synchronised and
+    its peak counter reset; returns ``(state, metrics, seconds, launches,
+    {device: peak bytes})``."""
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    _sync_all()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = run(state)
+    _sync_all()
+    seconds = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in kernels}
+    for sym, per in per_step.items():
+        if launches[sym] != per * steps:
+            raise AssertionError(f"{what}: {sym} launched {launches[sym]} times in {steps} "
+                                 f"steps, expected {per * steps}")
+    return state, metrics, seconds, launches, {str(d): torch.cuda.max_memory_allocated(d)
+                                               for d in cards}
+
+
+def _close(tag: str, checks: dict) -> dict:
+    """Each ``(sharded, unsharded)`` pair within SPATIAL_ATOL + SPATIAL_RTOL,
+    with its error and whether it is bitwise."""
+    return {name: {"max_abs_err": _err(a, b, SPATIAL_ATOL, SPATIAL_RTOL, f"{tag} {name}"),
+                   "bitwise": torch.equal(a, b)} for name, (a, b) in checks.items()}
+
+
+def phase_spatial(devices, tag: str = "spatial") -> dict:
+    """13(a)-(b): the spatially sharded steps over ``devices`` (a device may
+    repeat: virtual shards), against the unsharded steps on the first.
+    (a) phase 3's problem (128³, 2 chains, "post") through
+    ``make_mcmc_chunk`` on a ``(1, n)`` ``('chain', 'space')`` mesh, TIMED
+    transitions after one warm-up each: B1Z 7, B2Z 7, B3Z 1, B4Z 1 launches
+    per transition and shard and B1-B4 none, the state and the data term
+    against the unsharded chunk's from the same state and draws (atol
+    1e-5 plus rtol 1e-5), one chunk under
+    ``torch.cuda.set_sync_debug_mode("error")``, both samples/sec and each
+    card's peak memory; (b) the same for VI on "post" (GMM warm-up, TIMED
+    steps) through ``make_vi_step`` over a ``('space',)`` mesh: the total
+    loss of every step within rtol 1e-4 and the q(v) gradient of one step
+    (Adam's first moment) within 1e-4 of its largest element of the
+    unsharded step's; ``mu`` after the TIMED steps is printed, not held
+    (Adam turns the rounding of near-zero gradients into steps of ±lr).
+    Prints a ``tag:`` line; returns the launch counts of the two sharded
+    runs."""
+    from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_mcmc_chunk, make_vi_chunk, make_vi_step
+    from ir_sgmcmc_tpu_torch.parallel import (gather, make_mesh, shard_images_spatial,
+                                              shard_state_spatial, shard_tree_spatial)
+
+    dev, n, depth = devices[0], len(devices), DIMS[0]
+    per_step = _spatial_per_step(n)
+    mesh = make_mesh((1, n), axes=("chain", "space"), devices=devices)
+    bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev)
+    fixed_s, moving_s = (shard_images_spatial(x, mesh, depth) for x in (fixed, moving))
+
+    def chunk(k, sharded=False):
+        return make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed_s if sharded else fixed,
+                               moving_s if sharded else moving, chunk=k, burn_in=0, thin=1)
+
+    state, _ = chunk(1)(_init(bundle, opt_gmm, opt_reg, dev))
+    shards = shard_state_spatial(state, mesh, CHAINS, depth)
+    chunk(1, True)(shards)  # warm-up of the sharded path (its result is dropped)
+    plain, m_plain, t_plain, _, peak_plain = _timed_on(
+        [dev], chunk(TIMED), state, TIMED, f"{tag} unsharded", POST_PER_STEP)
+    out, m_sh, t_sh, mcmc_launches, peak_sh = _timed_on(
+        devices, chunk(TIMED, True), shards, TIMED, f"{tag} sharded", per_step)
+    whole = gather(out)
+    mcmc_checks = _close(f"{tag} mcmc", {
+        "v": (whole.v, plain.v), "welford mean": (whole.welford.mean, plain.welford.mean),
+        "data_term": (m_sh["data_term"], m_plain["data_term"])})
+    one = chunk(1, True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        one(out)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync_all()
+
+    vb, vfixed, vmoving, (oq, og, orr), vstate = _vi_problem(DIMS, dev, "post")
+    vmesh = make_mesh((n,), axes=("space",), devices=devices)
+    step = make_vi_step(vb, oq, og, orr, vfixed, vmoving)
+    step_s = make_vi_step(vb, oq, og, orr, *(shard_images_spatial(x, vmesh, depth)
+                                            for x in (vfixed, vmoving)))
+    vstate, _ = make_vi_chunk(step, 1)(gmm_warmup(vb, og, vstate, vfixed, vmoving))
+    vshards = shard_tree_spatial(vstate, vmesh, depth)
+    make_vi_chunk(step_s, 1)(vshards)  # warm-up, dropped
+    vplain, vm_plain, tv_plain, _, vpeak_plain = _timed_on(
+        [dev], make_vi_chunk(step, TIMED), vstate, TIMED, f"{tag} vi unsharded", POST_PER_STEP)
+    vout, vm_sh, tv_sh, vi_launches, vpeak_sh = _timed_on(
+        devices, make_vi_chunk(step_s, TIMED), vshards, TIMED, f"{tag} vi sharded", per_step)
+    # Adam normalises each voxel's gradient, so where it is near 0 the
+    # rounding of the global sums (added over slabs in another order) flips
+    # a step of ±lr: q(v) is compared through its gradient, the first
+    # moment after one step from the same state (0.1·g), and the losses
+    m_u = make_vi_chunk(step, 1)(vstate)[0].opt_q_v.mu
+    m_s = gather(make_vi_chunk(step_s, 1)(vshards)[0]).opt_q_v.mu
+    vi_checks = {}
+    for name in ("mu", "log_var", "u"):
+        scale = float(m_u[name].abs().max())
+        vi_checks[f"first moment {name}"] = {
+            "max_abs_err": _err(m_s[name], m_u[name], VI_MOMENT_REL * scale, 0.0,
+                                f"{tag} vi first moment {name}"),
+            "bitwise": torch.equal(m_s[name], m_u[name]), "max_abs": scale}
+    vi_checks["total_loss"] = {
+        "max_abs_err": _err(vm_sh["total_loss"], vm_plain["total_loss"], 0.0, 1e-4,
+                            f"{tag} vi total_loss"),
+        "bitwise": torch.equal(vm_sh["total_loss"], vm_plain["total_loss"])}
+    mu_diff = (gather(vout).q_v["mu"] - vplain.q_v["mu"]).abs()
+    vi_checks[f"mu after {TIMED} steps (not asserted)"] = {
+        "max_abs_err": float(mu_diff.max()),
+        "elements_beyond_1e-5": int((mu_diff > 1e-5).sum()), "elements": mu_diff.numel()}
+    record = {
+        "devices": [str(d) for d in devices], "shape": list(DIMS), "chains": CHAINS,
+        "tolerance": {"atol": SPATIAL_ATOL, "rtol": SPATIAL_RTOL},
+        "mcmc": {"checks": mcmc_checks,
+                 "samples_per_sec": {"unsharded": CHAINS * TIMED / t_plain,
+                                     "sharded": CHAINS * TIMED / t_sh},
+                 "peak_bytes": {"unsharded": peak_plain, "sharded_per_card": peak_sh},
+                 "sync_debug_error_chunk": "passed"},
+        "vi": {"checks": vi_checks,
+               "iters_per_sec": {"unsharded": TIMED / tv_plain, "sharded": TIMED / tv_sh},
+               "peak_bytes": {"unsharded": vpeak_plain, "sharded_per_card": vpeak_sh}},
+        "launches_per_step": {sym: mcmc_launches[sym] // TIMED for sym in SPATIAL_PER_SHARD}}
+    print(f"{tag}: {json.dumps(record)}", flush=True)
+    r_m, r_v = record["mcmc"]["samples_per_sec"], record["vi"]["iters_per_sec"]
+    print(f"{tag}: over {n} shards {[str(d) for d in devices]}: MCMC {r_m['sharded']:.3f} "
+          f"samples/sec against {r_m['unsharded']:.3f} unsharded "
+          f"({r_m['sharded'] / r_m['unsharded']:.3f}x), VI {r_v['sharded']:.3f} iters/sec "
+          f"against {r_v['unsharded']:.3f} ({r_v['sharded'] / r_v['unsharded']:.3f}x)",
+          flush=True)
+    return {f"{tag}_mcmc": mcmc_launches, f"{tag}_vi": vi_launches}
+
+
+# the sharded trainer runs no default-mode B2 or B4 (every training step is
+# cut; B3 serves the GMM warm-up's one forward chain), nor the blend warp's
+# backward, the halo warp or the bf16 modes
+NOT_ON_SPATIAL_RUNS = (("split_warp_bwd", "block_warp_dgrad")
+                       + tuple(s for s in NOT_ON_F32_RUNS if s not in SPATIAL))
+
+
+def phase_spatial_trainer(devices, single: dict, tag: str = "spatial_trainer") -> dict:
+    """13(c): the demo config through the CLI with ``--devices`` naming
+    ``devices``, ``spatial_shards`` and ``vi_spatial_shards`` at their
+    count, cut as in phase 7 (a ``(1, n)`` ``('chain', 'space')`` mesh for
+    MCMC, a ``('space',)`` mesh of n for VI), with phase 7's checks but the
+    checkpoints; the MCMC and VI-test Dice beside the one-device run's
+    (``single``).  Returns the launch counts of the run."""
+    n = len(devices)
+    extra = (f"trainer;spatial_shards={n}", f"trainer;vi_spatial_shards={n}")
+    methods = {"VI": "_run_vi_phase", "VI test": "_test_vi", "MCMC": "_run_mcmc_phase"}
+    with _cli_run(tag, "configs/demo/config_synthetic.json", extra, methods,
+                  ("--devices", ",".join(str(d) for d in devices)), NOT_ON_SPATIAL_RUNS) as r:
+        t, s = r["trainer"], r["summaries"][0]
+        if t._mcmc_mesh.shape != {"chain": 1, "space": n} or t._vi_mesh.shape != {"space": n}:
+            raise AssertionError(f"{tag}: meshes {t._mcmc_mesh}, {t._vi_mesh}")
+        missing = [a for a in TRAINER_ARTIFACTS if not list(r["run_dir"].glob(a))]
+        if missing:
+            raise AssertionError(f"{tag}: artifacts missing: {missing}")
+    keys = ("dsc_before", "vi_test_mean_dsc", "mcmc_mean_dsc", "mcmc_samples_per_sec",
+            "vi_samples_per_sec")
+    record = {"devices": [str(d) for d in devices], "summary": {k: s[k] for k in keys},
+              "one_device": {k: single["summary"][k] for k in keys},
+              "mcmc_dsc_diff": s["mcmc_mean_dsc"] - single["summary"]["mcmc_mean_dsc"],
+              "wall_s": r["wall_s"], "one_device_wall_s": single["wall_s"],
+              "phase_s": {name: p["s"] for name, p in r["phases"].items()},
+              "peak_bytes": r["peak_bytes"]}
+    print(f"{tag}: {json.dumps(record, default=float)}", flush=True)
+    return {tag: r["launches"]}
+
+
+def phase_spatial_cards(n_cards: int, single: dict) -> dict:
+    """13(d): with two cards or more, 13(a)-(c) over two real cards, and
+    with four, 13(a)-(b) at 4 shards over four.  Returns the launch counts
+    of each path."""
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    paths = phase_spatial(cards[:2], "spatial_2cards")
+    paths.update(phase_spatial_trainer(cards[:2], single, "spatial_trainer_2cards"))
+    if n_cards >= 4:
+        paths.update(phase_spatial(cards[:4], "spatial_4cards"))
+    else:
+        print(f"spatial_4cards: {n_cards} cards: 13(a)-(b) at 4 shards over 4 cards not run",
+              flush=True)
+    return paths
+
+
 def _to_tree(x, device, dtype=None):
     """Tensors of a nested dict / named tuple on ``device``; floating ones
     also cast to ``dtype`` when given."""
@@ -1948,7 +2279,8 @@ def main() -> int:
     for ln in _lib.ptxas_summary(log.read_text()) if log.exists() else []:
         print(f"ptxas: {ln}", flush=True)
 
-    rows = phase_kernels(dev) + phase_blend_kernels(dev) + phase_zhalo_kernels(dev)
+    rows = (phase_kernels(dev) + phase_blend_kernels(dev) + phase_zhalo_kernels(dev)
+            + phase_spatial_kernels(dev))
     paths = {}
     paths["mcmc"], slice_rate = phase_slice(dev)
     phase_reference(dev)
@@ -1984,11 +2316,18 @@ def main() -> int:
     else:
         print("multi_card: one card: 12(d) (the selftest on every card, 12(a)-(b) and the demo "
               "config on two real cards) not run", flush=True)
+    paths.update(phase_spatial([dev] * SPATIAL_SHARDS))
+    paths.update(phase_spatial_trainer([dev] * SPATIAL_SHARDS, trainer_rec))
+    if n_cards >= 2:
+        paths.update(phase_spatial_cards(n_cards, trainer_rec))
+    else:
+        print("spatial_cards: one card: 13(d) (the spatial steps and the demo config over real "
+              "cards) not run", flush=True)
 
     kernels = []
     for r in rows:
         k = r["kernel"]
-        bound, by = k.bound_ms(r["shape"], r["radius"] or 0)
+        bound, by = _bound(r)
         # B3/B4 have a row per radius: R 3 counts the SVFFD paths' launches
         # (block radius 3), R 2 the others'; every other kernel every path's
         per_radius = r["radius"] is not None and not k.z_halo

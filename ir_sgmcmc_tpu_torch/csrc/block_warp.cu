@@ -58,6 +58,16 @@
 // ahead, as B4 does, it read ~54-56% at 40-64 registers: with little work
 // per plane, each plane waited out a memory latency.  Times are in PERF.md.
 
+// The z-halo modes (block_warp_fwd_zhalo / block_warp_dgrad_zhalo, B3Z/B4Z)
+// serve a z-slab of a field cut along D over several devices
+// (ir_sgmcmc_tpu_torch/parallel/halo.py): vol is the slab's window of the
+// moving volume, its D planes and h on each side, and r, m, g and the
+// output are the slab's.  Both kernels (window and per-voxel) read it
+// with Geom::h: output plane z is window plane z + h, and z taps clamp to
+// the window's Dv = D + 2h planes where the default mode clamps to the
+// volume.  With h at least the means' bound + R + 1 no tap reaches the
+// window's ends, so a slab computes exactly what one device does.
+
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
@@ -90,8 +100,12 @@ __device__ __forceinline__ Taps taps(float r, int base, int n) {
   return a;
 }
 
+// D: the output's planes.  h > 0 is the z-halo mode (B3Z, B4Z): vol is a
+// window of Dv = D + 2h planes, output plane z at window plane z + h, and z
+// taps clamp to the window instead of the volume.
 struct Geom {
-  int B, C, D, H, W, block;
+  int B, C, D, H, W, block, h = 0;
+  __host__ __device__ int Dv() const { return D + 2 * h; }
 };
 
 __device__ __forceinline__ int clampi(int i, int n) { return min(max(i, 0), n - 1); }
@@ -114,7 +128,7 @@ __device__ __forceinline__ bool setup(const Geom& g, const float* r,
   const float* rb = r + (long long)b * 3 * V + here;
   tx = taps(rb[0], x + mb[0], g.W);
   ty = taps(rb[V], y + mb[NB], g.H);
-  tz = taps(rb[2 * V], z + mb[2 * NB], g.D);
+  tz = taps(rb[2 * V], z + g.h + mb[2 * NB], g.Dv());
   return true;
 }
 
@@ -126,11 +140,11 @@ __global__ void block_warp_fwd_kernel(const float* __restrict__ vol,
   int b;
   long long here;
   if (!setup(g, r, m, tx, ty, tz, b, here)) return;
-  const long long V = (long long)g.D * g.H * g.W;
+  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)g.Dv() * g.H * g.W;
   const int zi[2] = {tz.i0, tz.i1}, yi[2] = {ty.i0, ty.i1};
   const float wz[2] = {tz.w0, tz.w1}, wy[2] = {ty.w0, ty.w1};
   for (int c = 0; c < g.C; ++c) {
-    const float* vc = vol + ((long long)b * g.C + c) * V;
+    const float* vc = vol + ((long long)b * g.C + c) * Vv;
     float acc = 0.0f;
     for (int a = 0; a < 2; ++a) {
       for (int e = 0; e < 2; ++e) {
@@ -152,7 +166,7 @@ __global__ void block_warp_dgrad_kernel(const float* __restrict__ vol,
   int b;
   long long here;
   if (!setup(g, r, m, tx, ty, tz, b, here)) return;
-  const long long V = (long long)g.D * g.H * g.W;
+  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)g.Dv() * g.H * g.W;
   const int zi[2] = {tz.i0, tz.i1}, yi[2] = {ty.i0, ty.i1};
   const float wz[2] = {tz.w0, tz.w1}, wy[2] = {ty.w0, ty.w1};
   const float dwz[2] = {tz.dw0, tz.dw1}, dwy[2] = {ty.dw0, ty.dw1};
@@ -163,10 +177,10 @@ __global__ void block_warp_dgrad_kernel(const float* __restrict__ vol,
       // sg_k = sum_c g_c V_c[tap k]: channels first, as the Pallas kernel
       float sg0 = 0.0f, sg1 = 0.0f;
       for (int c = 0; c < g.C; ++c) {
-        const long long cb = ((long long)b * g.C + c) * V;
+        const long long cb = ((long long)b * g.C + c) * V, cv = ((long long)b * g.C + c) * Vv;
         const float gc = gin[cb + here];
-        sg0 += gc * vol[cb + ro + tx.i0];
-        sg1 += gc * vol[cb + ro + tx.i1];
+        sg0 += gc * vol[cv + ro + tx.i0];
+        sg1 += gc * vol[cv + ro + tx.i1];
       }
       const float a_sum = tx.dw0 * sg0 + tx.dw1 * sg1;
       const float b_sum = tx.w0 * sg0 + tx.w1 * sg1;
@@ -240,21 +254,21 @@ __device__ __forceinline__ void stage_windows(float* win, const float* vol, cons
                                               const BlockTile& t, const Geom& g) {
   using Wn = Window<R>;
   constexpr int E = Wn::E;
-  const int P = g.H * g.W, V = g.D * P;
+  const int P = g.H * g.W, Vv = g.Dv() * P;
   const int nby = g.H / BK, nbx = g.W / BK, NB = g.D / BK * nby * nbx;
   const int* mb = m + (long long)t.b * 3 * NB + (t.z0 / BK * nby + t.y0 / BK) * nbx + t.x0 / BK;
-  const float* vb = vol + (long long)t.b * g.C * V;
+  const float* vb = vol + (long long)t.b * g.C * Vv;
   for (int q = threadIdx.x; q < NBX * E * E; q += NTB) {
     const int i = q / (E * E), jy = q / E % E, jx = q % E;
     if (t.x0 + i * BK >= g.W) break;  // i only grows with q
     const int ox = t.x0 + i * BK + mb[i] - R, oy = t.y0 + mb[NB + i] - R,
-              oz = t.z0 + mb[2 * NB + i] - R;
+              oz = t.z0 + g.h + mb[2 * NB + i] - R;
     const int col = clampi(oy + jy, g.H) * g.W + clampi(ox + jx, g.W);
     for (int c = 0; c < g.C; ++c) {
       float* dst = win + (c * NBX + i) * Wn::NP + jy * E + jx;
-      const float* src = vb + c * V + col;
+      const float* src = vb + c * Vv + col;
 #pragma unroll
-      for (int jz = 0; jz < E; ++jz) cp_async4(dst + jz * E * E, src + clampi(oz + jz, g.D) * P);
+      for (int jz = 0; jz < E; ++jz) cp_async4(dst + jz * E * E, src + clampi(oz + jz, g.Dv()) * P);
     }
   }
 }
@@ -406,7 +420,7 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
 // The window kernels take block 8, 1 <= R <= 3, windows that fit in shared
 // memory, and batch elements of fewer than 2^31 words (32-bit offsets).
 bool window_fits(const Geom& g, int radius) {
-  if (g.block != BK || (g.C > 3 ? g.C : 3) * ((long long)g.D * g.H * g.W) >= (1LL << 31))
+  if (g.block != BK || (g.C > 3 ? g.C : 3) * ((long long)g.Dv() * g.H * g.W) >= (1LL << 31))
     return false;
   const size_t bytes = radius == 1   ? window_bytes<1>(g.C)
                        : radius == 2 ? window_bytes<2>(g.C)
@@ -445,13 +459,8 @@ dim3 grid_for(const Geom& g, dim3 block) {
               g.B * g.D);
 }
 
-}  // namespace
-
-// radius: the R to which the caller clipped r (|r| <= R)
-extern "C" int block_warp_fwd(const float* vol, const float* r, const int* m,
-                              float* out, int B, int C, int D, int H, int W,
-                              int block, int radius, void* stream) {
-  const Geom g{B, C, D, H, W, block};
+int fwd_entry(const float* vol, const float* r, const int* m, float* out, const Geom& g,
+              int radius, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (window_fits(g, radius)) {
     if (radius == 1) return fwd_window<1>(vol, r, m, out, g, st);
@@ -463,12 +472,8 @@ extern "C" int block_warp_fwd(const float* vol, const float* r, const int* m,
   return (int)cudaGetLastError();
 }
 
-// radius: as for block_warp_fwd
-extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
-                                const float* g_in, float* out, int B, int C,
-                                int D, int H, int W, int block, int radius,
-                                void* stream) {
-  const Geom g{B, C, D, H, W, block};
+int dgrad_entry(const float* vol, const float* r, const int* m, const float* g_in, float* out,
+                const Geom& g, int radius, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (window_fits(g, radius)) {
     if (radius == 1) return dgrad_window<1>(vol, r, m, g_in, out, g, st);
@@ -478,4 +483,39 @@ extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
   const dim3 threads(32, 8);
   block_warp_dgrad_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, g_in, out, g);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// radius: the R to which the caller clipped r (|r| <= R)
+extern "C" int block_warp_fwd(const float* vol, const float* r, const int* m,
+                              float* out, int B, int C, int D, int H, int W,
+                              int block, int radius, void* stream) {
+  return fwd_entry(vol, r, m, out, Geom{B, C, D, H, W, block}, radius, stream);
+}
+
+// radius: as for block_warp_fwd
+extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
+                                const float* g_in, float* out, int B, int C,
+                                int D, int H, int W, int block, int radius,
+                                void* stream) {
+  return dgrad_entry(vol, r, m, g_in, out, Geom{B, C, D, H, W, block}, radius, stream);
+}
+
+// The z-halo modes (B3Z, B4Z) for a z-slab of D planes: vol_h is the
+// slab's window (B, C, D + 2h, H, W), the slab and h planes on each side
+// (past the volume's ends its edge plane repeated); r, m, g_in and out
+// are the slab's.  With h at least the block means' bound plus R + 1, no
+// tap reaches the window's ends.
+extern "C" int block_warp_fwd_zhalo(const float* vol_h, const float* r, const int* m,
+                                    float* out, int B, int C, int D, int H, int W,
+                                    int block, int radius, int h, void* stream) {
+  return fwd_entry(vol_h, r, m, out, Geom{B, C, D, H, W, block, h}, radius, stream);
+}
+
+extern "C" int block_warp_dgrad_zhalo(const float* vol_h, const float* r, const int* m,
+                                      const float* g_in, float* out, int B, int C,
+                                      int D, int H, int W, int block, int radius,
+                                      int h, void* stream) {
+  return dgrad_entry(vol_h, r, m, g_in, out, Geom{B, C, D, H, W, block, h}, radius, stream);
 }

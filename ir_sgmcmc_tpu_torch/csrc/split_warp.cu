@@ -95,6 +95,19 @@
 // per SM at its 96 registers), its outputs costing about as much as the
 // staging.  Times are in PERF.md (kernel table).
 
+// The z-halo modes (split_warp_fwd_zhalo / split_warp_bwd_zhalo, B1Z/B2Z)
+// serve a z-slab of a field cut along D over several devices
+// (ir_sgmcmc_tpu_torch/parallel/halo.py): d and u hold the slab's D planes
+// and one neighbour plane on each side.  They are the f32 kernels above
+// under the template flag ZH.  B1Z (Tile::zh) tiles the D output planes
+// and stages operand plane z0 + k, never clamped, so each output plane
+// reads its real neighbours.  B2Z is B2 on the D + 2 haloed planes with the
+// cotangent zero on the two halo planes, where the forward writes nothing
+// (Tile::stage_interior stages zeros there instead of reading g): its
+// gradients cover the haloed slab, the halo planes' shares unfolded, and
+// the caller's exchange folds them onto the planes' owners.  The default
+// mode's code is unchanged.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -151,21 +164,26 @@ struct Geom {
 };
 
 // One block's place in the volume and its share of the staging copies.
+// zh = 1 (B1's z-halo mode): the operands hold D + 2 planes, the slab's D
+// and a neighbour plane on each side, so relative plane k is operand plane
+// z0 + k, never clamped; the output holds the D planes.
 struct Tile {
-  int x0, y0, z0, nz, b;
-  long long P, V;
+  int x0, y0, z0, nz, b, zh;
+  long long P, V, Vin;  // plane, output volume, operand volume (words)
   int goff[LPT];  // in-plane offset of the clamped (row, col) of slot j
   bool slot[LPT];  // slot j = tid + j*NT is inside the haloed tile
 
-  __device__ Tile(const Geom& g, int tid) {
+  __device__ Tile(const Geom& g, int tid, int zh_ = 0) {
     const int nzc = (g.D + TZ - 1) / TZ;
     x0 = blockIdx.x * TX;
     y0 = blockIdx.y * TY;
     b = blockIdx.z / nzc;
     z0 = (blockIdx.z % nzc) * TZ;
     nz = min(TZ, g.D - z0);
+    zh = zh_;
     P = (long long)g.H * g.W;
     V = g.D * P;
+    Vin = (g.D + 2 * zh) * P;
 #pragma unroll
     for (int j = 0; j < LPT; ++j) {
       const int i = tid + j * NT;
@@ -176,11 +194,12 @@ struct Tile {
     }
   }
 
-  // device-memory offset of relative plane k = 0 .. nz+1 (z0-1 .. z0+nz),
-  // clamped to the volume
-  __device__ long long plane(int k, int D) const {
-    return (long long)min(max(z0 - 1 + k, 0), D - 1) * P;
+  // operand plane of relative plane k = 0 .. nz+1 (z0-1 .. z0+nz), clamped
+  // to the volume (z-halo mode: shifted by the halo plane, no clamp)
+  __device__ int plane_index(int k, int D) const {
+    return zh ? z0 + k : min(max(z0 - 1 + k, 0), D - 1);
   }
+  __device__ long long plane(int k, int D) const { return plane_index(k, D) * P; }
 
   // stage plane k of NSRC 3-channel operands into dst:
   // array s*3+c of the plane is dst[(s*3+c)*HP + r*HX + q], by 4-byte
@@ -193,7 +212,7 @@ struct Tile {
     for (int s = 0; s < NSRC; ++s)
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float* from = src[s] + c * V + zo;
+        const float* from = src[s] + c * Vin + zo;
         float* to = dst + (s * 3 + c) * HP;
 #pragma unroll
         for (int j = 0; j < LPT; ++j) {
@@ -201,6 +220,30 @@ struct Tile {
           cp_async4(to + tid + j * NT, from + goff[j]);
         }
       }
+  }
+
+  // B2's z-halo mode: stage plane k of the cotangent g of the slab's
+  // interior, (3, D - 2, H, W) beside operands of D planes: operand plane z
+  // is g plane z - 1, and the two halo planes (and the clamped planes past
+  // them) read 0, as the forward writes no output there
+  __device__ void stage_interior(float* dst, const float* src, int k, int D,
+                                 int tid) const {
+    const int zg = plane_index(k, D) - 1;
+    const bool in = zg >= 0 && zg < D - 2;
+    const long long Vg = (D - 2) * P;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float* from = src + c * Vg + (in ? zg : 0) * P;
+      float* to = dst + c * HP;
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        if (!slot[j]) continue;
+        if (in)
+          cp_async4(to + tid + j * NT, from + goff[j]);
+        else
+          to[tid + j * NT] = 0.0f;
+      }
+    }
   }
 };
 
@@ -220,16 +263,17 @@ __device__ __forceinline__ void stage_lerp_x(const float* s, float* sA,
   }
 }
 
-template <typename T>
+// ZH: B1's z-halo mode (B1Z), d and u of D + 2 planes (Tile, zh)
+template <typename T, bool ZH = false>
 __global__ void __launch_bounds__(NT)
     split_fwd_kernel(const T* __restrict__ d, const T* __restrict__ u,
                      T* __restrict__ out, Geom g) {
   __shared__ float stg[FWD_RING][6 * HP];  // d(3), u(3) of a plane
   __shared__ float sA[3 * HY * TX];
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const Tile t(g, tid);
-  const T* src[2] = {d + (long long)t.b * 3 * t.V,
-                     u + (long long)t.b * 3 * t.V};
+  const Tile t(g, tid, ZH ? 1 : 0);
+  const T* src[2] = {d + (long long)t.b * 3 * t.Vin,
+                     u + (long long)t.b * 3 * t.Vin};
   const int x = t.x0 + tx, y = t.y0 + ty;
   const bool live = x < g.W && y < g.H;
   T* outp = out + (long long)t.b * 3 * t.V + (long long)y * g.W + x;
@@ -275,7 +319,9 @@ constexpr int BWD_STAGE = 9 * HP;  // d(3), u(3), g(3) of a plane
 constexpr size_t BWD_SMEM =
     sizeof(float) * (BWD_RING * BWD_STAGE + 3 * HY * TX + 3 * HP + 3 * TY * HX);
 
-template <typename T>
+// ZH: B2's z-halo mode (B2Z): g covers the D - 2 interior planes of the
+// D-plane operands and outputs (Tile::stage_interior)
+template <typename T, bool ZH = false>
 __global__ void __launch_bounds__(NT)
     split_bwd_kernel(const T* __restrict__ d, const T* __restrict__ u,
                      const T* __restrict__ gin, T* __restrict__ gd,
@@ -290,6 +336,16 @@ __global__ void __launch_bounds__(NT)
   const Tile t(g, tid);
   const long long base = (long long)t.b * 3 * t.V;
   const T* src[3] = {d + base, u + base, gin + base};
+  const T* src_du[2] = {d + base, u + base};
+  const T* g_int = gin + (long long)t.b * 3 * (g.D - 2) * t.P;  // ZH only
+  auto stage_plane = [&](float* dst, int k) {
+    if constexpr (ZH) {
+      t.stage(dst, src_du, k, D, tid);
+      t.stage_interior(dst + 6 * HP, g_int, k, D, tid);
+    } else {
+      t.stage(dst, src, k, D, tid);
+    }
+  };
   const int x = t.x0 + tx, y = t.y0 + ty;
   const bool live = x < W && y < H;
   const long long here = (long long)y * W + x;
@@ -299,11 +355,10 @@ __global__ void __launch_bounds__(NT)
   // raw u and the offset differences dd_x, dd_y of the output plane
   float u_out[3] = {0, 0, 0}, ddx_out[3] = {0, 0, 0}, ddy_out[3] = {0, 0, 0};
   const int nk = t.nz + 2;
-  t.stage(stg, src, 0, D, tid);
+  stage_plane(stg, 0);
   cp_async_commit();
   for (int k = 0; k < nk; ++k) {
-    if (k + 1 < nk)
-      t.stage(stg + ((k + 1) % BWD_RING) * BWD_STAGE, src, k + 1, D, tid);
+    if (k + 1 < nk) stage_plane(stg + ((k + 1) % BWD_RING) * BWD_STAGE, k + 1);
     cp_async_commit();
     cp_async_wait_prev();
     __syncthreads();
@@ -817,26 +872,26 @@ dim3 grid16(const Geom& g) {
               g.B * ((g.D + TZ16 - 1) / TZ16));
 }
 
-template <typename T>
+template <typename T, bool ZH = false>
 int launch_fwd(const void* d, const void* u, void* out, const Geom& g,
                void* stream) {
   constexpr bool f32 = std::is_same_v<T, float>;
-  split_fwd_kernel<T><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, 0,
-                        (cudaStream_t)stream>>>((const T*)d, (const T*)u, (T*)out, g);
+  split_fwd_kernel<T, ZH><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, 0,
+                            (cudaStream_t)stream>>>((const T*)d, (const T*)u, (T*)out, g);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool ZH = false>
 int launch_bwd(const void* d, const void* u, const void* g_in, void* gd,
                void* gu, const Geom& g, void* stream) {
   constexpr bool f32 = std::is_same_v<T, float>;
   constexpr size_t smem = f32 ? BWD_SMEM : BWD16_SMEM;
   // set on every launch: the attribute belongs to the current device's context
   const cudaError_t attr = cudaFuncSetAttribute(
-      split_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      split_bwd_kernel<T, ZH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  split_bwd_kernel<T><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, smem,
-                        (cudaStream_t)stream>>>(
+  split_bwd_kernel<T, ZH><<<f32 ? grid_for(g) : grid16(g), f32 ? NT : NT16, smem,
+                            (cudaStream_t)stream>>>(
       (const T*)d, (const T*)u, (const T*)g_in, (T*)gd, (T*)gu, g);
   return (int)cudaGetLastError();
 }
@@ -868,4 +923,26 @@ extern "C" int split_warp_bwd_bf16(const void* d, const void* u,
                                    int C, int D, int H, int W, void* stream) {
   return launch_bwd<__nv_bfloat16>(d, u, g_in, gd, gu, Geom{B, C, D, H, W},
                                    stream);
+}
+
+// B1's z-halo mode (B1Z): the composition step of a z-slab of D planes from
+// d_h and u_h of D + 2 planes, the slab's and one neighbour plane on each
+// side (at the volume's two ends the edge plane repeated, the replicate
+// padding); out has the slab's D planes.  No z clamp inside the slab.
+extern "C" int split_warp_fwd_zhalo(const float* d_h, const float* u_h, float* out,
+                                    int B, int C, int D, int H, int W,
+                                    void* stream) {
+  return launch_fwd<float, true>(d_h, u_h, out, Geom{B, C, D, H, W}, stream);
+}
+
+// B2's z-halo mode (B2Z): the VJP of B1Z, (gd_h, gu_h) of D + 2 planes
+// from g of the slab's D planes, the halo planes' shares left unfolded
+// (the caller's halo exchange sends them to their owners); gu_h without
+// the direct "+g".
+extern "C" int split_warp_bwd_zhalo(const float* d_h, const float* u_h,
+                                    const float* g_in, float* gd_h, float* gu_h,
+                                    int B, int C, int D, int H, int W,
+                                    void* stream) {
+  return launch_bwd<float, true>(d_h, u_h, g_in, gd_h, gu_h, Geom{B, C, D + 2, H, W},
+                                 stream);
 }

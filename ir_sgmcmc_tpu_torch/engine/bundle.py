@@ -44,13 +44,17 @@ class ModelBundle:
         # wait for the device
         self._kernel_on = {}
 
+    def sobolev_kernel_on(self, device) -> torch.Tensor:
+        """The 1D Sobolev kernel on ``device``, copied there once."""
+        if device not in self._kernel_on:
+            self._kernel_on[device] = self._sobolev_kernel.to(device)
+        return self._kernel_on[device]
+
     def smooth(self, v: torch.Tensor) -> torch.Tensor:
         """Sobolev-smooth a field (identity backward); no-op when disabled."""
         if self._sobolev_kernel is None:
             return v
-        if v.device not in self._kernel_on:
-            self._kernel_on[v.device] = self._sobolev_kernel.to(v.device)
-        return sobolev_smooth(v, self._kernel_on[v.device])
+        return sobolev_smooth(v, self.sobolev_kernel_on(v.device))
 
     @property
     def field_dims(self) -> tuple:

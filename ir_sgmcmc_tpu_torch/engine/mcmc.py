@@ -171,12 +171,15 @@ def _chain_noise(state: MCMCState, alpha: float | None, dims: tuple):
     return eps, unif
 
 
-def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor):
+def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor | None,
+               energy: torch.Tensor | None = None):
     """Per-chain reg energies' losses and ``log y``, and the hyperprior
     terms: the loc prior per chain, the scale (or weight) prior once per
-    parameter set."""
+    parameter set.  ``energy``: the energy ``y`` itself, when the caller
+    computed it (the spatially sharded step sums it over slabs)."""
     reg_loss = bundle.reg_loss
-    reg, log_y = reg_loss(reg_p, v_smooth)
+    reg, log_y = (reg_loss(reg_p, v_smooth) if energy is None
+                  else reg_loss._loss(reg_p, energy))
     prior = torch.zeros_like(reg)
     per_set = 0.0
     if reg_loss.learnable and isinstance(reg_loss, RegLossLogNormal):
@@ -323,7 +326,23 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     metrics come back gathered on the mesh's first device.  Per-chain
     parameter sets only, as in the JAX engine (a shared set steps every
     chain in turn).
+
+    Spatially sharded (``fixed`` and ``moving`` placed by
+    ``parallel.shard_images_spatial`` over a ``('chain', 'space')`` mesh):
+    ``run(state, noise=None)`` takes and returns a
+    ``parallel.shard_state_spatial`` state, each row of the ``'space'``
+    axis running its chains' transition cut along D over its devices
+    (``parallel/spatial.py``; per-chain sets, the dense ``"post"`` path).
+    ``noise``: ``chunk`` whole ``(eps, unif)`` draws over all chains.
     """
+    if isinstance(fixed, Sharded):
+        from ..parallel.spatial import make_mcmc_chunk_sharded
+
+        if param_mode != "per_chain" or per_row or chain_mesh is not None:
+            raise ValueError("a spatially sharded chunk takes per-chain sets, one image pair "
+                             "and no chain_mesh")
+        return make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau, fixed, moving, chunk,
+                                       burn_in, thin)
     if chain_mesh is None:
         step = _sgld_step(make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
                                                param_mode, per_row), burn_in, thin)
@@ -356,14 +375,19 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     return run
 
 
+def _sgld_weight(n: int, burn_in: int, thin: int) -> float:
+    """The Welford weight of transition ``n`` (1-based): 1 for a thinned
+    sample past ``burn_in``, else 0."""
+    return 1.0 if n > burn_in and (n - burn_in) % thin == 0 else 0.0
+
+
 def _sgld_step(transition, burn_in: int, thin: int):
     """``state -> (state, metrics)``: one transition, its thinned sample fed
     to the Welford accumulators once past ``burn_in``."""
 
     def step(state: MCMCState):
         n = state.step + 1
-        weight = 1.0 if n > burn_in and (n - burn_in) % thin == 0 else 0.0
-        state, metrics = transition(state, weight)
+        state, metrics = transition(state, _sgld_weight(n, burn_in, thin))
         return state._replace(step=n), metrics
 
     return step
@@ -371,8 +395,8 @@ def _sgld_step(transition, burn_in: int, thin: int):
 
 def posterior_statistics(state):
     """Pooled posterior mean/std of the displacement over all chains; a
-    chain-sharded state merges every shard's accumulators (on the mesh's
-    first device)."""
+    chain- or space-sharded state is gathered first (on the mesh's first
+    device)."""
     if isinstance(state, Sharded):
         state = gather(state)
     return welford_finalize(welford_merge(state.welford))

@@ -58,6 +58,20 @@ def count_folds(transformation: torch.Tensor) -> torch.Tensor:
     return torch.sum(det_jacobian(jac) < 0.0, dim=(-3, -2, -1))
 
 
+def block_warp_engages(bundle: ModelBundle) -> bool:
+    """Whether the ``"post"`` image warp is the block-gather warp: every dim
+    at least 8 blocks and a whole number of them."""
+    block = int(bundle.block_size)
+    return bool(bundle.block_warp) and all(s % block == 0 and s >= 8 * block
+                                           for s in bundle.dims)
+
+
+def block_warp_bound(bundle: ModelBundle) -> int:
+    """The block means' bound: ``ceil(max_disp + alpha)`` voxels, the
+    largest displacement ``T + U(-alpha, alpha)`` can reach."""
+    return int(-(-float(bundle.transformation.max_disp + bundle.uniform_noise_alpha) // 1))
+
+
 def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
                    v_unsmoothed: torch.Tensor, noise: torch.Tensor | None,
                    anchor: dict | None = None, per_row: bool = False) -> dict:
@@ -116,12 +130,11 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
         clamp_bound = math.inf  # no warp of this path clamps
     elif post_noise:
         transformation, displacement, _ = tr.integrate(v)
-        block = int(bundle.block_size)
-        if bundle.block_warp and all(s % block == 0 and s >= 8 * block
-                                     for s in bundle.dims):
+        if block_warp_engages(bundle):
+            block = int(bundle.block_size)
             d_total = displacement + noise
             radius = int(bundle.block_radius)
-            bound = int(-(-float(tr.max_disp + alpha) // 1))
+            bound = block_warp_bound(bundle)
             n = d_total.shape[0]
             vol = (im[:, None] if per_row else im.expand((n, 1) + tuple(bundle.dims)))
             vol = vol.contiguous()
@@ -252,7 +265,21 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
     ``i`` draws from its own key and step, so it takes the draws of its
     single-pair run; ``noise`` is then each pair's ``(eps, x, unif)``
     stacked on a leading ``(P,)`` axis.  Remat runs the 2P rows in turn.
+
+    Spatially sharded (``fixed`` and ``moving`` placed by
+    ``parallel.shard_images_spatial`` over a ``('space',)`` mesh): ``step``
+    takes and returns a ``parallel.shard_tree_spatial`` state, the step cut
+    along D over the mesh's devices (``parallel/spatial.py``); ``noise`` is
+    the whole draw.  Remat and pairs do not apply there.
     """
+    from ..parallel.mesh import Sharded
+
+    if isinstance(fixed, Sharded):
+        from ..parallel.spatial import make_vi_step_sharded
+
+        if pairs:
+            raise ValueError("a spatially sharded VI step takes one image pair")
+        return make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed, moving)
     reg_loss = bundle.reg_loss
     learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
     mask = fixed["mask"]
@@ -378,13 +405,14 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
 
 
 def make_vi_chunk(step_fn, chunk: int):
-    """``run(state) -> (state, metrics)``: ``chunk`` VI steps as a Python
-    loop; metrics are stacked ``(chunk, …)``."""
+    """``run(state, noise=None) -> (state, metrics)``: ``chunk`` VI steps as
+    a Python loop; metrics are stacked ``(chunk, …)``.  ``noise``: a
+    sequence of ``chunk`` draws, one per step (``step_fn``'s ``noise``)."""
 
-    def run(state: VIState):
+    def run(state: VIState, noise=None):
         per_step = []
-        for _ in range(chunk):
-            state, metrics = step_fn(state)
+        for k in range(chunk):
+            state, metrics = step_fn(state) if noise is None else step_fn(state, noise[k])
             per_step.append(metrics)
         return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 

@@ -35,8 +35,12 @@ _SIGNATURES = {
     "split_warp_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "split_warp_fwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "split_warp_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "split_warp_fwd_zhalo": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "split_warp_bwd_zhalo": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "block_warp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "block_warp_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "block_warp_fwd_zhalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "block_warp_dgrad_zhalo": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_tblend": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -168,19 +172,22 @@ class Kernel:
     the main operand ``(B, C, D, H, W)``, the bytes the function must move
     (each input read once, each output written once) and the f32
     operations it must do (counted from its formula: the non-zero taps
-    only, clamps and selects not counted).  A ``z_halo`` kernel reads a
-    volume ``2 * radius`` planes deeper than its output, ``shape`` being the
-    output's: :meth:`bytes` adds those planes' words.
+    only, clamps and selects not counted).  A ``z_halo`` kernel also
+    moves ``2 * radius`` planes beyond its output's ``shape`` (a z-haloed
+    operand, or B7Z's pad planes): :meth:`bytes` adds those planes at
+    ``z_halo(C)`` bytes per voxel of a plane, or ``4·C`` (``C`` f32 words)
+    where ``z_halo`` is ``True``.
     """
 
     def __init__(self, symbol: str, source: str, replaces: str, bytes_per_voxel,
-                 flops_per_voxel, z_halo: bool = False):
+                 flops_per_voxel, z_halo=False):
         self.symbol = symbol
         self.source = source
         self.replaces = replaces
         self.bytes_per_voxel = bytes_per_voxel
         self.flops_per_voxel = flops_per_voxel
-        self.z_halo = z_halo
+        self.halo_bytes = (lambda C: 4 * C) if z_halo is True else (z_halo or None)
+        self.z_halo = self.halo_bytes is not None
         self.launches = 0
 
     def _voxels(self, shape) -> tuple[int, int]:
@@ -194,7 +201,7 @@ class Kernel:
         halo = 0
         if self.z_halo:
             B, C, D, H, W = shape
-            halo = 4 * B * C * 2 * int(radius) * H * W
+            halo = round(B * 2 * int(radius) * H * W * self.halo_bytes(C))
         return round(n * self.bytes_per_voxel(C)) + halo
 
     def flops(self, shape) -> int:

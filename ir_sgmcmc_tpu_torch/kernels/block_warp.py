@@ -13,6 +13,18 @@ evaluate ``Σ_o tri(r-o) V[clamp(p+m+o)]`` through its two non-zero taps
 per axis, with the derivative-of-triangle weights ``-sign(t)·1{|t|<1}``
 for the gradient (zero along an axis whose residual is an integer).
 
+B3 and B4 have a z-halo mode (B3Z, B4Z), for a z-slab of the warp of a
+field cut along D over several shards
+(``parallel/halo.py::warp_block_gather_sharded``): ``vol_h (B, C, D + 2h,
+H, W)`` is the slab's window of the moving volume, its D planes and ``h``
+planes on each side (past the volume's ends its edge plane repeated), and
+``r``, ``m``, ``g`` and the output are the slab's.  A z tap at output plane
+``z`` reads window plane ``z + h + m + k``, clamped to the window, where
+one device clamps to the volume: with ``h`` at least the block means'
+bound plus ``R + 1`` no tap reaches the window's ends, so the slab's
+outputs are the single device's.  They are B3's and B4's kernels (the
+window and the per-voxel ones) with the offset.
+
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel, and a
 launch or build failure raises.
 """
@@ -37,6 +49,13 @@ B4 = Kernel("block_warp_dgrad", "ir_sgmcmc_tpu_torch/csrc/block_warp.cu",
             "ir_sgmcmc_tpu/ops/pallas_block_warp.py:445",
             bytes_per_voxel=lambda C: 4 * (2 * C + 6) + _M_BYTES,
             flops_per_voxel=lambda C: 64 + 16 * C)
+# z-halo modes: the same work per output voxel, and 2h more vol planes read
+B3Z = Kernel("block_warp_fwd_zhalo", "ir_sgmcmc_tpu_torch/csrc/block_warp.cu",
+             "ir_sgmcmc_tpu/ops/pallas_block_warp.py:420", bytes_per_voxel=B3.bytes_per_voxel,
+             flops_per_voxel=B3.flops_per_voxel, z_halo=True)
+B4Z = Kernel("block_warp_dgrad_zhalo", "ir_sgmcmc_tpu_torch/csrc/block_warp.cu",
+             "ir_sgmcmc_tpu/ops/pallas_block_warp.py:445", bytes_per_voxel=B4.bytes_per_voxel,
+             flops_per_voxel=B4.flops_per_voxel, z_halo=True)
 
 
 # ---- plain versions ------------------------------------------------------------
@@ -59,7 +78,9 @@ def _axis_taps(r: torch.Tensor, base: torch.Tensor, n: int):
     return out
 
 
-def _taps(r: torch.Tensor, m: torch.Tensor, block: int):
+def _taps(r: torch.Tensor, m: torch.Tensor, block: int, h: int = 0):
+    """The taps of each axis; z in a vol of ``D + 2h`` planes at offset
+    ``h`` (the z-halo mode; ``h = 0``: the volume itself)."""
     B, _, D, H, W = r.shape
     mf = _expand_blocks(m, block).to(torch.int64)
     dev = r.device
@@ -68,21 +89,22 @@ def _taps(r: torch.Tensor, m: torch.Tensor, block: int):
     px = torch.arange(W, device=dev).view(1, 1, W)
     tx = _axis_taps(r[:, 0], px + mf[:, 0], W)
     ty = _axis_taps(r[:, 1], py + mf[:, 1], H)
-    tz = _axis_taps(r[:, 2], pz + mf[:, 2], D)
+    tz = _axis_taps(r[:, 2], pz + h + mf[:, 2], D + 2 * h)
     return tx, ty, tz
 
 
 def _gather(vol: torch.Tensor, iz, iy, ix) -> torch.Tensor:
-    """``vol[b, c, iz, iy, ix]`` per output voxel -> ``(B, C, D, H, W)``."""
-    B, C, D, H, W = vol.shape
+    """``vol[b, c, iz, iy, ix]`` per output voxel -> ``(B, C, *iz.shape[1:])``."""
+    B, C, _, H, W = vol.shape
     flat = ((iz * H + iy) * W + ix).reshape(B, 1, -1).expand(B, C, -1)
-    return torch.gather(vol.reshape(B, C, -1), 2, flat).reshape(B, C, D, H, W)
+    return torch.gather(vol.reshape(B, C, -1), 2, flat).reshape((B, C) + tuple(iz.shape[1:]))
 
 
 def block_warp_plain(vol: torch.Tensor, r: torch.Tensor, m: torch.Tensor,
-                     block: int = 8) -> torch.Tensor:
-    """B3's function: trilinear warp at ``p + m_b + r``."""
-    tx, ty, tz = _taps(r, m, block)
+                     block: int = 8, h: int = 0) -> torch.Tensor:
+    """B3's function: trilinear warp at ``p + m_b + r``; with ``h``, B3Z's
+    (``vol`` the slab's window of ``D + 2h`` planes)."""
+    tx, ty, tz = _taps(r, m, block, h)
     acc = None
     for iz, wz, _ in tz:
         for iy, wy, _ in ty:
@@ -96,9 +118,10 @@ def block_warp_plain(vol: torch.Tensor, r: torch.Tensor, m: torch.Tensor,
 
 
 def block_warp_dgrad_plain(vol: torch.Tensor, r: torch.Tensor, m: torch.Tensor,
-                           g: torch.Tensor, block: int = 8) -> torch.Tensor:
-    """B4's function: ``∂(Σ_c g_c·warp_c)/∂r``, ``(B, 3, D, H, W)``."""
-    tx, ty, tz = _taps(r, m, block)
+                           g: torch.Tensor, block: int = 8, h: int = 0) -> torch.Tensor:
+    """B4's function: ``∂(Σ_c g_c·warp_c)/∂r``, ``(B, 3, D, H, W)``; with
+    ``h``, B4Z's."""
+    tx, ty, tz = _taps(r, m, block, h)
     acc = [None, None, None]
 
     def add(i, t):
@@ -117,13 +140,15 @@ def block_warp_dgrad_plain(vol: torch.Tensor, r: torch.Tensor, m: torch.Tensor,
 
 # ---- CUDA wrappers -------------------------------------------------------------
 
-def _check(vol, r, m, block):
+def _check(vol, r, m, block, h=0):
+    """The output's ``(B, C, D, H, W)``: ``vol``'s with ``2h`` planes less."""
     if vol.ndim != 5:
         raise ValueError(f"vol: expected (B, C, D, H, W), got {tuple(vol.shape)}")
-    B, C, D, H, W = vol.shape
+    B, C, Dv, H, W = vol.shape
+    D = Dv - 2 * h
     if any(s % block for s in (D, H, W)):
         raise ValueError(f"spatial dims {(D, H, W)} must divide by block {block}")
-    check_operand("vol", vol, (B, C, D, H, W))
+    check_operand("vol", vol, (B, C, Dv, H, W))
     check_operand("r", r, (B, 3, D, H, W), device=vol.device)
     check_operand("m", m, (B, 3, D // block, H // block, W // block),
                   dtype=torch.int32, device=vol.device)
@@ -160,6 +185,29 @@ def block_warp_dgrad_cuda(vol, r, m, g, radius: int, block: int = 8) -> torch.Te
     return out
 
 
+def block_warp_zhalo_cuda(vol_h, r, m, radius: int, h: int, block: int = 8) -> torch.Tensor:
+    """B3Z on the card: ``vol_h`` is the slab's window of ``D + 2h`` planes;
+    the output is the slab's ``(B, C, D, H, W)``."""
+    B, C, D, H, W = _check(vol_h, r, m, block, h)
+    radius = _check_radius(radius)
+    out = torch.empty((B, C, D, H, W), dtype=vol_h.dtype, device=vol_h.device)
+    B3Z.launch(vol_h.device, ptr(vol_h), ptr(r), ptr(m), ptr(out),
+               B, C, D, H, W, block, radius, int(h))
+    return out
+
+
+def block_warp_dgrad_zhalo_cuda(vol_h, r, m, g, radius: int, h: int,
+                                block: int = 8) -> torch.Tensor:
+    """B4Z on the card; operands as for :func:`block_warp_zhalo_cuda`."""
+    B, C, D, H, W = _check(vol_h, r, m, block, h)
+    radius = _check_radius(radius)
+    check_operand("g", g, (B, C, D, H, W), device=vol_h.device)
+    out = torch.empty_like(r)
+    B4Z.launch(vol_h.device, ptr(vol_h), ptr(r), ptr(m), ptr(g), ptr(out),
+               B, C, D, H, W, block, radius, int(h))
+    return out
+
+
 # ---- dispatch ------------------------------------------------------------------
 
 def block_warp(vol, r, m, radius: int, block: int = 8) -> torch.Tensor:
@@ -174,3 +222,17 @@ def block_warp_dgrad(vol, r, m, g, radius: int, block: int = 8) -> torch.Tensor:
     if vol.is_cuda:
         return block_warp_dgrad_cuda(vol, r, m, g, radius, block)
     return block_warp_dgrad_plain(vol, r, m, g, block)
+
+
+def block_warp_zhalo(vol_h, r, m, radius: int, h: int, block: int = 8) -> torch.Tensor:
+    """B3Z; ``radius`` as for :func:`block_warp`."""
+    if vol_h.is_cuda:
+        return block_warp_zhalo_cuda(vol_h, r, m, radius, h, block)
+    return block_warp_plain(vol_h, r, m, block, h)
+
+
+def block_warp_dgrad_zhalo(vol_h, r, m, g, radius: int, h: int, block: int = 8) -> torch.Tensor:
+    """B4Z; ``radius`` as for :func:`block_warp`."""
+    if vol_h.is_cuda:
+        return block_warp_dgrad_zhalo_cuda(vol_h, r, m, g, radius, h, block)
+    return block_warp_dgrad_plain(vol_h, r, m, g, block, h)

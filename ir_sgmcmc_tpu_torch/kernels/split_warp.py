@@ -8,6 +8,18 @@ bf16 (``SVF3D``'s ``compute_dtype: "bfloat16"``), where every operand and
 output is bf16 in memory, all arithmetic is f32 on widened values, and each
 output is rounded once.
 
+B1 and B2 have a z-halo mode (B1Z, B2Z), for a z-slab of a field cut along
+D over several shards (``parallel/halo.py::split_compose_sharded``): ``d_h``
+and ``u_h`` are ``(B, 3, D + 2, H, W)``, the slab's D planes and one
+neighbour plane on each side (at the volume's two ends the edge plane
+repeated, which is the border replication of one device).  B1Z writes the
+composition step of the D interior planes, reading z±1 from the halo and
+never clamping z; B2Z is its VJP, ``(ḡ_d, ū)`` on all ``D + 2`` planes with
+the halo planes' shares left unfolded, for the caller's halo exchange to
+send to the shards that own them (or, at the two ends, to fold onto the
+edge plane).  They are B1's and B2's f32 kernels under a template flag; the
+f32 mode only.
+
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel, and a
 launch or build failure raises — there is no fallback between the two.
 """
@@ -15,6 +27,7 @@ launch or build failure raises — there is no fallback between the two.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.stencil import _clip_offsets, _split_compose_impl, _split_warp_impl
 from ._lib import Kernel, check_operand, ptr
@@ -36,6 +49,15 @@ B1_BF16 = Kernel("split_warp_fwd_bf16", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu"
 B2_BF16 = Kernel("split_warp_bwd_bf16", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
                  "ir_sgmcmc_tpu/ops/pallas_split_warp.py:436",
                  bytes_per_voxel=lambda C: 2 * (3 * C + 6), flops_per_voxel=lambda C: 39 * C)
+
+# z-halo modes: the same work per output voxel; B1Z also reads the two halo
+# planes of d and u, and B2Z reads them and writes its two gradients there
+B1Z = Kernel("split_warp_fwd_zhalo", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
+             "ir_sgmcmc_tpu/ops/pallas_split_warp.py:373", bytes_per_voxel=B1.bytes_per_voxel,
+             flops_per_voxel=B1.flops_per_voxel, z_halo=lambda C: 4 * (C + 3))
+B2Z = Kernel("split_warp_bwd_zhalo", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
+             "ir_sgmcmc_tpu/ops/pallas_split_warp.py:436", bytes_per_voxel=B2.bytes_per_voxel,
+             flops_per_voxel=B2.flops_per_voxel, z_halo=lambda C: 8 * (C + 3))
 
 # operand dtype -> (forward kernel, backward kernel)
 _KERNELS = {torch.float32: (B1, B2), torch.bfloat16: (B1_BF16, B2_BF16)}
@@ -68,6 +90,27 @@ def split_compose_vjp_plain(d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
     (``ir_sgmcmc_tpu/ops/stencil.py:322``)."""
     gd, gu = split_warp_vjp_plain(d, u, g)
     return gd, gu + g
+
+
+def split_compose_zhalo_plain(d_h: torch.Tensor, u_h: torch.Tensor) -> torch.Tensor:
+    """B1Z's function: :func:`split_compose_plain` on the haloed slab, its
+    interior planes kept."""
+    return split_compose_plain(d_h, u_h)[:, :, 1:-1]
+
+
+def split_warp_vjp_zhalo_plain(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Tensor):
+    """B2Z's own outputs: the VJP of the warp part of B1Z's function,
+    ``(ḡ_d, ū_warp)`` on the haloed slab (the halo planes' shares
+    unfolded).  It is :func:`split_warp_vjp_plain` with ``g`` zero on the
+    two halo planes, where the forward writes no output."""
+    return split_warp_vjp_plain(d_h, u_h, F.pad(g, (0, 0, 0, 0, 1, 1)))
+
+
+def split_compose_zhalo_vjp_plain(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Tensor):
+    """``(ḡ_d, ḡ_u)`` of B1Z's function: :func:`split_warp_vjp_zhalo_plain`
+    with the ``+g`` of the direct ``+u`` term on the interior planes."""
+    gd, gu = split_warp_vjp_zhalo_plain(d_h, u_h, g)
+    return gd, gu + F.pad(g, (0, 0, 0, 0, 1, 1))
 
 
 # ---- CUDA wrappers -------------------------------------------------------------
@@ -107,6 +150,37 @@ def split_warp_bwd_cuda(d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
     return gd, gu
 
 
+def _check_zhalo(d_h: torch.Tensor, u_h: torch.Tensor):
+    """The haloed operands' shape ``(B, 3, D + 2, H, W)``, f32."""
+    (B, C, Dh, H, W), _ = _check(d_h, u_h)
+    if d_h.dtype != torch.float32:
+        raise ValueError(f"d_h: the z-halo modes are f32, got {d_h.dtype}")
+    if Dh < 3:
+        raise ValueError(f"d_h: a haloed slab has at least 3 planes, got {Dh}")
+    return B, C, Dh - 2, H, W
+
+
+def split_warp_fwd_zhalo_cuda(d_h: torch.Tensor, u_h: torch.Tensor) -> torch.Tensor:
+    """B1Z on the card: the composition step of the slab's interior planes,
+    ``(B, 3, D, H, W)`` from operands of ``D + 2`` planes."""
+    B, C, D, H, W = _check_zhalo(d_h, u_h)
+    out = torch.empty((B, C, D, H, W), dtype=d_h.dtype, device=d_h.device)
+    B1Z.launch(d_h.device, ptr(d_h), ptr(u_h), ptr(out), B, C, D, H, W)
+    return out
+
+
+def split_warp_bwd_zhalo_cuda(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Tensor):
+    """B2Z on the card: ``(ḡ_d, ū_warp)`` on the haloed slab from the
+    interior's cotangent ``g (B, 3, D, H, W)``, without the ``+g`` of the
+    direct ``+u`` term."""
+    B, C, D, H, W = _check_zhalo(d_h, u_h)
+    check_operand("g", g, (B, C, D, H, W), device=d_h.device)
+    gd = torch.empty_like(d_h)
+    gu = torch.empty_like(u_h)
+    B2Z.launch(d_h.device, ptr(d_h), ptr(u_h), ptr(g), ptr(gd), ptr(gu), B, C, D, H, W)
+    return gd, gu
+
+
 # ---- dispatch ------------------------------------------------------------------
 
 def split_compose(d: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -120,3 +194,20 @@ def split_compose_vjp(d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
         gd, gu = split_warp_bwd_cuda(d, u, g)
         return gd, gu + g  # in the operands' dtype, as the plain version adds it
     return split_compose_vjp_plain(d, u, g)
+
+
+def split_compose_zhalo(d_h: torch.Tensor, u_h: torch.Tensor) -> torch.Tensor:
+    """B1Z, or its plain version on the CPU."""
+    if d_h.is_cuda:
+        return split_warp_fwd_zhalo_cuda(d_h, u_h)
+    return split_compose_zhalo_plain(d_h, u_h)
+
+
+def split_compose_zhalo_vjp(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Tensor):
+    """B2Z plus the direct term's ``+g`` on the interior planes, or the
+    plain VJP on the CPU."""
+    if d_h.is_cuda:
+        gd, gu = split_warp_bwd_zhalo_cuda(d_h, u_h, g)
+        gu[:, :, 1:-1] += g
+        return gd, gu
+    return split_compose_zhalo_vjp_plain(d_h, u_h, g)

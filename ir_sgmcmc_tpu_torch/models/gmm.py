@@ -100,18 +100,30 @@ class GMM:
         """Virtual-decimation factor from lag-1 residual autocorrelation."""
         res_masked = torch.where(mask, residual, torch.zeros_like(residual))
         vox = (-3, -2, -1)
-        n = torch.sum(mask, dim=vox)  # masked voxels (per row for a per-row mask)
-        var = torch.sum(res_masked ** 2, dim=vox) / n
 
-        def lag1(axis):
+        def lag(axis):
             n1 = res_masked.shape[axis]
             a = res_masked.narrow(axis, 0, n1 - 1)
             b = res_masked.narrow(axis, 1, n1 - 1)
-            cov = torch.sum(a * b, dim=vox) / n
-            corr = torch.clamp(cov / var, min=1e-12)
+            return torch.sum(a * b, dim=vox)
+
+        # masked voxels (per row for a per-row mask)
+        return GMM.vd_factor_from_sums(torch.sum(mask, dim=vox),
+                                       torch.sum(res_masked ** 2, dim=vox),
+                                       lag(-1), lag(-2), lag(-3))
+
+    @staticmethod
+    def vd_factor_from_sums(n, sum_sq, lag_x, lag_y, lag_z) -> torch.Tensor:
+        """:meth:`vd_factor` from its sums over the masked residual: the
+        masked voxels ``n``, ``Σ r²`` and the lag-1 products ``Σ r_p r_{p+e}``
+        along W, H and D (the spatially sharded steps add them over slabs)."""
+        var = sum_sq / n
+
+        def lag1(s):
+            corr = torch.clamp(s / n / var, min=1e-12)
             return torch.clamp(-2.0 / math.pi * torch.log(corr), max=1.0)
 
-        return torch.sqrt(lag1(-1) * lag1(-2) * lag1(-3))
+        return torch.sqrt(lag1(lag_x) * lag1(lag_y) * lag1(lag_z))
 
     @torch.no_grad()
     def vd_alpha(self, params: dict, res: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -16,15 +16,39 @@ beside ``axis_name`` each row along it computes the same result (the JAX
 specs replicate over the other axes).  Each shard takes the kernels on a
 CUDA device and their plain versions on the CPU, by the device of its
 slab, with no fallback.
+
+The spatially sharded training steps (``parallel/spatial.py``) need a
+halo form of every stencil of the step, which the JAX package leaves to
+GSPMD's partitioner: the Taylor squaring (:func:`taylor_squaring_sharded`),
+the split composition (:func:`split_compose_sharded`, kernels B1/B2 in
+their z-halo modes B1Z/B2Z), the block-gather warp
+(:func:`warp_block_gather_sharded` and :func:`block_residual_overflow_sharded`,
+B3/B4 in their z-halo modes B3Z/B4Z, on a window of the volume placed once
+per shard), the LCC box filter (:func:`box_filter3d_sharded`), the lag-1
+products of the VD factor (:func:`lag1_sums_sharded`) and the global sums
+(:func:`sum_sharded`).  Each has a list form (``*_slabs``: one row's slabs
+in, slabs or one reduced tensor out) that the steps compose into one
+autograd graph over the slabs of a row; the halo exchanges are
+differentiable (slices, ``repeat``, ``.to`` and ``cat``), so autograd
+sends each halo plane's gradient back to the shard that owns it and folds
+the replicated pad planes at the volume's two ends onto its edge plane.
+Forward differences along D take the next shard's first plane, and the
+last shard repeats its previous difference, as one device does at the
+volume's last plane (``ops.stencil._fwd_diff_axis``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..kernels import block_warp as _bw
+from ..kernels import split_warp as _sw
 from ..kernels import warp_bounded as _wb
-from ..ops.stencil import conv1d_axis
-from .mesh import Mesh, Sharded, shard_tree_spatial
+from ..ops.resample import _residual, block_residual_overflow
+from ..ops.stencil import TaylorSquaringStep, conv1d_axis
+from .mesh import Mesh, Sharded, halo_images_spatial, shard_tree_spatial
 
 
 def _slabs(field, mesh: Mesh, axis_name: str) -> Sharded:
@@ -78,38 +102,278 @@ def _conv_d_valid(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def separable_conv3d_slabs(xs: list, kernel) -> list:
+    """:func:`separable_conv3d_sharded` of one row's slabs: the D pass first,
+    on an ``r``-plane halo, then the local H and W passes, the order of
+    ``ops.stencil.separable_conv3d`` (so each slab's values are the
+    unsharded op's, to the bit).  ``kernel``: one 1D kernel, or a list of
+    it on each slab's device (no copy per call)."""
+    k = (list(kernel) if isinstance(kernel, (list, tuple))
+         else [torch.as_tensor(kernel, dtype=x.dtype, device=x.device) for x in xs])
+    r = int(k[0].shape[0]) // 2
+    return [conv1d_axis(conv1d_axis(_conv_d_valid(x, kk), kk, -2), kk, -1)
+            for x, kk in zip(_exchange_halo_d(xs, r), k)]
+
+
 def separable_conv3d_sharded(field, kernel, mesh: Mesh, axis_name: str = "space") -> Sharded:
     """Separable 3D convolution of a D-sharded ``(…, D, H, W)`` field
-    (replicate padding): the H and W passes are local, the D pass uses an
-    ``r``-plane halo."""
+    (replicate padding): the D pass uses an ``r``-plane halo, the H and W
+    passes are local."""
+    return _per_row(lambda xs: separable_conv3d_slabs(xs, kernel), mesh, axis_name, field)
 
-    def run(xs):
-        k = [torch.as_tensor(kernel, dtype=x.dtype, device=x.device) for x in xs]
-        r = int(k[0].shape[0]) // 2
-        xs = [conv1d_axis(conv1d_axis(x, kk, -1), kk, -2) for x, kk in zip(xs, k)]
-        return [_conv_d_valid(x, kk) for x, kk in zip(_exchange_halo_d(xs, r), k)]
 
-    return _per_row(run, mesh, axis_name, field)
+@functools.lru_cache(maxsize=64)
+def _ones(taps: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """The box filter's kernel, made once per device (filled there: a host
+    copy per call would wait for the device)."""
+    return torch.ones((taps,), dtype=dtype, device=device)
+
+
+def box_filter3d_slabs(xs: list, radius: int) -> list:
+    """``ops.stencil.box_filter3d`` of one row's slabs: the sum over a cubic
+    ``(2r+1)³`` window with replicate padding."""
+    return separable_conv3d_slabs(xs, [_ones(2 * int(radius) + 1, x.device, x.dtype)
+                                       for x in xs])
+
+
+class SobolevSmoothSlabs(torch.autograd.Function):
+    """``ops.sobolev.SobolevSmooth`` of one row's slabs: the separable
+    filter by halo exchange forward (:func:`separable_conv3d_slabs`), the
+    identity backward.  Inputs: the slab count ``n``, the kernel on each
+    slab's device, then the ``n`` slabs."""
+
+    @staticmethod
+    def forward(ctx, n, *args):
+        ctx.n = n
+        return tuple(separable_conv3d_slabs(list(args[n:]), list(args[:n])))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None,) * (1 + ctx.n) + gs
+
+
+def box_filter3d_sharded(field, radius: int, mesh: Mesh, axis_name: str = "space") -> Sharded:
+    """:func:`ops.stencil.box_filter3d` of a D-sharded field (the LCC
+    residual's local means and variances)."""
+    return _per_row(lambda xs: box_filter3d_slabs(xs, radius), mesh, axis_name, field)
+
+
+def _next_planes(xs: list) -> list:
+    """Each slab's next plane along D, from the next shard (None for the
+    last shard)."""
+    n = len(xs)
+    return [xs[i + 1][..., :1, :, :].to(x.device, non_blocking=True) if i < n - 1 else None
+            for i, x in enumerate(xs)]
+
+
+def fwd_diff_d_slabs(xs: list) -> list:
+    """The forward difference along D (-3) of one row's slabs,
+    ``ops.stencil._fwd_diff_axis`` of the volume: the next shard's first
+    plane closes each slab, and the last shard repeats its previous
+    difference at the volume's last plane."""
+    out = []
+    for x, nxt in zip(xs, _next_planes(xs)):
+        xp = torch.cat([x, x[..., -1:, :, :] if nxt is None else nxt], dim=-3)
+        d = xp[..., 1:, :, :] - xp[..., :-1, :, :]
+        if nxt is None:  # replicate the previous difference, as on one device
+            d = torch.cat([d[..., :-1, :, :], d[..., -2:-1, :, :]], dim=-3)
+        out.append(d)
+    return out
 
 
 def gradient_d_sharded(field, mesh: Mesh, axis_name: str = "space") -> Sharded:
     """Forward difference along D of a D-sharded ``(…, D, H, W)`` field,
     ``ops.stencil.gradient``'s D component: the last difference of the
     volume repeated at its last plane."""
+    return _per_row(fwd_diff_d_slabs, mesh, axis_name, field)
 
-    def run(xs):
-        n, out = len(xs), []
-        for i, x in enumerate(xs):
-            nxt = (x[..., -1:, :, :] if i == n - 1
-                   else xs[i + 1][..., :1, :, :].to(x.device, non_blocking=True))
-            xp = torch.cat([x, nxt], dim=-3)
-            d = xp[..., 1:, :, :] - xp[..., :-1, :, :]
-            if i == n - 1:  # replicate the previous difference, as on one device
-                d = torch.cat([d[..., :-1, :, :], d[..., -2:-1, :, :]], dim=-3)
-            out.append(d)
-        return out
 
-    return _per_row(run, mesh, axis_name, field)
+def taylor_squaring_slabs(ds: list) -> list:
+    """One Taylor squaring ``d' = 2d + (d·∇)d`` of one row's slabs of a
+    ``(…, 3, D, H, W)`` field, with its analytic backward
+    (``ops.stencil.TaylorSquaringStep``): each slab but the last takes the
+    next shard's first plane, squares the closed slab and keeps its own
+    planes; the last shard squares its slab as it is, whose forward
+    difference repeats the previous one at the volume's last plane.  The
+    planes kept are the unsharded step's, to the bit, and so is the
+    gradient: the added plane's cotangent is 0."""
+    out = []
+    for d, nxt in zip(ds, _next_planes(ds)):
+        if nxt is None:
+            out.append(TaylorSquaringStep.apply(d))
+        else:
+            closed = TaylorSquaringStep.apply(torch.cat([d, nxt], dim=-3))
+            out.append(closed[..., :-1, :, :])
+    return out
+
+
+def taylor_squaring_sharded(field, mesh: Mesh, axis_name: str = "space") -> Sharded:
+    """``ops.stencil.taylor_squaring_step`` of a D-sharded ``(…, 3, D, H,
+    W)`` field (each shard at least 2 planes), differentiable."""
+    return _per_row(taylor_squaring_slabs, mesh, axis_name, field)
+
+
+class SplitComposeZHalo(torch.autograd.Function):
+    """The split composition of a z-slab from its haloed operands ``d_h``,
+    ``u_h`` ``(B, 3, D + 2, H, W)``: forward B1Z, backward B2Z plus the
+    direct term's ``g`` (``kernels/split_warp.py``), the gradients on the
+    haloed slab with the halo planes' shares unfolded."""
+
+    @staticmethod
+    def forward(ctx, d_h, u_h):
+        ctx.save_for_backward(d_h, u_h)
+        return _sw.split_compose_zhalo(d_h, u_h)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_h, u_h = ctx.saved_tensors
+        return _sw.split_compose_zhalo_vjp(d_h, u_h, g.contiguous())
+
+
+def split_compose_slabs(ds: list, u_hs: list) -> list:
+    """One split composition ``d' = u + d ∘ (id+u)`` of one row's slabs:
+    ``d`` exchanges a one-plane halo (the edge plane repeated at the
+    volume's ends, which is the border replication of one device), then
+    B1Z on each slab.  ``u_hs``: ``u``'s slabs with their halo, exchanged
+    once by the caller for every composition that reuses ``u``."""
+    return [SplitComposeZHalo.apply(d_h.contiguous(), u_h)
+            for d_h, u_h in zip(_exchange_halo_d(ds, 1), u_hs)]
+
+
+def split_compose_sharded(d, u, mesh: Mesh, axis_name: str = "space") -> Sharded:
+    """``ops.stencil.split_compose_step`` of D-sharded ``(B, 3, D, H, W)``
+    fields (B1Z/B2Z on the card), differentiable in both."""
+
+    def run(ds, us):
+        return split_compose_slabs(ds, [u_h.contiguous() for u_h in _exchange_halo_d(us, 1)])
+
+    return _per_row(run, mesh, axis_name, d, u)
+
+
+class BlockGatherWarpZHalo(torch.autograd.Function):
+    """``ops.resample.BlockGatherWarp`` of a z-slab: forward B3Z on the
+    slab's window ``vol_h (B, C, D + 2h, H, W)``, backward B4Z masked where
+    ``|r_raw| > R``.  The block means are the slab's own, which are the
+    volume's when the slab is a whole number of blocks.  The window is a
+    constant (no cotangent)."""
+
+    @staticmethod
+    def forward(ctx, vol_h, disp_vox, max_disp, radius, block, h):
+        m, r_raw = _residual(disp_vox, block, max_disp)
+        r_c = torch.clamp(r_raw, -radius, radius).contiguous()
+        ctx.block, ctx.radius, ctx.h = block, radius, h
+        ctx.save_for_backward(vol_h, r_c, m, torch.abs(r_raw) <= radius)
+        return _bw.block_warp_zhalo(vol_h, r_c, m, radius, h, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        vol_h, r_c, m, inside = ctx.saved_tensors
+        g_r = _bw.block_warp_dgrad_zhalo(vol_h, r_c, m, g.contiguous(), ctx.radius, ctx.h,
+                                         ctx.block)
+        return None, torch.where(inside, g_r, torch.zeros_like(g_r)), None, None, None, None
+
+
+def block_halo(max_disp: int, radius: int) -> int:
+    """Planes of the moving volume's window on each side of a slab that
+    every tap of the block-gather warp stays inside: the block means' bound,
+    the residual's radius, and one for the upper tap."""
+    return int(max_disp) + int(radius) + 1
+
+
+def warp_block_gather_slabs(vol_hs: list, disps: list, max_disp: int, radius: int,
+                            block: int, h: int) -> list:
+    """``ops.resample.warp_block_gather`` of one row's slabs: ``vol_hs`` the
+    slabs' windows of ``h >= block_halo(max_disp, radius)`` planes on each
+    side (:func:`~.mesh.halo_images_spatial`), ``disps`` the displacement's
+    slabs, each a whole number of blocks."""
+    if h < block_halo(max_disp, radius):
+        raise ValueError(f"a window of {h} planes does not hold the taps of bound {max_disp} "
+                         f"and radius {radius}: it needs {block_halo(max_disp, radius)}")
+    for d in disps:
+        if d.shape[-3] % block:
+            raise ValueError(f"a slab of {d.shape[-3]} planes is not a whole number of "
+                             f"blocks of {block}")
+    return [BlockGatherWarpZHalo.apply(v, d, max_disp, radius, block, h)
+            for v, d in zip(vol_hs, disps)]
+
+
+def sum_slabs(parts: list, device=None) -> torch.Tensor:
+    """The sum of per-slab partial results on ``device`` (default: the
+    first slab's), differentiable."""
+    device = parts[0].device if device is None else device
+    total = None
+    for p in parts:
+        p = p.to(device, non_blocking=True)
+        total = p if total is None else total + p
+    return total
+
+
+def block_residual_overflow_slabs(disps: list, max_disp: int, radius: int,
+                                  block: int) -> torch.Tensor:
+    """``ops.resample.block_residual_overflow`` of one row's slabs, summed
+    on the first slab's device."""
+    return sum_slabs([block_residual_overflow(d, max_disp, radius, block) for d in disps])
+
+
+def lag1_sums_slabs(xs: list, dims=(-3, -2, -1)) -> tuple:
+    """The lag-1 product sums ``Σ x_p x_{p+e}`` along W, H and D of one
+    row's slabs of ``(…, D, H, W)``, each reduced over ``dims`` and summed
+    on the first slab's device: along D each slab's own pairs and the pair
+    across its upper boundary (the next shard's first plane)."""
+    def lag(x, axis):
+        n = x.shape[axis]
+        return torch.sum(x.narrow(axis, 0, n - 1) * x.narrow(axis, 1, n - 1), dim=dims)
+
+    sx = sum_slabs([lag(x, -1) for x in xs])
+    sy = sum_slabs([lag(x, -2) for x in xs])
+    sz = sum_slabs([lag(x if nxt is None else torch.cat([x, nxt], dim=-3), -3)
+                    for x, nxt in zip(xs, _next_planes(xs))])
+    return sx, sy, sz
+
+
+def _reduce_row(op, mesh: Mesh, axis_name: str, *fields):
+    """``op(slabs, …)`` over the first row along ``axis_name`` (every row
+    computes the same), on that row's first device."""
+    sharded = [_slabs(f, mesh, axis_name) for f in fields]
+    row = mesh.rows(axis_name)[0]
+    return op(*([s[i] for i in row] for s in sharded))
+
+
+def sum_sharded(field, mesh: Mesh, dims=(-3, -2, -1), axis_name: str = "space") -> torch.Tensor:
+    """``torch.sum(field, dims)`` of a D-sharded field (``dims`` must hold
+    D): per-slab partial sums added on the row's first device."""
+    return _reduce_row(lambda xs: sum_slabs([torch.sum(x, dim=dims) for x in xs]),
+                       mesh, axis_name, field)
+
+
+def lag1_sums_sharded(field, mesh: Mesh, axis_name: str = "space") -> tuple:
+    """:func:`lag1_sums_slabs` of a D-sharded field, on the row's first
+    device (the VD factor's lag-1 autocorrelation sums)."""
+    return _reduce_row(lag1_sums_slabs, mesh, axis_name, field)
+
+
+def block_residual_overflow_sharded(disp_vox, max_disp: int, mesh: Mesh, radius: int = 2,
+                                    block: int = 8, axis_name: str = "space") -> torch.Tensor:
+    """``ops.resample.block_residual_overflow`` of a D-sharded ``(B, 3, D,
+    H, W)`` displacement, on the row's first device."""
+    return _reduce_row(lambda ds: block_residual_overflow_slabs(ds, max_disp, radius, block),
+                       mesh, axis_name, disp_vox)
+
+
+def warp_block_gather_sharded(vol, disp_vox, max_disp: int, mesh: Mesh, radius: int = 2,
+                              block: int = 8, axis_name: str = "space") -> Sharded:
+    """``ops.resample.warp_block_gather`` of a D-sharded displacement: the
+    whole ``vol (B, C, D, H, W)`` (a constant) is placed once as each
+    shard's window (:func:`~.mesh.halo_images_spatial`, ``h =
+    block_halo(max_disp, radius)``), then B3Z (backward B4Z) on each slab.
+    Each shard's slab must be a whole number of blocks."""
+    h = block_halo(max_disp, radius)
+    windows = halo_images_spatial({"vol": vol}, mesh, vol.shape[-3], h, axis_name)
+    n = len(mesh.device_list)
+    vols = Sharded([windows[i]["vol"] for i in range(n)], mesh,
+                   [((vol.ndim - 3, axis_name),)])
+    return _per_row(lambda vs, ds: warp_block_gather_slabs(vs, ds, max_disp, radius, block, h),
+                    mesh, axis_name, vols, disp_vox)
 
 
 def _exchange_tblend_z(accs: list, R: int) -> list:

@@ -247,3 +247,46 @@ def shard_images_spatial(tree, mesh: Mesh, field_depth: int) -> Sharded:
     """An image-pair dict: ``(…, D, H, W)`` volumes cut along D over
     ``'space'`` (replicated over ``'chain'``); the rest replicated."""
     return shard_tree_spatial(tree, mesh, field_depth, "space")
+
+
+def halo_images_spatial(tree, mesh: Mesh, field_depth: int, h: int,
+                        axis_name: str = "space") -> Sharded:
+    """Each shard's window of the volumes of ``tree``: every leaf ``(…, D,
+    H, W)`` with ``D == field_depth`` as the shard's D-slab over
+    ``axis_name`` and ``h`` planes on each side, taken from the planes its
+    neighbours own (as many shards away as ``h`` reaches), the edge plane
+    repeated past the volume's two ends; the rest replicated.  The window
+    is what the block-gather warp of a slab reads (its taps reach ``h``
+    planes past the slab: ``parallel.halo.warp_block_gather_slabs``).  A
+    placement that :func:`gather` does not invert (the windows overlap);
+    ``halo`` holds ``h``."""
+    n_space = mesh.shape[axis_name]
+    if field_depth % n_space:
+        raise ValueError(f"depth {field_depth} does not divide over {n_space} shards")
+    size, ax = field_depth // n_space, mesh.axis_names.index(axis_name)
+    cuts, trees = [], []
+
+    def window(x, i):
+        lo, hi = i * size - h, (i + 1) * size + h
+        parts = []
+        if lo < 0:
+            parts.append(x.narrow(-3, 0, 1).expand(*x.shape[:-3], -lo, *x.shape[-2:]))
+        parts.append(x.narrow(-3, max(lo, 0), min(hi, field_depth) - max(lo, 0)))
+        if hi > field_depth:
+            parts.append(x.narrow(-3, field_depth - 1, 1).expand(
+                *x.shape[:-3], hi - field_depth, *x.shape[-2:]))
+        return torch.cat(parts, dim=-3)
+
+    _map(lambda x, host: cuts.append(()), tree)
+    for idx in np.ndindex(mesh.devices.shape):
+        dev = mesh.devices[idx]
+
+        def put(x, host, dev=dev, i=idx[ax]):
+            if x.ndim >= 3 and x.shape[-3] == field_depth:
+                x = window(x, i)
+            return x if host else x.to(dev).contiguous()
+
+        trees.append(_map(put, tree))
+    placed = Sharded(trees, mesh, cuts)
+    placed.halo = int(h)
+    return placed

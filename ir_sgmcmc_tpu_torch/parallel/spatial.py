@@ -1,0 +1,521 @@
+"""The spatially sharded SG-MCMC and VI steps: the whole training step cut
+along D over the ``'space'`` axis of a mesh (no JAX counterpart module: the
+JAX package hands the step to GSPMD's partitioner with Pallas off,
+``ir_sgmcmc_tpu/trainer.py:826-866`` and ``:1187-1211``).
+
+The port has no partitioner, so the step is written over the slabs of one
+row of the ``'space'`` axis as ONE Python function and one autograd graph:
+
+* the forward chain of ``engine.vi.forward_sample`` (``"post"``) from the
+  sharded ops of ``parallel/halo.py``: Sobolev smoothing (identity
+  backward), the Taylor squarings, the squarings above the threshold
+  (``HaloWarp``, B5Z-B7Z), the split compositions (B1Z/B2Z), the image warp
+  (the block-gather warp on each slab's window of the moving image, B3Z/B4Z,
+  or below 64³ ``grid_sample`` of the whole image, which each shard holds),
+  the fold and saturation counts, the LCC residuals;
+* the global scalars (GMM NLL, VD sums, reg energy, entropy sums) as
+  per-slab partial sums added on the row's first device, where the scalar
+  work runs: the GMM Adam steps, the hyperpriors, the reg-parameter Adam;
+* the elementwise updates (Langevin step, Welford, q(v) Adam) on each slab.
+
+Noise is the unsharded draw, cut: each shard draws its chains' whole field
+from the chains' generators (``engine.vi.key_generator``) on its own device
+and keeps its slab, so a sharded run takes the unsharded run's draws on the
+same device type.  Nothing in a step waits on a device.
+
+The path is the one every bundled config runs: the dense ``SVF3D``,
+``"post"`` noise with a magnitude, ``"split"`` compositions, float32, the
+``GradientOperator`` (or identity) energy, per-chain parameter sets.
+:func:`unported` names what else the JAX package shards and the port does
+not yet.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..engine.mcmc import WelfordState, _reg_terms, _sgld_weight, welford_update
+from ..engine.vi import block_warp_bound, block_warp_engages, key_generator
+from ..models.entropy import (entropy_analytic_from_sums, entropy_analytic_sums,
+                              entropy_sample_from_sums, entropy_sample_sums)
+from ..models.gmm import GMM
+from ..models.reg_loss import RegLossL2, RegLossLogNormal
+from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
+from ..models.transformation import SVF3D
+from ..ops.grids import _axis_scale_on, det_jacobian, identity_grid
+from ..ops.resample import grid_sample
+from ..ops.stencil import _fwd_diff_axis
+from ..optim.adam_decay import apply_updates
+from .halo import (HaloWarp, SobolevSmoothSlabs, _exchange_halo_d, block_halo,
+                   block_residual_overflow_slabs, box_filter3d_slabs, fwd_diff_d_slabs,
+                   lag1_sums_slabs, split_compose_slabs, sum_slabs, taylor_squaring_slabs,
+                   warp_block_gather_slabs)
+from .mesh import Mesh, Sharded, _map, gather, halo_images_spatial, replicate, run_in_turns
+
+ROADMAP_ITEM = "ROADMAP A, 'The spatially sharded steps: the options left'"
+
+
+def unported(bundle) -> str | None:
+    """Why the spatially sharded step does not take ``bundle``'s problem
+    (None: it does).  The JAX package shards each of these through GSPMD;
+    each is a ROADMAP item of its own."""
+    tr = bundle.transformation
+    if not isinstance(tr, SVF3D):
+        return (f"the spatially sharded step takes the dense SVF3D, not "
+                f"{type(tr).__name__}")
+    if bundle.noise_scheme != "post" or bundle.uniform_noise_alpha is None:
+        return ("noise_scheme 'pre' (or no uniform noise: the image rides the integration "
+                "cascade) under spatial sharding is not ported")
+    if tr.use_gather:
+        return "use_gather under spatial sharding is not ported"
+    if tr.composition_form != "split":
+        return f"taylor_compositions {tr.composition_form!r} under spatial sharding is not ported"
+    if tr.compute_dtype is not None:
+        return "compute_dtype 'bfloat16' under spatial sharding is not ported"
+    if bundle.reg_loss.diff_op not in ("GradientOperator", "Identity"):
+        return f"diff_op {bundle.reg_loss.diff_op!r} under spatial sharding is not ported"
+    return None
+
+
+def _refuse(bundle) -> None:
+    why = unported(bundle)
+    if why is not None:
+        raise NotImplementedError(f"{why} ({ROADMAP_ITEM})")
+
+
+def _on(tree, device):
+    """A tree's tensors on ``device`` (a no-op where they are)."""
+    return _map(lambda x, host: x if host else x.to(device, non_blocking=True), tree)
+
+
+class _Row:
+    """One row of the ``'space'`` axis: its flat mesh indices, devices and
+    each slab's first plane."""
+
+    def __init__(self, mesh: Mesh, idx: list, depth: int):
+        self.idx = list(idx)
+        self.devices = [mesh.device_list[i] for i in self.idx]
+        self.dev0 = self.devices[0]
+        self.n = len(self.idx)
+        self.dl = depth // self.n
+        self.z0 = [k * self.dl for k in range(self.n)]
+
+    def cut(self, t: torch.Tensor, k: int) -> torch.Tensor:
+        """Slab ``k`` of a whole field (along D), on its device."""
+        return t.narrow(-3, self.z0[k], self.dl).to(self.devices[k])
+
+
+@functools.lru_cache(maxsize=64)
+def _identity_slab(dims: tuple, device: torch.device, z0: int, dl: int) -> torch.Tensor:
+    """The normalised identity grid's planes ``[z0, z0 + dl)``, made once per
+    device (its values are the whole grid's)."""
+    return identity_grid(dims, device=device)[:, z0:z0 + dl].contiguous()
+
+
+def _to_normalised(x: torch.Tensor, dims) -> torch.Tensor:
+    """``ops.grids.voxel_to_normalised`` at the volume's ``dims`` (a slab's
+    own shape would give the wrong z scale)."""
+    return x * _axis_scale_on(tuple(dims), x.device, True)
+
+
+def _lcn_slabs(gmm: GMM, ims: list) -> list:
+    """``GMM.residual_map``'s local contrast normalisation of one row's
+    slabs, its box filters by halo exchange."""
+    mu = [b / gmm.window for b in box_filter3d_slabs(ims, gmm.radius)]
+    var = [b / gmm.window for b in box_filter3d_slabs(
+        [(im - m) ** 2 for im, m in zip(ims, mu)], gmm.radius)]
+    return [(im - m) / torch.sqrt(v + 1e-10) for im, m, v in zip(ims, mu, var)]
+
+
+def _gradient_slabs(xs: list, dims, normalised: bool = False) -> list:
+    """``ops.stencil.gradient`` of one row's slabs of ``(…, 3, D, H, W)``:
+    the x and y differences local, the z ones by :func:`fwd_diff_d_slabs`."""
+    D, H, W = dims
+    out = []
+    for x, dz in zip(xs, fwd_diff_d_slabs(xs)):
+        dx, dy = _fwd_diff_axis(x, -1), _fwd_diff_axis(x, -2)
+        if normalised:
+            dx, dy, dz = dx * ((W - 1) / 2.0), dy * ((H - 1) / 2.0), dz * ((D - 1) / 2.0)
+        out.append(torch.stack([dx, dy, dz], dim=x.ndim - 3))
+    return out
+
+
+def _energy(bundle, vs: list) -> torch.Tensor:
+    """``RegLoss.energy`` of a batch of slabs ``(B, 3, Dl, H, W)``, summed on
+    the row's first device: ``Σ ||∇v||²`` (or ``Σ v²`` for the identity)."""
+    if bundle.reg_loss.diff_op == "GradientOperator":
+        vs = _gradient_slabs(vs, bundle.dims)
+    return sum_slabs([torch.sum(x * x, dim=tuple(range(1, x.ndim))) for x in vs])
+
+
+class _Images:
+    """One row's images, placed once per step builder: the fixed image's
+    slabs, its LCN and the mask's slabs, and each shard's moving image, a
+    window of ``h`` planes on each side of its slab (the block-gather
+    warp) or the whole image (``grid_sample``)."""
+
+    def __init__(self, bundle, fixed: Sharded, moving: Sharded, row: _Row,
+                 moving_whole: dict):
+        self.fixed = [fixed[i]["im"] for i in row.idx]
+        self.mask = [fixed[i]["mask"] for i in row.idx]
+        with torch.no_grad():
+            self.lcn_fixed = _lcn_slabs(bundle.gmm, self.fixed)
+        mesh, depth = fixed.mesh, int(bundle.dims[0])
+        if block_warp_engages(bundle):
+            self.h = block_halo(block_warp_bound(bundle), bundle.block_radius)
+            placed = halo_images_spatial({"im": moving_whole["im"]}, mesh, depth, self.h)
+        else:
+            self.h = None
+            placed = replicate({"im": moving_whole["im"]}, mesh)
+        self.moving = [placed[i]["im"] for i in row.idx]
+
+
+def forward_slabs(bundle, images: _Images, row: _Row, vs: list, unifs: list) -> dict:
+    """``engine.vi.forward_sample`` on the ``"post"`` scheme over one row's
+    slabs: ``vs`` the velocity's slabs ``(B, 3, Dl, H, W)``, ``unifs`` the
+    uniform voxel noise's.  Field results are lists of slabs; the counts
+    ``(B,)`` are summed on the row's first device."""
+    tr, dims = bundle.transformation, tuple(bundle.dims)
+    if bundle._sobolev_kernel is not None:
+        ks = [bundle.sobolev_kernel_on(dev) for dev in row.devices]
+        vs = list(SobolevSmoothSlabs.apply(row.n, *ks, *vs))
+    disp = [x / float(2 ** tr.no_steps) for x in vs]
+    for _ in range(tr.no_taylor):
+        disp = taylor_squaring_slabs(disp)
+    for _ in range(tr.no_squarings - tr.no_taylor):
+        d5 = [d.contiguous() for d in disp]
+        disp = [d + w for d, w in zip(disp, HaloWarp.apply(1, row.n, *d5, *d5))]
+    u_h = [t.contiguous() for t in _exchange_halo_d(disp, 1)]
+    for _ in range(tr.no_compositions - 1):
+        disp = split_compose_slabs(disp, u_h)
+    trans = [_identity_slab(dims, d.device, z0, row.dl) + _to_normalised(d, dims)
+             for d, z0 in zip(disp, row.z0)]
+    B = vs[0].shape[0]
+    zero = torch.zeros((B,), dtype=torch.int64, device=row.dev0)
+    if images.h is not None:
+        block, radius = int(bundle.block_size), int(bundle.block_radius)
+        bound = block_warp_bound(bundle)
+        d_total = [d + u for d, u in zip(disp, unifs)]
+        vols = [m.expand((B, 1) + tuple(m.shape)).contiguous() for m in images.moving]
+        warped = [w[:, 0] for w in warp_block_gather_slabs(vols, d_total, bound, radius,
+                                                           block, images.h)]
+        anchor_sat = block_residual_overflow_slabs([d.detach() for d in d_total], bound,
+                                                   radius, block)
+    else:
+        warped = [grid_sample(m, t + _to_normalised(u, dims))
+                  for m, t, u in zip(images.moving, trans, unifs)]
+        anchor_sat = zero
+    folds = [torch.sum(det_jacobian(j) < 0.0, dim=(-3, -2, -1))
+             for j in _gradient_slabs([t.detach() for t in trans], dims, normalised=True)]
+    residuals = [f - w for f, w in zip(images.lcn_fixed, _lcn_slabs(bundle.gmm, warped))]
+    bound_sat = float(tr.displacement_clamp_bound)
+    sat = sum_slabs([torch.sum(torch.any(torch.abs(d.detach()) >= bound_sat, dim=-4),
+                               dim=(-3, -2, -1)) for d in disp])
+    return {"v": vs, "displacement": disp, "transformation": trans, "warped": warped,
+            "residuals": residuals, "ndv": sum_slabs(folds), "sat": sat + anchor_sat,
+            "sat_resid": anchor_sat}
+
+
+def _vd_alpha(bundle, gmm: dict, residuals: list, masks: list, dev0) -> torch.Tensor:
+    """``engine.vi.vd_alpha`` of sharded residuals (detached), on ``dev0``."""
+    if not bundle.virtual_decimation:
+        return torch.ones(residuals[0].shape[:-3], dtype=torch.float32, device=dev0)
+    with torch.no_grad():
+        rescaled = [bundle.gmm.rescale_residuals(_on(gmm, r.device), r.detach(), m)
+                    for r, m in zip(residuals, masks)]
+        masked = [torch.where(m, r, torch.zeros_like(r)) for r, m in zip(rescaled, masks)]
+        vox = (-3, -2, -1)
+        return GMM.vd_factor_from_sums(sum_slabs([torch.sum(m, dim=vox) for m in masks]),
+                                       sum_slabs([torch.sum(r ** 2, dim=vox) for r in masked]),
+                                       *lag1_sums_slabs(masked))
+
+
+def _masked_nll(bundle, gmm: dict, residuals: list, masks: list) -> torch.Tensor:
+    """``GMM.masked_nll`` of sharded residuals, summed on the parameters'
+    device (differentiable in both)."""
+    dev0 = next(iter(gmm.values())).device
+    return sum_slabs([bundle.gmm.masked_nll(_on(gmm, r.device), r, m)
+                      for r, m in zip(residuals, masks)], dev0)
+
+
+def _gmm_adam_step(bundle, opt, gmm: dict, opt_state, residuals: list, masks: list, alpha):
+    """``engine.vi.gmm_adam_step`` on sharded residuals."""
+    res_d = [r.detach() for r in residuals]
+    with torch.enable_grad():
+        p = {k: v.detach().requires_grad_(True) for k, v in gmm.items()}
+        loss = _masked_nll(bundle, p, res_d, masks) * alpha - bundle.gmm_prior_terms(p)
+        keys = list(p)
+        grads = torch.autograd.grad(loss.sum(), [p[k] for k in keys])
+    updates, opt_state = opt.update(dict(zip(keys, grads)), opt_state)
+    return apply_updates({k: v.detach() for k, v in gmm.items()}, updates), opt_state
+
+
+def _draw_slab(gen: torch.Generator, shape: tuple, k: int, row: _Row, normal: bool,
+               alpha: float = 0.0) -> torch.Tensor:
+    """The whole draw of ``shape`` from ``gen`` on slab ``k``'s device, its
+    slab kept (the unsharded run's draw, cut)."""
+    dev = row.devices[k]
+    if normal:
+        whole = torch.randn(shape, generator=gen, device=dev)
+    else:
+        whole = uniform_voxel_noise(gen, shape, alpha, dev)
+    return whole.narrow(-3, row.z0[k], row.dl)
+
+
+def _chain_noise_slabs(bundle, shards: list, row: _Row) -> tuple:
+    """``engine.mcmc._chain_noise`` per slab: each shard draws its chains'
+    whole ``eps`` and ``unif`` from the chains' generators and keeps its
+    slab."""
+    s0 = shards[0]
+    field = (3,) + tuple(bundle.field_dims)
+    dense = (3,) + tuple(bundle.dims)
+    alpha = float(bundle.uniform_noise_alpha)
+    eps, unif = [], []
+    for k, dev in enumerate(row.devices):
+        e, u = [], []
+        for c in range(s0.v.shape[0]):
+            gen = key_generator(s0.key[c], s0.step, dev)
+            e.append(_draw_slab(gen, field, k, row, True))
+            u.append(_draw_slab(gen, dense, k, row, False, alpha))
+        eps.append(torch.stack(e))
+        unif.append(torch.stack(u))
+    return eps, unif
+
+
+def make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau: float, images: _Images,
+                               row: _Row):
+    """``transition(shards, collect_weight, noise=None) -> (shards,
+    metrics)``: ``engine.mcmc.make_sgld_transition`` (per-chain sets) over
+    one row's shards (``MCMCState``\\ s of the row's chains, each with its
+    D-slab of the fields).  ``noise``: ``(eps, unif)``, lists of the
+    slabs' draws; without it each shard draws its own.  Metrics are on the
+    row's first device."""
+    dev0 = row.dev0
+    masks = images.mask
+    learnable_reg = bundle.reg_loss.learnable and len(bundle.reg_loss.param_names) > 0
+
+    def transition(shards: list, collect_weight: float, noise=None):
+        s0 = shards[0]
+        eps, unif = noise if noise is not None else _chain_noise_slabs(bundle, shards, row)
+        with torch.enable_grad():
+            v_noised = [(s.v + langevin_noise(None, s.sigma, tau, e)).detach().requires_grad_(True)
+                        for s, e in zip(shards, eps)]
+            reg_keys = list(s0.reg)
+            reg_p = {k: s0.reg[k].detach().requires_grad_(learnable_reg) for k in reg_keys}
+            out = forward_slabs(bundle, images, row, v_noised, unif)
+            res = out["residuals"]
+            alpha = _vd_alpha(bundle, s0.gmm, res, masks, dev0)
+            gmm, opt_gmm_state = _gmm_adam_step(bundle, opt_gmm, s0.gmm, s0.opt_gmm, res,
+                                                masks, alpha)
+            data_c = _masked_nll(bundle, gmm, res, masks) * alpha - bundle.gmm_prior_terms(gmm)
+            reg, log_y, loc_prior, per_set = _reg_terms(bundle, reg_p, None,
+                                                        _energy(bundle, out["v"]))
+            reg_c = reg - loc_prior - per_set
+            wrt = v_noised + ([reg_p[k] for k in reg_keys] if learnable_reg else [])
+            grads = torch.autograd.grad((data_c + reg_c).sum(), wrt)
+        n = len(shards)
+        reg_new, opt_reg_state = s0.reg, s0.opt_reg
+        if learnable_reg:
+            upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[n:])), s0.opt_reg)
+            reg_new = apply_updates({k: t.detach() for k, t in s0.reg.items()}, upd)
+        new = []
+        for s, vn, g, d in zip(shards, v_noised, grads[:n], out["displacement"]):
+            dev = vn.device
+            w = welford_update(WelfordState(s.welford.count, s.welford.mean, s.welford.m2),
+                               d.detach(), collect_weight)
+            new.append(s._replace(
+                v=vn.detach() - tau * s.sigma ** 2 * g, gmm=_on(gmm, dev),
+                reg=_on(reg_new, dev), opt_gmm=_on(opt_gmm_state, dev),
+                opt_reg=_on(opt_reg_state, dev), welford=w))
+        metrics = {"data_term": data_c, "reg_term": reg_c, "vd_alpha": alpha,
+                   "reg_energy": torch.exp(log_y), "ndv": out["ndv"], "sat": out["sat"],
+                   "sat_resid": out["sat_resid"], "gmm_scales": GMM.scales(gmm),
+                   "gmm_proportions": GMM.proportions(gmm)}
+        return new, {k: t.detach() for k, t in metrics.items()}
+
+    return transition
+
+
+def _rows(mesh: Mesh, depth: int) -> list:
+    if "space" not in mesh.axis_names:
+        raise ValueError(f"a spatially sharded step needs a 'space' axis, got {mesh}")
+    if depth % mesh.shape["space"]:
+        raise ValueError(f"depth {depth} does not divide over {mesh.shape['space']} shards")
+    return [_Row(mesh, idx, depth) for idx in mesh.rows("space")]
+
+
+def _cut_chain_noise(noise, row: _Row, r: int, n_rows: int) -> tuple:
+    """One step's whole ``(eps, unif)`` ``(C, 3, …)`` cut to row ``r``'s
+    chains and each of its slabs."""
+    out = []
+    for t in noise:
+        chains = t.chunk(n_rows)[r]
+        out.append([row.cut(chains, k) for k in range(row.n)])
+    return tuple(out)
+
+
+def make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau: float, fixed: Sharded,
+                            moving: Sharded, chunk: int, burn_in: int, thin: int):
+    """``engine.mcmc.make_mcmc_chunk`` over the mesh of ``fixed`` (a
+    ``('chain', 'space')`` or ``('space',)`` mesh; images from
+    ``shard_images_spatial``): ``run(state, noise=None) -> (state,
+    metrics)`` on a ``shard_state_spatial`` state.  Each row of the
+    ``'space'`` axis runs its chains' transition over its slabs; the rows
+    take turns at every transition (``run_in_turns``).  ``noise``: a
+    sequence of ``chunk`` whole ``(eps, unif)`` draws over all chains, on
+    any device.  Metrics ``(chunk, C, …)`` come back on the mesh's first
+    device."""
+    _refuse(bundle)
+    mesh = fixed.mesh
+    rows = _rows(mesh, int(bundle.dims[0]))
+    moving_whole = gather(moving)
+    transitions = [make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau,
+                                              _Images(bundle, fixed, moving, row, moving_whole),
+                                              row) for row in rows]
+
+    def step_fn(r: int, feed):
+        def step(shards):
+            n = shards[0].step + 1
+            noise = None if feed is None else _cut_chain_noise(next(feed), rows[r], r, len(rows))
+            shards, metrics = transitions[r](shards, _sgld_weight(n, burn_in, thin), noise)
+            return [s._replace(step=n) for s in shards], metrics
+
+        return step
+
+    def run(state: Sharded, noise=None):
+        feeds = [None if noise is None else iter(noise) for _ in rows]
+        states, metrics = run_in_turns([step_fn(r, feeds[r]) for r in range(len(rows))],
+                                       [[state[i] for i in row.idx] for row in rows], chunk)
+        trees = [None] * mesh.size
+        for row, shards in zip(rows, states):
+            for i, s in zip(row.idx, shards):
+                trees[i] = s
+        dev0 = mesh.device_list[0]
+        return Sharded(trees, mesh, state.cuts), {
+            k: torch.cat([m[k].to(dev0) for m in metrics], dim=1) for k in metrics[0]}
+
+    return run
+
+
+def _vi_draws_slabs(bundle, shards: list, row: _Row) -> tuple:
+    """``engine.vi._draws`` per slab: each shard draws the step's whole
+    ``eps`` and ``unif`` from the state's generator and keeps its slab, and
+    the same scalar ``x``."""
+    s0 = shards[0]
+    field = (3,) + tuple(bundle.field_dims)
+    alpha = float(bundle.uniform_noise_alpha)
+    eps, xs, unif = [], [], []
+    for k, dev in enumerate(row.devices):
+        gen = key_generator(s0.key, s0.step, dev)
+        eps.append(_draw_slab(gen, field, k, row, True))
+        xs.append(torch.randn((), generator=gen, dtype=torch.float32, device=dev))
+        unif.append(_draw_slab(gen, (2, 3) + tuple(bundle.dims), k, row, False, alpha))
+    return eps, xs, unif
+
+
+def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, moving: Sharded):
+    """``engine.vi.make_vi_step`` over the ``('space',)`` mesh of ``fixed``
+    (images from ``shard_images_spatial``): ``step(state, noise=None) ->
+    (state, metrics)`` on a ``shard_tree_spatial`` state.  The antithetic
+    pair runs as one batch of 2 over the slabs; the two GMM Adam steps, the
+    entropy and the losses are formed from sums over the slabs on the
+    mesh's first device; the three Adam updates are per slab.  ``noise``:
+    the whole ``(eps, x, unif)``, on any device."""
+    _refuse(bundle)
+    mesh = fixed.mesh
+    rows = _rows(mesh, int(bundle.dims[0]))
+    if len(rows) != 1:
+        raise ValueError(f"the sharded VI step takes a mesh with one row of 'space', got {mesh}")
+    row = rows[0]
+    images = _Images(bundle, fixed, moving, row, gather(moving))
+    reg_loss = bundle.reg_loss
+    learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
+    masks, dev0 = images.mask, row.dev0
+    q_keys = ("mu", "log_var", "u")
+
+    def step(state: Sharded, noise=None):
+        shards = [state[i] for i in row.idx]
+        s0 = shards[0]
+        if noise is None:
+            eps, xs, unif = _vi_draws_slabs(bundle, shards, row)
+        else:
+            e, x, u = noise
+            eps = [row.cut(e, k) for k in range(row.n)]
+            xs = [x.to(dev) for dev in row.devices]
+            unif = [row.cut(u, k) for k in range(row.n)]
+        with torch.enable_grad():
+            q = [{k: s.q_v[k].detach().requires_grad_(True) for k in q_keys} for s in shards]
+            reg_keys = list(s0.reg)
+            reg_p = {k: s0.reg[k].detach().requires_grad_(learnable_reg) for k in reg_keys}
+            vs = [torch.stack(sample_q_v(None, qi, antithetic=True, eps=e, x=x))
+                  for qi, e, x in zip(q, eps, xs)]
+            out = forward_slabs(bundle, images, row, vs, unif)
+            reg, log_ys = reg_loss._loss(reg_p, _energy(bundle, out["v"]))
+            sums = [sum_slabs(p, dev0) for p in zip(*(
+                entropy_sample_sums(v, qi["mu"], qi["log_var"], qi["u"])
+                for v, qi in zip(vs, q)))]
+            ents = entropy_sample_from_sums(*sums)
+            analytic = entropy_analytic_from_sums(*(sum_slabs(p, dev0) for p in zip(*(
+                entropy_analytic_sums(qi["log_var"], qi["u"]) for qi in q))))
+            gmm, opt_gmm_state = s0.gmm, s0.opt_gmm
+            datas, alphas = [], []
+            for i in range(2):
+                res = [r[i] for r in out["residuals"]]
+                a = _vd_alpha(bundle, gmm, res, masks, dev0)
+                gmm, opt_gmm_state = _gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state, res,
+                                                    masks, a)
+                datas.append(_masked_nll(bundle, gmm, res, masks) * a)
+                alphas.append(a)
+            data_term = 0.5 * (datas[0] + datas[1]) - bundle.gmm_prior_terms(gmm)
+            reg_term = 0.5 * (reg[0] + reg[1])
+            if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
+                reg_term = reg_term - 0.5 * (bundle.reg_loc_prior(log_ys[0])
+                                             + bundle.reg_loc_prior(log_ys[1]))
+                reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
+            elif learnable_reg and isinstance(reg_loss, RegLossL2):
+                reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
+            entropy_term = 0.5 * (ents[0] + ents[1]) + analytic
+            loss = data_term + reg_term - entropy_term
+            wrt = [qi[k] for qi in q for k in q_keys]
+            if learnable_reg:
+                wrt += [reg_p[k] for k in reg_keys]
+            grads = torch.autograd.grad(loss.sum(), wrt)
+        n3 = 3 * row.n
+        reg_new, opt_reg_state = s0.reg, s0.opt_reg
+        if learnable_reg:
+            upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[n3:])), s0.opt_reg)
+            reg_new = apply_updates({k: t.detach() for k, t in s0.reg.items()}, upd)
+        metrics = {"data_term": data_term, "reg_term": reg_term, "entropy_term": entropy_term,
+                   "total_loss": loss, "vd_alpha": alphas[0],
+                   "reg_energy": torch.exp(log_ys[0]), "ndv": out["ndv"][0],
+                   "sat": out["sat"][0], "sat_resid": out["sat_resid"][0]}
+        metrics = {k: t.detach() for k, t in metrics.items()}
+        new, max_upd = [], {name: [] for name in q_keys}
+        for k, s in enumerate(shards):
+            dev = s.q_v["mu"].device
+            g = dict(zip(q_keys, grads[3 * k:3 * k + 3]))
+            upd, opt_q = opt_q_v.update(g, s.opt_q_v)
+            q_new = apply_updates({name: s.q_v[name].detach() for name in q_keys}, upd)
+            for name in q_keys:
+                old_n = torch.linalg.vector_norm(s.q_v[name], dim=-4)
+                new_n = torch.linalg.vector_norm(q_new[name], dim=-4)
+                max_upd[name].append(torch.amax(torch.abs(new_n - old_n)).to(dev0))
+            new.append(s._replace(q_v=q_new, gmm=_on(gmm, dev), reg=_on(reg_new, dev),
+                                  opt_q_v=opt_q, opt_gmm=_on(opt_gmm_state, dev),
+                                  opt_reg=_on(opt_reg_state, dev), step=s.step + 1))
+        for name in q_keys:
+            metrics[f"max_update_{name}"] = torch.amax(torch.stack(max_upd[name]))
+        metrics["gmm_scales"] = GMM.scales(gmm)
+        metrics["gmm_proportions"] = GMM.proportions(gmm)
+        trees = list(state)
+        for i, s in zip(row.idx, new):
+            trees[i] = s
+        return Sharded(trees, mesh, state.cuts), metrics
+
+    return step
+
+
+__all__ = ["unported", "forward_slabs", "make_sgld_transition_slabs",
+           "make_mcmc_chunk_sharded", "make_vi_step_sharded"]

@@ -18,7 +18,9 @@ version on the same inputs on the card, at the tolerances of ``TOL``:
   ``ZHALO_SHAPES``, which ``chip_smoke.py`` times): B1/B2 in f32 and in
   bf16 (the saturated z-slab too), B3/B4 at R 1-3 in their
   window kernels, B5-B7 at R 1-3, the z-halo modes of B5/B6 and the
-  z-pad mode of B7 at R 1, 2, 4;
+  z-pad mode of B7 at R 1, 2, 4, the z-halo modes of B1/B2
+  (``SPLIT_ZHALO_SHAPES``) and of B3/B4 (``BLOCK_ZHALO_SHAPES``, window
+  and per-voxel kernels);
 * the per-voxel kernels the window and ring kernels leave to other
   shapes: B3/B4 at block 4 and at R 4, B5-B7 at R 4.
 
@@ -58,6 +60,11 @@ TOL = {"split_warp_fwd": (2e-5, 0.0), "split_warp_bwd": (3e-5, 1e-4),
        "warp_bounded_fwd": (1e-5, 1e-5), "warp_bounded_dgrad": (1e-5, 1e-5),
        "warp_bounded_tblend": (1e-5, 1e-5), "warp_bounded_fwd_zhalo": (1e-5, 1e-5),
        "warp_bounded_dgrad_zhalo": (1e-5, 1e-5), "warp_bounded_tblend_zpad": (1e-5, 1e-5)}
+# the z-halo modes of B1-B4: their default modes' sums, read at an offset
+TOL.update({"split_warp_fwd_zhalo": TOL["split_warp_fwd"],
+            "split_warp_bwd_zhalo": TOL["split_warp_bwd"],
+            "block_warp_fwd_zhalo": TOL["block_warp_fwd"],
+            "block_warp_dgrad_zhalo": TOL["block_warp_dgrad"]})
 
 # (shape, slab, offset) of B1/B2: the main path's, a tiny one, one that
 # straddles the tiles and 16-plane z-chunks with u saturated in a z-slab,
@@ -89,6 +96,18 @@ BOUNDED_SHAPES = (((CHAINS, 1) + MAIN, 1), ((CHAINS, 4) + SMALL, 2), ((2, 1, 40,
 # kernels at R 1 (timed) and at a ragged 4-channel R 2, the per-voxel (B7Z:
 # run-time-R) kernels at R 4
 ZHALO_SHAPES = (((CHAINS, 1) + MAIN, 1), ((1, 4, 17, 10, 70), 2), ((1, 2, 9, 12, 40), 4))
+
+# output (slab) shapes of B1's and B2's z-halo modes (d_h and u_h one plane
+# deeper on each side): a slab of 2 shards of the main path's volume, and a
+# ragged one across the tiles and 16-plane z-chunks
+SPLIT_ZHALO_SHAPES = ((CHAINS, 3, MAIN[0] // 2) + MAIN[1:], (2, 3, 17, 24, 130))
+
+# (slab shape, bound, radius, block, h) of B3's and B4's z-halo modes (vol_h
+# 2h planes deeper, h = bound + R + 1 as the sharded warp takes it): a slab
+# of 2 shards of the dense path's volume (window kernels, R 2), a ragged
+# 4-channel one at R 1 (window kernels), and R 4 (per-voxel kernels)
+BLOCK_ZHALO_SHAPES = (((CHAINS, 1, MAIN[0] // 2) + MAIN[1:], 9, 2, 8, 12),
+                      ((1, 4, 16, 24, 136), 6, 1, 8, 8), ((2, 1, 16, 16, 48), 9, 4, 8, 14))
 
 
 def split_operands(gen, shape, slab=None, dtype=torch.float32, offset=0):
@@ -149,6 +168,24 @@ def block_operands(gen, shape, bound, radius, saturate=False, block=8):
         flat[1::11] = radius
         flat[2::13] = -radius
     return vol, r.contiguous(), m, torch.randn(shape, generator=gen, device=dev)
+
+
+def split_zhalo_operands(gen, shape):
+    """d_h, u_h (one plane deeper on each side than ``shape``) and g for
+    B1Z/B2Z, drawn as :func:`split_operands` draws them."""
+    B, C, D, H, W = shape
+    d_h, u_h, _ = split_operands(gen, (B, C, D + 2, H, W))
+    return d_h, u_h, torch.randn(shape, generator=gen, device=gen.device)
+
+
+def block_zhalo_operands(gen, shape, bound, radius, block, h):
+    """vol_h (``2h`` planes deeper than ``shape``), r, m, g for B3Z/B4Z: the
+    slab's operands as :func:`block_operands` draws them, with block means
+    at ±bound next to its z ends (the taps reach into the window's halo)."""
+    B, C, D, H, W = shape
+    _, r, m, g = block_operands(gen, shape, bound, radius, saturate=True, block=block)
+    vol_h = torch.randn((B, C, D + 2 * h, H, W), generator=gen, device=gen.device)
+    return vol_h, r, m, g
 
 
 def bounded_operands(gen, shape, R):
@@ -276,6 +313,7 @@ def run_selftest(dev=None, log: bool = True) -> dict:
     """Every check on the card ``dev`` (default ``cuda:0``); returns
     ``{"ok", "checks"}``.  The kernels' launch counters move."""
     from .kernels import block_warp as bw
+    from .kernels import split_warp as sw
     from .kernels import warp_bounded as wb
 
     dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
@@ -324,6 +362,25 @@ def run_selftest(dev=None, log: bool = True) -> dict:
               TOL["warp_bounded_dgrad_zhalo"])
         check(f"warp_bounded_tblend_zpad{tag}", wb.warp_bounded_tblend_cuda(disp, g, R, z_pad=True),
               wb.warp_bounded_tblend_zpad_plain(disp, g, R), TOL["warp_bounded_tblend_zpad"])
+
+    for shape in SPLIT_ZHALO_SHAPES:
+        d_h, u_h, g = split_zhalo_operands(gen, shape)
+        tag = f"{tuple(shape)}"
+        check(f"split_warp_fwd_zhalo{tag}", sw.split_warp_fwd_zhalo_cuda(d_h, u_h),
+              sw.split_compose_zhalo_plain(d_h, u_h), TOL["split_warp_fwd_zhalo"])
+        gd_k, gu_k = sw.split_compose_zhalo_vjp(d_h, u_h, g)
+        gd_p, gu_p = sw.split_compose_zhalo_vjp_plain(d_h, u_h, g)
+        check(f"split_warp_bwd_zhalo.d{tag}", gd_k, gd_p, TOL["split_warp_bwd_zhalo"])
+        check(f"split_warp_bwd_zhalo.u{tag}", gu_k, gu_p, TOL["split_warp_bwd_zhalo"])
+
+    for shape, bound, R, block, h in BLOCK_ZHALO_SHAPES:
+        vol_h, r, m, g = block_zhalo_operands(gen, shape, bound, R, block, h)
+        tag = f"{tuple(shape)} bound {bound} R {R} block {block} h {h}"
+        check(f"block_warp_fwd_zhalo{tag}", bw.block_warp_zhalo_cuda(vol_h, r, m, R, h, block),
+              bw.block_warp_plain(vol_h, r, m, block, h), TOL["block_warp_fwd_zhalo"])
+        check(f"block_warp_dgrad_zhalo{tag}",
+              bw.block_warp_dgrad_zhalo_cuda(vol_h, r, m, g, R, h, block),
+              bw.block_warp_dgrad_plain(vol_h, r, m, g, block, h), TOL["block_warp_dgrad_zhalo"])
     torch.cuda.synchronize(dev)
     return {"ok": bool(check.ok), "checks": {k: float(f"{v:.3e}") for k, v in check.errs.items()}}
 

@@ -53,11 +53,17 @@ shared GMM/reg set; ``vi_remat`` (``"auto"``: on from a dense field of
 recompute.  ``pair_parallel: true`` over several pairs registers them as
 one batch (``engine/pairs.py``; :meth:`Trainer._run_pairs_parallel`).  Not
 ported: ``mcmc_anchor: true`` raises ``NotImplementedError`` (ROADMAP
-rule), and so do ``spatial_shards`` and ``vi_spatial_shards`` above 1
-where they would cut the MCMC or VI step along D over several devices
-(ROADMAP A, "The spatially sharded training steps"); ``vi_spatial_shards: "auto"``
-runs VI on the first device, which the JAX tests hold equal to the sharded
-step.  On one device all three change nothing, as in the JAX trainer.
+rule).  ``spatial_shards`` above 1 cuts the MCMC step along D over a
+``('chain', 'space')`` mesh, and an explicit ``vi_spatial_shards`` above
+1 the VI step over a ``('space',)`` mesh, under the JAX trainer's
+conditions (``parallel/spatial.py``; each slab a whole number of
+block-warp blocks where that warp engages); ``vi_spatial_shards: "auto"``
+runs VI on the first device, where one card beats the sharded step.  The
+sharded steps take the dense ``"post"`` path: ``noise_scheme: "pre"``,
+``taylor_compositions: "warp"``, ``use_gather``, ``compute_dtype:
+"bfloat16"`` and the Fourier energy raise ``NotImplementedError`` under
+them (ROADMAP A).  On one device all of these change nothing, as in the
+JAX trainer.
 There is no kernel fallback: a kernel that fails to build or launch
 raises.
 
@@ -85,12 +91,14 @@ from .engine import (VIState, gmm_warmup, init_chains, make_mcmc_chunk, make_vi_
 from .engine.mcmc import welford_finalize, welford_init, welford_update
 from .engine.pairs import (make_pair_mcmc_chunk, make_pair_mesh, make_pair_vi_chunk,
                            shard_pairs, stack_trees, take_pairs, unstack_tree)
-from .engine.vi import key_generator
+from .engine.vi import block_warp_engages, key_generator
 from .models.sampler import sample_q_v
 from .ops.grids import count_non_diffeomorphic, det_jacobian
 from .ops.resample import warp
 from .ops.stencil import gradient
-from .parallel import Sharded, gather, make_mesh, replicate, shard_chain_state
+from .parallel import (Sharded, gather, make_mesh, replicate, shard_chain_state,
+                       shard_images_spatial, shard_state_spatial, shard_tree_spatial)
+from .parallel import spatial
 from .utils import savers
 from .utils.checkpoint import load_checkpoint, peek_meta, save_checkpoint
 from .utils.metrics import MetricTracker, calc_metrics, dice
@@ -186,7 +194,7 @@ class Trainer:
         # issues every device's launches (PERF.md), so it is not a default:
         # it needs an explicit ``distribute: true``
         self.distribute_chains = self.distribute and "distribute" in self.t_cfg
-        self._mcmc_mesh = self._draw_mesh = self._pair_mesh = None
+        self._mcmc_mesh = self._draw_mesh = self._pair_mesh = self._vi_mesh = None
         self.dataset = dataset if dataset is not None else config.build_dataset()
         self.bundle = config.build_bundle()
         self.opt_q_v, self.opt_gmm, self.opt_reg = config.build_optimizers(self.bundle)
@@ -235,22 +243,47 @@ class Trainer:
             raise NotImplementedError(
                 "mcmc_anchor=true (anchored residual warping) is not ported "
                 "(ROADMAP 'Rules of the port', Not ported)")
-        # the JAX trainer's conditions for cutting a step along D
+        # the spatially sharded steps take the dense "post" path
+        for phase, runs, shards in (("MCMC", self.run_mcmc, self._mcmc_spatial_shards()),
+                                    ("VI", self.run_vi, self._vi_spatial_shards())):
+            why = spatial.unported(self.bundle) if runs and shards > 1 else None
+            if why is not None:
+                raise NotImplementedError(
+                    f"{phase} over {shards} spatial shards: {why} ({spatial.ROADMAP_ITEM})")
+
+    def _spatial_fits(self, shards: int) -> bool:
+        """The port's own condition beside the JAX trainer's: each slab a
+        whole number of block-warp blocks where that warp engages."""
+        if not block_warp_engages(self.bundle):
+            return True
+        return (int(self.bundle.dims[0]) // shards) % int(self.bundle.block_size) == 0
+
+    def _mcmc_spatial_shards(self) -> int:
+        """``spatial_shards`` where the JAX trainer's conditions cut the MCMC
+        step along D (``ir_sgmcmc_tpu/trainer.py:1188-1201``), else 1."""
         n_dev, depth = len(self.devices), int(self.bundle.dims[0])
         dense = tuple(self.bundle.field_dims) == tuple(self.bundle.dims)
-        spatial = int(self.t_cfg.get("spatial_shards", 1))
-        vi_spatial = self.t_cfg.get("vi_spatial_shards", "auto")
-        if (self.distribute and self.run_mcmc and self.mcmc_param_mode == "per_chain"
-                and spatial > 1 and n_dev % spatial == 0 and dense and depth % spatial == 0
-                and self.no_chains % (n_dev // spatial) == 0):
-            raise NotImplementedError(
-                f"spatial_shards={spatial} (the MCMC step cut along D over {n_dev} devices) "
-                "is not ported (ROADMAP A, 'The spatially sharded training steps')")
-        if (self.distribute and self.run_vi and vi_spatial != "auto" and int(vi_spatial) > 1
-                and dense and depth % int(vi_spatial) == 0 and int(vi_spatial) <= n_dev):
-            raise NotImplementedError(
-                f"vi_spatial_shards={vi_spatial} (the VI step cut along D over several "
-                "devices) is not ported (ROADMAP A, 'The spatially sharded training steps')")
+        shards = int(self.t_cfg.get("spatial_shards", 1))
+        if (self.distribute and self.mcmc_param_mode == "per_chain"
+                and shards > 1 and n_dev % shards == 0 and dense and depth % shards == 0
+                and self.no_chains % (n_dev // shards) == 0 and self._spatial_fits(shards)):
+            return shards
+        return 1
+
+    def _vi_spatial_shards(self) -> int:
+        """An explicit ``vi_spatial_shards`` where the JAX trainer's
+        conditions cut the VI step along D (``ir_sgmcmc_tpu/trainer.py:826-
+        843``), else 1.  ``"auto"`` stays on one device (1)."""
+        n_dev, depth = len(self.devices), int(self.bundle.dims[0])
+        dense = tuple(self.bundle.field_dims) == tuple(self.bundle.dims)
+        shards = self.t_cfg.get("vi_spatial_shards", "auto")
+        if shards == "auto":
+            return 1
+        shards = int(shards)
+        if (self.distribute and shards > 1 and dense and depth % shards == 0
+                and shards <= n_dev and self._spatial_fits(shards)):
+            return shards
+        return 1
 
     # ------------------------------------------------------------- timing
     def _add_time(self, name: str, seconds: float) -> None:
@@ -901,16 +934,27 @@ class Trainer:
     # ------------------------------------------------------------ VI phase
     def _run_vi_phase(self, fixed, moving, state: VIState, start: int = 0) -> VIState:
         n_dev, depth = len(self.devices), int(self.bundle.dims[0])
-        if (self.distribute and self.t_cfg.get("vi_spatial_shards", "auto") == "auto"
+        self._vi_mesh = None
+        shards = self._vi_spatial_shards()
+        fixed_run, moving_run = fixed, moving
+        if shards > 1:
+            self._vi_mesh = make_mesh((shards,), axes=("space",), devices=self.devices)
+            state = shard_tree_spatial(state, self._vi_mesh, depth)
+            fixed_run = shard_images_spatial(fixed, self._vi_mesh, depth)
+            moving_run = shard_images_spatial(moving, self._vi_mesh, depth)
+            self.logger.info("distributing VI over %d spatial shards %s", shards,
+                             [str(d) for d in self._vi_mesh.device_list])
+        elif (self.distribute and self.t_cfg.get("vi_spatial_shards", "auto") == "auto"
                 and tuple(self.bundle.field_dims) == tuple(self.bundle.dims)
                 and depth % n_dev == 0):
             self.logger.info("VI runs on %s: the JAX trainer's vi_spatial_shards 'auto' cuts it "
-                             "along D over %d devices, which is not ported (ROADMAP A, 'The "
-                             "spatially sharded training steps')", self.device, n_dev)
-        if self.vi_remat:
+                             "along D over %d devices; the port cuts it only for an explicit "
+                             "vi_spatial_shards (the sharded step is slower than one card)",
+                             self.device, n_dev)
+        if self.vi_remat and self._vi_mesh is None:
             self.logger.info("VI remat on: sequential antithetic chains")
         step_fn = make_vi_step(self.bundle, self.opt_q_v, self.opt_gmm, self.opt_reg,
-                               fixed, moving, remat=self.vi_remat)
+                               fixed_run, moving_run, remat=self.vi_remat and shards == 1)
         eval_fn = self._make_eval(fixed, moving)
         fixed_seg_np = _numpy(fixed["seg"])
         cap = int(self.t_cfg.get("max_device_chunk", 200))
@@ -948,10 +992,11 @@ class Trainer:
                     self.writer.add_scalar(f"VI/max_update_{name}",
                                            float(last[f"max_update_{name}"]))
 
-                out = _first(eval_fn(state.q_v["mu"][None]))
+                whole = _whole(state)
+                out = _first(eval_fn(whole.q_v["mu"][None]))
                 mean_dsc = self._log_seg_metrics(fixed_seg_np, out, "VI", defer_asd=True)
                 if self.writer.has_figures:
-                    self._submit_vi_figures(out, state, last, fixed, moving)
+                    self._submit_vi_figures(out, whole, last, fixed, moving)
                 self.logger.info(
                     "VI %d/%d loss %.1f data %.1f reg %.1f entropy %.1f dice %.4f ndv %d",
                     done, self.no_iters_vi, float(last["total_loss"]),
@@ -969,7 +1014,7 @@ class Trainer:
             t0 = time.perf_counter()
             savers.flush()
             self._add_time("vi/flush", time.perf_counter() - t0)
-        return state
+        return _whole(state)
 
     def _submit_vi_figures(self, out, state: VIState, last: dict, fixed, moving) -> None:
         """Residual histogram, image and field grids, rendered on the writer
@@ -1112,11 +1157,22 @@ class Trainer:
             self.logger.info("resumed MCMC from %s at %s", mcmc_resume, resume_meta)
             self._restore_radius(resume_meta)
 
-        # the JAX trainer's rule: chains over a ('chain',) mesh of every
-        # device when they divide over it (per-chain sets only); images are
-        # copied to each device, evaluation and artifacts stay on the first
-        n_dev = len(self.devices)
-        if (self.distribute and self.mcmc_param_mode == "per_chain"
+        # the JAX trainer's rules: chains x spatial shards over a ('chain',
+        # 'space') mesh for spatial_shards > 1, else chains over a ('chain',)
+        # mesh of every device when they divide over it (per-chain sets
+        # only); evaluation and artifacts stay on the first device
+        n_dev, depth = len(self.devices), int(self.bundle.dims[0])
+        fixed_run, moving_run = fixed, moving
+        shards = self._mcmc_spatial_shards()
+        if shards > 1:
+            self._mcmc_mesh = make_mesh((n_dev // shards, shards), axes=("chain", "space"),
+                                        devices=self.devices)
+            mcmc = shard_state_spatial(mcmc, self._mcmc_mesh, self.no_chains, depth)
+            fixed_run = shard_images_spatial(fixed, self._mcmc_mesh, depth)
+            moving_run = shard_images_spatial(moving, self._mcmc_mesh, depth)
+            self.logger.info("distributing %d chains x %d spatial shards over %d devices %s",
+                             self.no_chains, shards, n_dev, [str(d) for d in self.devices])
+        elif (self.distribute and self.mcmc_param_mode == "per_chain"
                 and self.no_chains % n_dev == 0):
             if self.distribute_chains:
                 self._mcmc_mesh = make_mesh(n_dev, axes=("chain",), devices=self.devices)
@@ -1133,7 +1189,8 @@ class Trainer:
         def chains_v(mcmc):
             """Every chain's ``v`` on the first device."""
             if isinstance(mcmc, Sharded):
-                return torch.cat([s.v.to(self.device) for s in mcmc])
+                # v is the state's first leaf
+                return gather(Sharded([s.v for s in mcmc], mcmc.mesh, mcmc.cuts[:1]), self.device)
             return mcmc.v
 
         cap = int(self.t_cfg.get("max_device_chunk", 200))
@@ -1147,9 +1204,10 @@ class Trainer:
             while n > 0:
                 this = min(cap, n)
                 mcmc, ms = make_mcmc_chunk(
-                    self.bundle, self.opt_gmm, self.opt_reg, tau, fixed, moving, chunk=this,
-                    burn_in=self.no_iters_burn_in, thin=thin,
-                    param_mode=self.mcmc_param_mode, chain_mesh=self._mcmc_mesh)(mcmc)
+                    self.bundle, self.opt_gmm, self.opt_reg, tau, fixed_run, moving_run,
+                    chunk=this, burn_in=self.no_iters_burn_in, thin=thin,
+                    param_mode=self.mcmc_param_mode,
+                    chain_mesh=None if shards > 1 else self._mcmc_mesh)(mcmc)
                 n -= this
             return mcmc, ms
 

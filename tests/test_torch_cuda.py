@@ -1,6 +1,7 @@
 """Port kernels on the card: B1-B7 against their plain versions, the
 autograd Functions end to end, and the wrappers' operand checks; B1/B2
-also in their bf16 modes.
+also in their bf16 modes; the z-halo modes of B1-B7, and the spatially
+sharded chunk on virtual shards of the card.
 
 Imports only torch and the port, so it runs on a GPU host without JAX:
 
@@ -401,6 +402,122 @@ def test_zhalo_slabs_concatenate_on_card(cuda, radius):
                     for v, d, gg in parts], 2)
     assert torch.equal(out, wb.warp_bounded_fwd_cuda(vol, disp, radius))
     assert torch.equal(dg, wb.warp_bounded_dgrad_cuda(vol, disp, g, radius))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 17, 24, 130), (1, 3, 4, 9, 33), (2, 3, 32, 16, 64)])
+def test_split_zhalo_kernels_match_plain(cuda, shape):
+    """B1Z and B2Z (B1/B2 on a slab with one halo plane on each side, no z
+    clamp) against their plain versions; B2Z's ``ū`` with the direct
+    term's ``+g`` on the interior planes."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    d_h, u_h, g = st.split_zhalo_operands(gen, shape)
+    torch.testing.assert_close(sw.split_warp_fwd_zhalo_cuda(d_h, u_h),
+                               sw.split_compose_zhalo_plain(d_h, u_h), atol=2e-5, rtol=0)
+    for got, want in zip(sw.split_compose_zhalo_vjp(d_h, u_h, g),
+                         sw.split_compose_zhalo_vjp_plain(d_h, u_h, g)):
+        torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,bound,radius,block,h", [
+    ((2, 1, 16, 24, 40), 9, 2, 8, 12), ((1, 4, 16, 24, 136), 6, 1, 8, 8),
+    ((1, 2, 16, 16, 32), 5, 3, 8, 9), ((2, 1, 16, 16, 48), 9, 4, 8, 14),
+    ((2, 2, 12, 8, 20), 5, 2, 4, 8)])
+def test_block_zhalo_kernels_match_plain(cuda, shape, bound, radius, block, h):
+    """B3Z and B4Z (window kernels at block 8, R 1-3; per-voxel kernels at
+    R 4 and block 4) against their plain versions, with block means at
+    ±bound next to the slab's z ends."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    vol_h, r, m, g = st.block_zhalo_operands(gen, shape, bound, radius, block, h)
+    torch.testing.assert_close(bw.block_warp_zhalo_cuda(vol_h, r, m, radius, h, block),
+                               bw.block_warp_plain(vol_h, r, m, block, h), atol=1e-5, rtol=0)
+    torch.testing.assert_close(bw.block_warp_dgrad_zhalo_cuda(vol_h, r, m, g, radius, h, block),
+                               bw.block_warp_dgrad_plain(vol_h, r, m, g, block, h),
+                               atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("slabs", [2, 4])
+def test_split_and_block_zhalo_slabs_concatenate_on_card(cuda, slabs):
+    """z-slabs through B1Z and B3Z/B4Z, each with its real neighbour planes
+    (edge planes repeated at the two ends), concatenate bitwise to B1 and
+    B3/B4 on the whole volume: the same taps of the same values."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    d, u, _ = st.split_operands(gen, (2, 3, 32, 24, 40))
+    dp, up = (torch.nn.functional.pad(t, (0, 0, 0, 0, 1, 1), mode="replicate") for t in (d, u))
+    n = 32 // slabs
+    out = torch.cat([sw.split_warp_fwd_zhalo_cuda(dp[:, :, z:z + n + 2].contiguous(),
+                                                  up[:, :, z:z + n + 2].contiguous())
+                     for z in range(0, 32, n)], 2)
+    assert torch.equal(out, sw.split_warp_fwd_cuda(d, u))
+    vol, r, m, g = st.block_operands(gen, (2, 1, 64, 24, 40), 9, 2, saturate=True)
+    h, n = 12, 64 // slabs
+    vp = torch.nn.functional.pad(vol, (0, 0, 0, 0, h, h), mode="replicate")
+    parts = [(vp[:, :, z:z + n + 2 * h].contiguous(), r[:, :, z:z + n].contiguous(),
+              m[:, :, z // 8:(z + n) // 8].contiguous(), g[:, :, z:z + n].contiguous())
+             for z in range(0, 64, n)]
+    fw = torch.cat([bw.block_warp_zhalo_cuda(v, rr, mm, 2, h) for v, rr, mm, _ in parts], 2)
+    dg = torch.cat([bw.block_warp_dgrad_zhalo_cuda(v, rr, mm, gg, 2, h)
+                    for v, rr, mm, gg in parts], 2)
+    assert torch.equal(fw, bw.block_warp_cuda(vol, r, m, 2))
+    assert torch.equal(dg, bw.block_warp_dgrad_cuda(vol, r, m, g, 2))
+
+
+def test_spatial_mcmc_chunk_on_virtual_shards_matches_unsharded(cuda):
+    """A 64³ transition of ``bench.py``'s model cut along D over 2 shards of
+    one card (a ``(1, 2)`` ``('chain', 'space')`` mesh) against the
+    unsharded chunk on the card: B1Z 7, B2Z 7, B3Z 1, B4Z 1 launches per
+    shard, B1-B4 none, and the state within 1e-5."""
+    import math
+
+    from ir_sgmcmc_tpu_torch.data import sphere_pair
+    from ir_sgmcmc_tpu_torch.engine import ModelBundle, init_chains, make_mcmc_chunk
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+    from ir_sgmcmc_tpu_torch.models import (GMM, SVF3D, DirichletPrior, LogEnergyExpGammaPrior,
+                                            LogScaleNormalPrior, RegLossLogNormal)
+    from ir_sgmcmc_tpu_torch.optim import adam_decay
+    from ir_sgmcmc_tpu_torch.parallel import (gather, make_mesh, shard_images_spatial,
+                                              shard_state_spatial)
+
+    dims = (64, 64, 64)
+    dof = 3.0 * math.prod(dims)
+    b = ModelBundle(dims=dims, gmm=GMM(4, 1), scale_prior=LogScaleNormalPrior(0.0, 2.3),
+                    proportion_prior=DirichletPrior(4, 0.5),
+                    reg_loss=RegLossLogNormal(w_reg=1.4, dims=dims, learnable=True),
+                    reg_loc_prior=LogEnergyExpGammaPrior(w_reg=1.4, dof=dof),
+                    reg_scale_prior=LogScaleNormalPrior(loc=2.8, scale=5.0),
+                    transformation=SVF3D(dims, no_steps=12), sobolev_s=3, sobolev_lambda=0.5,
+                    uniform_noise_alpha=0.1, virtual_decimation=True)
+    f, m = sphere_pair(dims, offset=(0.0, 0.0, 4.0))
+    f = {k: torch.as_tensor(v, device=cuda) for k, v in f.items()}
+    m = {k: torch.as_tensor(v, device=cuda) for k, v in m.items()}
+    og, orr = adam_decay(0.2, 1e-3), adam_decay({"loc": 0.01, "log_scale": 0.01}, 1e-3)
+    state = init_chains(b, torch.Generator(device=cuda).manual_seed(0), 2, "noise", None,
+                        b.gmm.init_params(cuda), b.reg_loss.init_params(cuda), og, orr,
+                        device=cuda)
+    plain, m_plain = make_mcmc_chunk(b, og, orr, 1e-5, f, m, 2, 0, 1)(state)
+    mesh = make_mesh((1, 2), axes=("chain", "space"), devices=[cuda, cuda])
+    kernels = {k.symbol: k for k in all_kernels()}
+    before = {s: k.launches for s, k in kernels.items()}
+    out, m_out = make_mcmc_chunk(b, og, orr, 1e-5, shard_images_spatial(f, mesh, 64),
+                                 shard_images_spatial(m, mesh, 64), 2, 0, 1)(
+        shard_state_spatial(state, mesh, 2, 64))
+    moved = {s: k.launches - before[s] for s, k in kernels.items()}
+    assert moved["split_warp_fwd_zhalo"] == moved["split_warp_bwd_zhalo"] == 2 * 2 * 7
+    assert moved["block_warp_fwd_zhalo"] == moved["block_warp_dgrad_zhalo"] == 2 * 2
+    for sym in ("split_warp_fwd", "split_warp_bwd", "block_warp_fwd", "block_warp_dgrad"):
+        assert moved[sym] == 0, sym
+    whole = gather(out)
+    torch.testing.assert_close(whole.v, plain.v, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(m_out["data_term"], m_plain["data_term"], atol=0, rtol=1e-5)
 
 
 @pytest.mark.parametrize("shape,radius", [((2, 1, 40, 24, 130), 1), ((1, 4, 17, 10, 70), 2),

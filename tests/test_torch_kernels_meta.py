@@ -35,6 +35,12 @@ MAIN_PATH = {
     # B7's z-pad mode at chip_smoke.py's R 1 shape: g's shape (the output
     # is 2R planes deeper; radius 0 counts none)
     "warp_bounded_tblend_zpad": ((2, 1) + N128, 84),
+    # the z-halo modes of B1-B4 at a slab of 2 shards of the main path's
+    # volume: the output's shape (radius 0 counts no halo plane)
+    "split_warp_fwd_zhalo": ((2, 3, 64, 128, 128), 75),
+    "split_warp_bwd_zhalo": ((2, 3, 64, 128, 128), 126),
+    "block_warp_fwd_zhalo": ((2, 1, 64, 128, 128), 42),
+    "block_warp_dgrad_zhalo": ((2, 1, 64, 128, 128), 67),
 }
 
 
@@ -58,19 +64,31 @@ def test_kernel_bytes_and_bound(symbol):
 
 
 @pytest.mark.parametrize("symbol", ["warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo",
-                                    "warp_bounded_tblend_zpad"])
+                                    "warp_bounded_tblend_zpad", "block_warp_fwd_zhalo",
+                                    "block_warp_dgrad_zhalo", "split_warp_fwd_zhalo",
+                                    "split_warp_bwd_zhalo"])
 @pytest.mark.parametrize("radius", [1, 2])
 def test_zhalo_kernel_bytes_count_the_halo_planes(symbol, radius):
     """A z-halo kernel reads ``2R`` more vol planes than its output has, and
     B7's z-pad mode writes ``2R`` more output planes than g has:
-    ``4·B·C·2R·H·W`` bytes beyond the mode without them."""
+    ``4·B·C·2R·H·W`` bytes beyond the mode without them (B3Z/B4Z: ``R`` is
+    the window's halo ``h``).  B1Z reads the halo planes of d and u
+    (``4·(C+3)`` bytes per voxel of a plane), and B2Z also writes its two
+    gradients there (twice that)."""
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
     from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
 
     kernel = next(k for k in all_kernels() if k.symbol == symbol)
     plain = {"warp_bounded_fwd_zhalo": wb.B5, "warp_bounded_dgrad_zhalo": wb.B6,
-             "warp_bounded_tblend_zpad": wb.B7}[symbol]
-    shape = (2, 4, 32, 24, 40)
-    extra = 4 * 2 * 4 * 2 * radius * 24 * 40
+             "warp_bounded_tblend_zpad": wb.B7, "block_warp_fwd_zhalo": bw.B3,
+             "block_warp_dgrad_zhalo": bw.B4, "split_warp_fwd_zhalo": sw.B1,
+             "split_warp_bwd_zhalo": sw.B2}[symbol]
+    C = 3 if symbol.startswith("split") else 4
+    shape = (2, C, 32, 24, 40)
+    per_plane_voxel = {"split_warp_fwd_zhalo": 4 * (C + 3),
+                       "split_warp_bwd_zhalo": 8 * (C + 3)}.get(symbol, 4 * C)
+    extra = 2 * per_plane_voxel * 2 * radius * 24 * 40
     assert kernel.bytes(shape, radius) == plain.bytes(shape) + extra
     assert plain.bytes(shape, radius) == plain.bytes(shape)  # no halo, no planes
     assert kernel.bound_ms(shape, radius)[0] == pytest.approx(
