@@ -39,6 +39,9 @@ Phases, each of which raises on failure (exit code != 0):
    the spatial path's per-shard shapes (2 shards of 128³: d_h ``(2, 3,
    66, 128, 128)``, the window ``(2, 1, 88, 128, 128)`` at R 2, h 12),
    B3Z/B4Z held to ``grid_sample`` on the window and its grid gradient;
+   and the bf16 z-halo modes of B1/B2 (B1Z-bf16/B2Z-bf16) at the same
+   split shapes in bf16, to one bf16 ulp, timed at d_h ``(2, 3, 66, 128,
+   128)``;
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
@@ -144,8 +147,16 @@ Phases, each of which raises on failure (exit code != 0):
    ``--devices`` naming the card twice and ``spatial_shards`` and
    ``vi_spatial_shards`` 2, cut as in phase 7, with phase 7's checks and
    its Dice beside the one-device run's (a ``spatial_trainer:`` line);
-   (d) with two cards or more, (a)-(c) over two real cards, and with four
-   (a)-(b) at 4 shards over four, else one line saying they were not run.
+   (d) with two cards or more, (a)-(c) and (e) over two real cards, and
+   with four (a)-(b) at 4 shards over four, else one line saying they were
+   not run; (e) each other option of the dense model at 128³ on 2 virtual
+   shards against the unsharded step: MCMC with ``taylor_compositions:
+   "warp"`` (B5Z-B7Z 7, B3Z 1, B4Z 1 per transition and shard),
+   ``use_gather`` (no hand-written kernel), ``compute_dtype: "bfloat16"``
+   (B1Z-bf16 7, B2Z-bf16 7, B3Z 1, B4Z 1) and the Fourier energy (13(a)'s
+   kernels), VI on ``"pre"`` (B1Z 7, B5Z 9, B6Z 8, B7Z 8), with 13(a)-(b)'s
+   checks, both rates and each card's peak memory (a ``spatial_options:``
+   line).
 
 The operand builders, shape tables and tolerances of phase 2 are the
 selftest's (``ir_sgmcmc_tpu_torch/selftest.py``); every profile is a
@@ -155,8 +166,9 @@ trainer's: its whole CLI run) and read just after.  Then one JSON line of
 kernel results (B3 and B4 once per radius: ``block_warp_fwd`` at R 2 with
 the dense paths' launches, ``block_warp_fwd_r3`` at R 3 with the SVFFD
 paths'; the bf16 modes of B1/B2 with phase 11's launches; the z-halo modes
-of B5/B6 and the z-pad mode of B7 with phase 12's, those of B1-B4 with
-phase 13's: no kernel may have 0),
+of B5/B6 and the z-pad mode of B7 with phase 12's and 13(e)'s, those of
+B1-B4 with phase 13's, the bf16 z-halo modes of B1/B2 with 13(e)'s: no
+kernel may have 0),
 the ``nvidia-smi``
 name/power line, and the final status line.  Imports nothing of JAX.
 Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
@@ -593,7 +605,9 @@ def phase_spatial_kernels(dev) -> list:
     128)`` at R 2).  B3Z and B4Z are held to their library calls
     (``grid_sample`` on the window, and its grid gradient, whose points
     never reach the window's z ends); no PyTorch call computes the split
-    step (B1Z/B2Z: none)."""
+    step (B1Z/B2Z: none).  Then the bf16 z-halo modes B1Z-bf16/B2Z-bf16 at
+    the same shapes in bf16, to one bf16 ulp (the bf16 modes' tolerance),
+    timed at the first."""
     from ir_sgmcmc_tpu_torch import selftest as st
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
     from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
@@ -639,10 +653,36 @@ def phase_spatial_kernels(dev) -> list:
                                                                                R, h)),
                          _time_ms(lambda: bw.block_warp_dgrad_plain(vol_h, r, m, g, block, h)),
                          lib4, R, h)
+    # B1Z-bf16/B2Z-bf16: B2Z-bf16's own outputs (no +g), as the bf16 rows of
+    # phase 11 hold B2-bf16's, at the tolerances of the bf16 modes
+    for k in (sw.B1Z_BF16, sw.B2Z_BF16):
+        tol[k], errs[k] = st.TOL[k.symbol], 0.0
+    for shape in st.SPLIT_ZHALO_SHAPES:
+        d_h, u_h, g = st.split_zhalo_operands(gen, shape, torch.bfloat16)
+        out = sw.split_warp_fwd_zhalo_cuda(d_h, u_h)
+        if out.dtype != torch.bfloat16:
+            raise AssertionError(f"B1Z-bf16 {shape}: output dtype {out.dtype}")
+        errs[sw.B1Z_BF16] = max(errs[sw.B1Z_BF16], _err(
+            out.float(), sw.split_compose_zhalo_plain(d_h, u_h).float(), *tol[sw.B1Z_BF16],
+            f"B1Z-bf16 {shape}"))
+        for what, a, b in zip(("gd", "gu"), sw.split_warp_bwd_zhalo_cuda(d_h, u_h, g),
+                              sw.split_warp_vjp_zhalo_plain(d_h, u_h, g)):
+            errs[sw.B2Z_BF16] = max(errs[sw.B2Z_BF16], _err(
+                a.float(), b.float(), *tol[sw.B2Z_BF16], f"B2Z-bf16 {what} {shape}",
+                u=u_h.float(), d=d_h.float()))
+        if shape == st.SPLIT_ZHALO_SHAPES[0]:
+            timed[sw.B1Z_BF16] = (shape, _time_ms(lambda: sw.split_warp_fwd_zhalo_cuda(d_h, u_h)),
+                                  _time_ms(lambda: sw.split_compose_zhalo_plain(d_h, u_h)), None)
+            timed[sw.B2Z_BF16] = (shape,
+                                  _time_ms(lambda: sw.split_warp_bwd_zhalo_cuda(d_h, u_h, g)),
+                                  _time_ms(lambda: sw.split_warp_vjp_zhalo_plain(d_h, u_h, g)),
+                                  None)
     rows = [_row(k, timed[k][0], errs[k], *tol[k], *timed[k][1:4], halo=1)
             for k in (sw.B1Z, sw.B2Z)]
     rows += [_row(k, timed[k][0], errs[k], *tol[k], *timed[k][1:4], radius=timed[k][4],
                   halo=timed[k][5]) for k in (bw.B3Z, bw.B4Z)]
+    rows += [_row(k, timed[k][0], errs[k], *tol[k], *timed[k][1:4], halo=1)
+             for k in (sw.B1Z_BF16, sw.B2Z_BF16)]
     _print_rows(rows)
     return rows
 
@@ -656,7 +696,8 @@ POST_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
                   "split_warp_bwd_bf16": 0, "warp_bounded_fwd_zhalo": 0,
                   "warp_bounded_dgrad_zhalo": 0, "warp_bounded_tblend_zpad": 0,
                   "split_warp_fwd_zhalo": 0, "split_warp_bwd_zhalo": 0,
-                  "block_warp_fwd_zhalo": 0, "block_warp_dgrad_zhalo": 0}
+                  "block_warp_fwd_zhalo": 0, "block_warp_dgrad_zhalo": 0,
+                  "split_warp_fwd_zhalo_bf16": 0, "split_warp_bwd_zhalo_bf16": 0}
 # the z-halo modes of B5/B6 and the z-pad mode of B7: the halo-exchanged
 # warp (parallel/halo.py) alone calls them, on the halo phase's path
 ZHALO = ("warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo", "warp_bounded_tblend_zpad")
@@ -665,8 +706,12 @@ BF16 = ("split_warp_fwd_bf16", "split_warp_bwd_bf16")
 # the z-halo modes of B1-B4: the spatially sharded steps alone call them (phase 13)
 SPATIAL = ("split_warp_fwd_zhalo", "split_warp_bwd_zhalo", "block_warp_fwd_zhalo",
            "block_warp_dgrad_zhalo")
+# the bf16 z-halo modes of B1/B2: the sharded steps with compute_dtype bf16
+# alone call them (phase 13's options)
+SPATIAL_BF16 = ("split_warp_fwd_zhalo_bf16", "split_warp_bwd_zhalo_bf16")
 # kernels that the f32 CLI and quality runs must not launch
-NOT_ON_F32_RUNS = ("warp_bounded_dgrad", "warp_bounded_tblend") + ZHALO + BF16 + SPATIAL
+NOT_ON_F32_RUNS = (("warp_bounded_dgrad", "warp_bounded_tblend") + ZHALO + BF16 + SPATIAL
+                   + SPATIAL_BF16)
 
 
 def _timed_run(run, state, steps: int, what: str, per_step: dict):
@@ -2182,6 +2227,167 @@ def phase_spatial(devices, tag: str = "spatial") -> dict:
     return {f"{tag}_mcmc": mcmc_launches, f"{tag}_vi": vi_launches}
 
 
+# the options of the dense SVF3D beside phase 13(a)-(b)'s "post"/"split"/f32/
+# gradient-energy path, each through the sharded MCMC chunk ("pre": the
+# sharded VI step, the scheme bench.py times VI on), and the launches per
+# step on each shard: "pre" integrates with the image riding the
+# compositions (B1Z 7; B5Z 8 image warps and the noise warp; their
+# backward B6Z 8, B7Z 8; the compositions feed only the counts, so no
+# B2Z), "warp" composes by 3-channel halo warps (B5Z-B7Z 7) before the
+# block-gather warp, use_gather runs grid_sample only, bf16 the bf16
+# z-halo modes of B1/B2, the Fourier energy phase 13(a)'s kernels
+SPATIAL_OPTIONS = {
+    "pre": {"split_warp_fwd_zhalo": 7, "warp_bounded_fwd_zhalo": 9,
+            "warp_bounded_dgrad_zhalo": 8, "warp_bounded_tblend_zpad": 8},
+    "warp": {"warp_bounded_fwd_zhalo": 7, "warp_bounded_dgrad_zhalo": 7,
+             "warp_bounded_tblend_zpad": 7, "block_warp_fwd_zhalo": 1,
+             "block_warp_dgrad_zhalo": 1},
+    "use_gather": {},
+    "bfloat16": {"split_warp_fwd_zhalo_bf16": 7, "split_warp_bwd_zhalo_bf16": 7,
+                 "block_warp_fwd_zhalo": 1, "block_warp_dgrad_zhalo": 1},
+    "fourier": SPATIAL_PER_SHARD,
+}
+# each z-halo (z-pad) mode's default mode: what the unsharded step launches
+_DEFAULT_MODE = {"split_warp_fwd_zhalo": "split_warp_fwd", "split_warp_bwd_zhalo": "split_warp_bwd",
+                 "block_warp_fwd_zhalo": "block_warp_fwd",
+                 "block_warp_dgrad_zhalo": "block_warp_dgrad",
+                 "warp_bounded_fwd_zhalo": "warp_bounded_fwd",
+                 "warp_bounded_dgrad_zhalo": "warp_bounded_dgrad",
+                 "warp_bounded_tblend_zpad": "warp_bounded_tblend",
+                 "split_warp_fwd_zhalo_bf16": "split_warp_fwd_bf16",
+                 "split_warp_bwd_zhalo_bf16": "split_warp_bwd_bf16"}
+
+
+def _option_bundle(bundle, option: str):
+    """``bundle`` (``_bundle``'s, on the scheme and dtype of ``option``) with
+    the option's integrator or energy."""
+    from ir_sgmcmc_tpu_torch.models import SVF3D, RegLossLogNormal
+
+    if option == "warp":
+        bundle.transformation = SVF3D(DIMS, no_steps=12, taylor_compositions="warp")
+    elif option == "use_gather":
+        bundle.transformation = SVF3D(DIMS, no_steps=12, use_gather=True)
+    elif option == "fourier":
+        bundle.reg_loss = RegLossLogNormal(w_reg=1.4, diff_op="Fourier1stDerivativeOperator",
+                                           dims=DIMS, learnable=True)
+    return bundle
+
+
+def phase_spatial_options(devices, tag: str = "spatial_options") -> dict:
+    """13(e): each option of ``SPATIAL_OPTIONS`` at 128³ through the sharded
+    step over ``devices`` (a device may repeat) against the unsharded step
+    on the first: MCMC (2 chains) on a ``(1, n)`` ``('chain', 'space')``
+    mesh, or for ``"pre"`` VI (GMM warm-up) on a ``('space',)`` mesh, one
+    warm-up and TIMED steps each, the launches per step asserted on both
+    (the sharded ones per shard; every other kernel 0), the checks of
+    13(a)-(b) (MCMC: state and data term within atol 1e-5 plus rtol 1e-5;
+    with bf16 ``compute_dtype`` ``v`` so, the displacement's mean within
+    2^-8 of its largest element and the data term within 2^-8 relative;
+    VI: every step's total loss within rtol 1e-4 and one step's q(v)
+    gradient within 1e-4 of its largest element),
+    both rates and each card's peak memory.  Prints a ``tag:`` line;
+    returns the launch counts of each sharded run."""
+    from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_mcmc_chunk, make_vi_chunk, make_vi_step
+    from ir_sgmcmc_tpu_torch.parallel import (gather, make_mesh, shard_images_spatial,
+                                              shard_state_spatial, shard_tree_spatial)
+
+    dev, n, depth = devices[0], len(devices), DIMS[0]
+    zeros = dict.fromkeys(POST_PER_STEP, 0)
+    record, paths = {}, {}
+    t_start = time.perf_counter()
+    for option, per_shard in SPATIAL_OPTIONS.items():
+        cd = "bfloat16" if option == "bfloat16" else None
+        scheme = "pre" if option == "pre" else "post"
+        plain_per = {**zeros, **{_DEFAULT_MODE[k]: v for k, v in per_shard.items()}}
+        sharded_per = {**zeros, **{k: v * n for k, v in per_shard.items()}}
+        what = f"{tag} {option}"
+        if option != "pre":
+            mesh = make_mesh((1, n), axes=("chain", "space"), devices=devices)
+            bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev, scheme,
+                                                               compute_dtype=cd)
+            bundle = _option_bundle(bundle, option)
+            fixed_s, moving_s = (shard_images_spatial(x, mesh, depth) for x in (fixed, moving))
+
+            def chunk(k, sharded=False):
+                return make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5,
+                                       fixed_s if sharded else fixed,
+                                       moving_s if sharded else moving, chunk=k, burn_in=0,
+                                       thin=1)
+
+            state, _ = chunk(1)(_init(bundle, opt_gmm, opt_reg, dev))
+            shards = shard_state_spatial(state, mesh, CHAINS, depth)
+            chunk(1, True)(shards)  # warm-up of the sharded path (dropped)
+            plain, m_plain, t_plain, _, peak_plain = _timed_on(
+                [dev], chunk(TIMED), state, TIMED, f"{what} unsharded", plain_per)
+            out, m_sh, t_sh, launches, peak_sh = _timed_on(
+                devices, chunk(TIMED, True), shards, TIMED, f"{what} sharded", sharded_per)
+            whole = gather(out)
+            checks = _close(what, {"v": (whole.v, plain.v)})
+            pairs = {"welford mean": (whole.welford.mean, plain.welford.mean),
+                     "data_term": (m_sh["data_term"], m_plain["data_term"])}
+            if cd is None:
+                checks.update(_close(what, pairs))
+            else:
+                # bf16: the sharded gradient rounds a halo plane's two
+                # shares apart, so the chain states part by f32 roundings
+                # (v above) that flip a bf16 rounding of the displacement
+                # here and there: it is held to one unit roundoff of its
+                # largest element, the data term to one relative
+                a, b = pairs["welford mean"]
+                checks["welford mean"] = {
+                    "max_abs_err": _err(a, b, BF16_U * float(b.abs().max()), 0.0,
+                                        f"{what} welford mean"), "bitwise": torch.equal(a, b)}
+                a, b = pairs["data_term"]
+                checks["data_term"] = {"max_abs_err": _err(a, b, 0.0, BF16_U,
+                                                           f"{what} data_term"),
+                                       "bitwise": torch.equal(a, b)}
+            rates = {"unsharded": CHAINS * TIMED / t_plain, "sharded": CHAINS * TIMED / t_sh}
+            unit = "samples/sec"
+        else:
+            vmesh = make_mesh((n,), axes=("space",), devices=devices)
+            vb, vfixed, vmoving, (oq, og, orr), vstate = _vi_problem(DIMS, dev, scheme)
+            step = make_vi_step(vb, oq, og, orr, vfixed, vmoving)
+            step_s = make_vi_step(vb, oq, og, orr, *(shard_images_spatial(x, vmesh, depth)
+                                                    for x in (vfixed, vmoving)))
+            vstate, _ = make_vi_chunk(step, 1)(gmm_warmup(vb, og, vstate, vfixed, vmoving))
+            vshards = shard_tree_spatial(vstate, vmesh, depth)
+            make_vi_chunk(step_s, 1)(vshards)  # warm-up, dropped
+            _, m_plain, t_plain, _, peak_plain = _timed_on(
+                [dev], make_vi_chunk(step, TIMED), vstate, TIMED, f"{what} unsharded", plain_per)
+            _, m_sh, t_sh, launches, peak_sh = _timed_on(
+                devices, make_vi_chunk(step_s, TIMED), vshards, TIMED, f"{what} sharded",
+                sharded_per)
+            m_u = make_vi_chunk(step, 1)(vstate)[0].opt_q_v.mu
+            m_s = gather(make_vi_chunk(step_s, 1)(vshards)[0]).opt_q_v.mu
+            checks = {}
+            for name in ("mu", "log_var", "u"):
+                scale = float(m_u[name].abs().max())
+                checks[f"first moment {name}"] = {
+                    "max_abs_err": _err(m_s[name], m_u[name], VI_MOMENT_REL * scale, 0.0,
+                                        f"{what} first moment {name}"),
+                    "bitwise": torch.equal(m_s[name], m_u[name]), "max_abs": scale}
+            checks["total_loss"] = {
+                "max_abs_err": _err(m_sh["total_loss"], m_plain["total_loss"], 0.0, 1e-4,
+                                    f"{what} total_loss"),
+                "bitwise": torch.equal(m_sh["total_loss"], m_plain["total_loss"])}
+            rates = {"unsharded": TIMED / t_plain, "sharded": TIMED / t_sh}
+            unit = "iters/sec"
+        record[option] = {"step": "vi" if option == "pre" else "mcmc", "checks": checks,
+                          unit.replace("/", "_per_"): rates,
+                          "peak_bytes": {"unsharded": peak_plain, "sharded_per_card": peak_sh},
+                          "launches_per_step": {k: launches[k] // TIMED for k in per_shard}}
+        paths[f"{tag}_{option}"] = launches
+        print(f"{what}: over {n} shards {rates['sharded']:.3f} {unit} against "
+              f"{rates['unsharded']:.3f} unsharded ({rates['sharded'] / rates['unsharded']:.3f}x);"
+              f" peak {max(peak_sh.values()) / 2**30:.3f} GiB per card, unsharded "
+              f"{max(peak_plain.values()) / 2**30:.3f} GiB", flush=True)
+        _sync_all()
+    wall = time.perf_counter() - t_start
+    print(f"{tag}: {json.dumps({'devices': [str(d) for d in devices], 'shape': list(DIMS), 'options': record, 'wall_s': wall})}",
+          flush=True)
+    return paths
+
+
 # the sharded trainer runs no default-mode B2 or B4 (every training step is
 # cut; B3 serves the GMM warm-up's one forward chain), nor the blend warp's
 # backward, the halo warp or the bf16 modes
@@ -2225,6 +2431,7 @@ def phase_spatial_cards(n_cards: int, single: dict) -> dict:
     of each path."""
     cards = [torch.device("cuda", i) for i in range(n_cards)]
     paths = phase_spatial(cards[:2], "spatial_2cards")
+    paths.update(phase_spatial_options(cards[:2], "spatial_options_2cards"))
     paths.update(phase_spatial_trainer(cards[:2], single, "spatial_trainer_2cards"))
     if n_cards >= 4:
         paths.update(phase_spatial(cards[:4], "spatial_4cards"))
@@ -2317,6 +2524,7 @@ def main() -> int:
         print("multi_card: one card: 12(d) (the selftest on every card, 12(a)-(b) and the demo "
               "config on two real cards) not run", flush=True)
     paths.update(phase_spatial([dev] * SPATIAL_SHARDS))
+    paths.update(phase_spatial_options([dev] * SPATIAL_SHARDS))
     paths.update(phase_spatial_trainer([dev] * SPATIAL_SHARDS, trainer_rec))
     if n_cards >= 2:
         paths.update(phase_spatial_cards(n_cards, trainer_rec))

@@ -106,7 +106,13 @@
 // (Tile::stage_interior stages zeros there instead of reading g): its
 // gradients cover the haloed slab, the halo planes' shares unfolded, and
 // the caller's exchange folds them onto the planes' owners.  The default
-// mode's code is unchanged.
+// mode's code is unchanged.  The bf16 bodies take the same flag
+// (split_warp_fwd_zhalo_bf16 / split_warp_bwd_zhalo_bf16, B1Z-bf16 and
+// B2Z-bf16): Tile16 reads operand plane z0 + k and Tile16::stage_interior
+// stages g's interior planes (zeros on the halo planes), so they keep
+// B1-bf16's and B2-bf16's staging, arithmetic and single rounding; their
+// z-chunks are cut to give the grid about two blocks per SM
+// (zhalo_geom16), as TZ16 does for the default modes at 2x128^3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -161,6 +167,7 @@ __device__ __forceinline__ float lerp2_t(float c0, float cm, float cp,
 
 struct Geom {
   int B, C, D, H, W;
+  int tz;  // bf16 kernels: z-planes per block (0: TZ16)
 };
 
 // One block's place in the volume and its share of the staging copies.
@@ -482,27 +489,32 @@ __device__ __forceinline__ const bf16* pick(const bf16* const (&p)[N], int s) {
 }
 
 // One block's place in the volume and how it stages a plane.
+// zh = 1 (B1-bf16's z-halo mode): as Tile's, the operands hold D + 2 planes
+// and relative plane k is operand plane z0 + k, never clamped.
 struct Tile16 {
-  int x0, y0, z0, nz, b;
-  long long P, V;
+  int x0, y0, z0, nz, b, zh;
+  long long P, V, Vin;  // plane, output volume, operand volume (words)
   bool vec;  // 16-byte staging: W % 8 == 0, aligned pointers, tile inside x
 
-  __device__ Tile16(const Geom& g, bool aligned) {
-    const int nzc = (g.D + TZ16 - 1) / TZ16;
+  __device__ Tile16(const Geom& g, bool aligned, int zh_ = 0) {
+    const int tz = g.tz ? g.tz : TZ16;
+    const int nzc = (g.D + tz - 1) / tz;
     x0 = blockIdx.x * TX16;
     y0 = blockIdx.y * TY;
     b = blockIdx.z / nzc;
-    z0 = (blockIdx.z % nzc) * TZ16;
-    nz = min(TZ16, g.D - z0);
+    z0 = (blockIdx.z % nzc) * tz;
+    nz = min(tz, g.D - z0);
+    zh = zh_;
     P = (long long)g.H * g.W;
     V = g.D * P;
+    Vin = (g.D + 2 * zh) * P;
     vec = aligned && g.W % 8 == 0 && x0 + TX16 <= g.W;
   }
 
-  // device-memory offset of relative plane k (z0-1+k) and of haloed row r,
-  // both clamped to the volume
-  __device__ long long plane(int k, int D) const {
-    return (long long)min(max(z0 - 1 + k, 0), D - 1) * P;
+  // device-memory operand plane of relative plane k (z0-1+k, clamped to the
+  // volume; z-halo mode: z0+k) and offset of haloed row r (clamped)
+  __device__ int plane_index(int k, int D) const {
+    return zh ? z0 + k : min(max(z0 - 1 + k, 0), D - 1);
   }
   __device__ int row(int r, const Geom& g) const {
     return min(max(y0 - 1 + r, 0), g.H - 1) * g.W;
@@ -516,12 +528,19 @@ struct Tile16 {
   template <int NSRC>
   __device__ void stage(bf16* dst, const bf16* const (&src)[NSRC], int k,
                         const Geom& g, int tid) const {
+    stage_at(dst, src, plane_index(k, g.D) * P, Vin, g, tid);
+  }
+
+  // the same for the plane at word offset zo of operands whose channels
+  // are Vs words apart
+  template <int NSRC>
+  __device__ void stage_at(bf16* dst, const bf16* const (&src)[NSRC], long long zo,
+                           long long Vs, const Geom& g, int tid) const {
     constexpr int NA = 3 * NSRC;
-    const long long zo = plane(k, g.D);
     if (vec) {
       for (int i = tid; i < NA * HY * (TX16 / 8); i += NT16) {
         const int a = i / (HY * (TX16 / 8)), r = i / (TX16 / 8) % HY, q = i % (TX16 / 8);
-        const bf16* from = pick(src, a / 3) + (a % 3) * V + zo + row(r, g) + x0 + 8 * q;
+        const bf16* from = pick(src, a / 3) + (a % 3) * Vs + zo + row(r, g) + x0 + 8 * q;
         cp_async16(reinterpret_cast<float*>(dst + a * PA16 + r * RS16 + C16 + 8 * q),
                    reinterpret_cast<const float*>(from));
       }
@@ -529,7 +548,7 @@ struct Tile16 {
         const int a = i / (HY * 2), r = i / 2 % HY;
         const bool right = i % 2;
         const int xs = right ? min(x0 + TX16, g.W - 2) : max(x0 - 2, 0);
-        const bf16* from = pick(src, a / 3) + (a % 3) * V + zo + row(r, g) + xs;
+        const bf16* from = pick(src, a / 3) + (a % 3) * Vs + zo + row(r, g) + xs;
         cp_async4(reinterpret_cast<float*>(dst + a * PA16 + r * RS16 +
                                            (right ? C16 + TX16 : C16 - 2)),
                   reinterpret_cast<const float*>(from));
@@ -540,8 +559,24 @@ struct Tile16 {
         const int a = i / (HY * (TX16 + 2)), r = i / (TX16 + 2) % HY, q = i % (TX16 + 2);
         const int xx = min(max(x0 - 1 + q, 0), g.W - 1);
         dst[a * PA16 + r * RS16 + C16 - 1 + q] =
-            pick(src, a / 3)[(a % 3) * V + zo + row(r, g) + xx];
+            pick(src, a / 3)[(a % 3) * Vs + zo + row(r, g) + xx];
       }
+    }
+  }
+
+  // B2-bf16's z-halo mode: stage plane k of the cotangent g of the slab's
+  // interior, (3, D - 2, H, W) beside operands of D planes, as Tile's
+  // stage_interior does: operand plane z is g plane z - 1, and the two halo
+  // planes (and the clamped planes past them) read 0
+  __device__ void stage_interior(bf16* dst, const bf16* src, int k, const Geom& g,
+                                 int tid) const {
+    const int zg = plane_index(k, g.D) - 1;
+    if (zg >= 0 && zg < g.D - 2) {
+      const bf16* one[1] = {src};
+      stage_at(dst, one, zg * P, (g.D - 2) * P, g, tid);
+    } else {  // bf16 zero is the zero word; arrays start 16-byte aligned
+      unsigned* z = reinterpret_cast<unsigned*>(dst);
+      for (int i = tid; i < 3 * PA16 / 2; i += NT16) z[i] = 0u;
     }
   }
 };
@@ -590,15 +625,16 @@ __device__ __forceinline__ void store_pair(bf16* o, float vx, float vy, bool vec
   }
 }
 
-template <>
-__global__ void __launch_bounds__(NT16, FWD16_MIN_BLOCKS)
-    split_fwd_kernel<bf16>(const bf16* __restrict__ d, const bf16* __restrict__ u,
-                           bf16* __restrict__ out, Geom g) {
+// B1-bf16's body; ZH: its z-halo mode (B1Z-bf16), d and u of D + 2 planes
+template <bool ZH>
+__device__ __forceinline__ void split_fwd16(const bf16* __restrict__ d,
+                                            const bf16* __restrict__ u,
+                                            bf16* __restrict__ out, const Geom& g) {
   __shared__ __align__(16) bf16 stg[FWD16_RING][6 * PA16];  // d(3), u(3)
   __shared__ __align__(16) float sA[3][HY][TX16];            // A = L_x d
   const int tid = threadIdx.x, lane = tid % 32, r = tid / 32;  // r: haloed row
-  const Tile16 t(g, aligned16(d, u, out));
-  const bf16* src[2] = {d + (long long)t.b * 3 * t.V, u + (long long)t.b * 3 * t.V};
+  const Tile16 t(g, aligned16(d, u, out), ZH ? 1 : 0);
+  const bf16* src[2] = {d + (long long)t.b * 3 * t.Vin, u + (long long)t.b * 3 * t.Vin};
   const int x = t.x0 + 2 * lane, y = t.y0 + r - 1;
   const bool lb = x == 0, rb = x + 2 >= g.W;
   const bool owns = r >= 1 && r <= TY;  // the warp's row is an output row
@@ -660,6 +696,19 @@ __global__ void __launch_bounds__(NT16, FWD16_MIN_BLOCKS)
   }
 }
 
+template <>
+__global__ void __launch_bounds__(NT16, FWD16_MIN_BLOCKS)
+    split_fwd_kernel<bf16, false>(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                                  bf16* __restrict__ out, Geom g) {
+  split_fwd16<false>(d, u, out, g);
+}
+template <>
+__global__ void __launch_bounds__(NT16, FWD16_MIN_BLOCKS)
+    split_fwd_kernel<bf16, true>(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                                 bf16* __restrict__ out, Geom g) {
+  split_fwd16<true>(d, u, out, g);
+}
+
 constexpr int BWD16_STAGE = 9 * PA16;  // words: d(3), u(3), g(3) of a plane
 constexpr int TILE16 = 3 * HY * TX16;  // floats: 3 channels over the haloed rows
 constexpr size_t BWD16_SMEM = sizeof(bf16) * BWD16_RING * BWD16_STAGE +
@@ -682,11 +731,14 @@ __device__ __forceinline__ float lerp2_te(float c0, float cm, float cp, float w0
 // plane k-1 into one of two buffers each, and the output rows read what the
 // steps before wrote (A of plane k-1 for B, T1 and T2 at the x-halo of plane
 // k-2 for its outputs), so no warp waits for another within a step.
-template <>
-__global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
-    split_bwd_kernel<bf16>(const bf16* __restrict__ d, const bf16* __restrict__ u,
-                           const bf16* __restrict__ gin, bf16* __restrict__ gd,
-                           bf16* __restrict__ gu, Geom g) {
+// ZH: B2-bf16's z-halo mode (B2Z-bf16): g covers the D - 2 interior planes
+// of the D-plane operands and outputs (Tile16::stage_interior)
+template <bool ZH>
+__device__ __forceinline__ void split_bwd16(const bf16* __restrict__ d,
+                                            const bf16* __restrict__ u,
+                                            const bf16* __restrict__ gin,
+                                            bf16* __restrict__ gd, bf16* __restrict__ gu,
+                                            const Geom& g) {
   extern __shared__ __align__(16) unsigned char smem16[];
   bf16* stg = reinterpret_cast<bf16*>(smem16);  // [RING][9][HY][RS16]
   float* sA = reinterpret_cast<float*>(stg + BWD16_RING * BWD16_STAGE);  // [2][3][HY][TX16]
@@ -697,6 +749,16 @@ __global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
   const Tile16 t(g, aligned16(d, u, gin, gd, gu));
   const long long base = (long long)t.b * 3 * t.V;
   const bf16* src[3] = {d + base, u + base, gin + base};
+  const bf16* src_du[2] = {d + base, u + base};
+  const bf16* g_int = gin + (long long)t.b * 3 * (D - 2) * t.P;  // ZH only
+  const auto stage_plane = [&](bf16* dst, int k) {
+    if constexpr (ZH) {
+      t.stage(dst, src_du, k, g, tid);
+      t.stage_interior(dst + 6 * PA16, g_int, k, g, tid);
+    } else {
+      t.stage(dst, src, k, g, tid);
+    }
+  };
   const int x = t.x0 + 2 * lane, y = t.y0 + r - 1;
   const bool lb = x == 0, rb = x + 2 >= W;
   const bool owns = r >= 1 && r <= TY;
@@ -709,14 +771,14 @@ __global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
 
   const int nk = t.nz + 2;  // staged planes; the outputs are planes 1 .. nk-2
   for (int p = 0; p < BWD16_AHEAD; ++p) {
-    if (p < nk) t.stage(stg + p * BWD16_STAGE, src, p, g, tid);
+    if (p < nk) stage_plane(stg + p * BWD16_STAGE, p);
     cp_async_commit();
   }
   for (int k = 0; k <= nk; ++k) {
     cp_async_wait<BWD16_AHEAD - 1>();
     __syncthreads();  // plane k has landed; every warp is done with step k-1
     const int kn = k + BWD16_AHEAD;  // into the slot of plane k-3
-    if (kn < nk) t.stage(stg + (kn % BWD16_RING) * BWD16_STAGE, src, kn, g, tid);
+    if (kn < nk) stage_plane(stg + (kn % BWD16_RING) * BWD16_STAGE, kn);
     cp_async_commit();
     // staged planes k (sp), k-1 (s0) and k-2 (sm)
     const bf16* sp = stg + (k % BWD16_RING) * BWD16_STAGE;
@@ -862,14 +924,44 @@ __global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
   }
 }
 
+template <>
+__global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
+    split_bwd_kernel<bf16, false>(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                                  const bf16* __restrict__ gin, bf16* __restrict__ gd,
+                                  bf16* __restrict__ gu, Geom g) {
+  split_bwd16<false>(d, u, gin, gd, gu, g);
+}
+template <>
+__global__ void __launch_bounds__(NT16, BWD16_MIN_BLOCKS)
+    split_bwd_kernel<bf16, true>(const bf16* __restrict__ d, const bf16* __restrict__ u,
+                                 const bf16* __restrict__ gin, bf16* __restrict__ gd,
+                                 bf16* __restrict__ gu, Geom g) {
+  split_bwd16<true>(d, u, gin, gd, gu, g);
+}
+
 dim3 grid_for(const Geom& g) {
   return dim3((g.W + TX - 1) / TX, (g.H + TY - 1) / TY,
               g.B * ((g.D + TZ - 1) / TZ));
 }
 
 dim3 grid16(const Geom& g) {
-  return dim3((g.W + TX16 - 1) / TX16, (g.H + TY - 1) / TY,
-              g.B * ((g.D + TZ16 - 1) / TZ16));
+  const int tz = g.tz ? g.tz : TZ16;
+  return dim3((g.W + TX16 - 1) / TX16, (g.H + TY - 1) / TY, g.B * ((g.D + tz - 1) / tz));
+}
+
+// The z-halo modes' slabs are a fraction of the volume: at TZ16 planes per
+// block a slab of 2 shards of 2x128^3 would fill 128 blocks, one per SM.
+// Their z-chunks are cut so that the grid holds about two blocks per SM (at
+// most TZ16 and at least 8 planes a block, the two halo planes of each
+// block's staging beside them).
+Geom zhalo_geom16(Geom g) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = g.B * ((g.W + TX16 - 1) / TX16) * ((g.H + TY - 1) / TY);
+  const int chunks = max(1, 2 * sms / tiles);
+  g.tz = min(TZ16, max(8, (g.D + chunks - 1) / chunks));
+  return g;
 }
 
 template <typename T, bool ZH = false>
@@ -945,4 +1037,21 @@ extern "C" int split_warp_bwd_zhalo(const float* d_h, const float* u_h,
                                     void* stream) {
   return launch_bwd<float, true>(d_h, u_h, g_in, gd_h, gu_h, Geom{B, C, D + 2, H, W},
                                  stream);
+}
+
+// the z-halo modes on bf16 operands and outputs (B1Z-bf16, B2Z-bf16): B1Z's
+// and B2Z's functions with B1-bf16's and B2-bf16's storage and arithmetic
+extern "C" int split_warp_fwd_zhalo_bf16(const void* d_h, const void* u_h, void* out,
+                                         int B, int C, int D, int H, int W,
+                                         void* stream) {
+  return launch_fwd<__nv_bfloat16, true>(d_h, u_h, out, zhalo_geom16(Geom{B, C, D, H, W}),
+                                         stream);
+}
+
+extern "C" int split_warp_bwd_zhalo_bf16(const void* d_h, const void* u_h,
+                                         const void* g_in, void* gd_h, void* gu_h,
+                                         int B, int C, int D, int H, int W,
+                                         void* stream) {
+  return launch_bwd<__nv_bfloat16, true>(d_h, u_h, g_in, gd_h, gu_h,
+                                         zhalo_geom16(Geom{B, C, D + 2, H, W}), stream);
 }

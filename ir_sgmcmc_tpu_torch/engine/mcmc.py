@@ -332,7 +332,7 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     ``run(state, noise=None)`` takes and returns a
     ``parallel.shard_state_spatial`` state, each row of the ``'space'``
     axis running its chains' transition cut along D over its devices
-    (``parallel/spatial.py``; per-chain sets, the dense ``"post"`` path).
+    (``parallel/spatial.py``; per-chain sets, every option of the dense ``SVF3D``).
     ``noise``: ``chunk`` whole ``(eps, unif)`` draws over all chains.
     """
     if isinstance(fixed, Sharded):

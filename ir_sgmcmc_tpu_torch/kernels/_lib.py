@@ -37,6 +37,8 @@ _SIGNATURES = {
     "split_warp_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "split_warp_fwd_zhalo": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "split_warp_bwd_zhalo": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "split_warp_fwd_zhalo_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "split_warp_bwd_zhalo_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "block_warp_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "block_warp_dgrad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "block_warp_fwd_zhalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -17,8 +17,9 @@ composition step of the D interior planes, reading z±1 from the halo and
 never clamping z; B2Z is its VJP, ``(ḡ_d, ū)`` on all ``D + 2`` planes with
 the halo planes' shares left unfolded, for the caller's halo exchange to
 send to the shards that own them (or, at the two ends, to fold onto the
-edge plane).  They are B1's and B2's f32 kernels under a template flag; the
-f32 mode only.
+edge plane).  They are B1's and B2's kernels under a template flag, in both
+operand dtypes: B1Z/B2Z in f32, B1Z-bf16/B2Z-bf16 with the bf16 modes'
+storage and arithmetic.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel, and a
 launch or build failure raises — there is no fallback between the two.
@@ -59,8 +60,18 @@ B2Z = Kernel("split_warp_bwd_zhalo", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
              "ir_sgmcmc_tpu/ops/pallas_split_warp.py:436", bytes_per_voxel=B2.bytes_per_voxel,
              flops_per_voxel=B2.flops_per_voxel, z_halo=lambda C: 8 * (C + 3))
 
-# operand dtype -> (forward kernel, backward kernel)
+B1Z_BF16 = Kernel("split_warp_fwd_zhalo_bf16", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
+                  "ir_sgmcmc_tpu/ops/pallas_split_warp.py:373",
+                  bytes_per_voxel=B1_BF16.bytes_per_voxel,
+                  flops_per_voxel=B1_BF16.flops_per_voxel, z_halo=lambda C: 2 * (C + 3))
+B2Z_BF16 = Kernel("split_warp_bwd_zhalo_bf16", "ir_sgmcmc_tpu_torch/csrc/split_warp.cu",
+                  "ir_sgmcmc_tpu/ops/pallas_split_warp.py:436",
+                  bytes_per_voxel=B2_BF16.bytes_per_voxel,
+                  flops_per_voxel=B2_BF16.flops_per_voxel, z_halo=lambda C: 4 * (C + 3))
+
+# operand dtype -> (forward kernel, backward kernel), default and z-halo modes
 _KERNELS = {torch.float32: (B1, B2), torch.bfloat16: (B1_BF16, B2_BF16)}
+_ZHALO_KERNELS = {torch.float32: (B1Z, B2Z), torch.bfloat16: (B1Z_BF16, B2Z_BF16)}
 
 
 # ---- plain versions ------------------------------------------------------------
@@ -94,7 +105,7 @@ def split_compose_vjp_plain(d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
 
 def split_compose_zhalo_plain(d_h: torch.Tensor, u_h: torch.Tensor) -> torch.Tensor:
     """B1Z's function: :func:`split_compose_plain` on the haloed slab, its
-    interior planes kept."""
+    interior planes kept (bf16 operands: computed in f32, rounded once)."""
     return split_compose_plain(d_h, u_h)[:, :, 1:-1]
 
 
@@ -102,7 +113,8 @@ def split_warp_vjp_zhalo_plain(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Te
     """B2Z's own outputs: the VJP of the warp part of B1Z's function,
     ``(ḡ_d, ū_warp)`` on the haloed slab (the halo planes' shares
     unfolded).  It is :func:`split_warp_vjp_plain` with ``g`` zero on the
-    two halo planes, where the forward writes no output."""
+    two halo planes, where the forward writes no output (bf16 operands:
+    computed in f32, each output rounded once)."""
     return split_warp_vjp_plain(d_h, u_h, F.pad(g, (0, 0, 0, 0, 1, 1)))
 
 
@@ -151,33 +163,33 @@ def split_warp_bwd_cuda(d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
 
 
 def _check_zhalo(d_h: torch.Tensor, u_h: torch.Tensor):
-    """The haloed operands' shape ``(B, 3, D + 2, H, W)``, f32."""
+    """The haloed operands' shape ``(B, 3, D + 2, H, W)`` and the z-halo
+    kernels of their dtype (f32 or bf16)."""
     (B, C, Dh, H, W), _ = _check(d_h, u_h)
-    if d_h.dtype != torch.float32:
-        raise ValueError(f"d_h: the z-halo modes are f32, got {d_h.dtype}")
     if Dh < 3:
         raise ValueError(f"d_h: a haloed slab has at least 3 planes, got {Dh}")
-    return B, C, Dh - 2, H, W
+    return (B, C, Dh - 2, H, W), _ZHALO_KERNELS[d_h.dtype]
 
 
 def split_warp_fwd_zhalo_cuda(d_h: torch.Tensor, u_h: torch.Tensor) -> torch.Tensor:
-    """B1Z on the card: the composition step of the slab's interior planes,
-    ``(B, 3, D, H, W)`` from operands of ``D + 2`` planes."""
-    B, C, D, H, W = _check_zhalo(d_h, u_h)
+    """B1Z (f32) or B1Z-bf16 on the card: the composition step of the
+    slab's interior planes, ``(B, 3, D, H, W)`` from operands of ``D + 2``
+    planes, in ``d_h``'s dtype."""
+    (B, C, D, H, W), (fwd, _) = _check_zhalo(d_h, u_h)
     out = torch.empty((B, C, D, H, W), dtype=d_h.dtype, device=d_h.device)
-    B1Z.launch(d_h.device, ptr(d_h), ptr(u_h), ptr(out), B, C, D, H, W)
+    fwd.launch(d_h.device, ptr(d_h), ptr(u_h), ptr(out), B, C, D, H, W)
     return out
 
 
 def split_warp_bwd_zhalo_cuda(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Tensor):
-    """B2Z on the card: ``(ḡ_d, ū_warp)`` on the haloed slab from the
-    interior's cotangent ``g (B, 3, D, H, W)``, without the ``+g`` of the
-    direct ``+u`` term."""
-    B, C, D, H, W = _check_zhalo(d_h, u_h)
-    check_operand("g", g, (B, C, D, H, W), device=d_h.device)
+    """B2Z (f32) or B2Z-bf16 on the card: ``(ḡ_d, ū_warp)`` on the haloed
+    slab from the interior's cotangent ``g (B, 3, D, H, W)``, without the
+    ``+g`` of the direct ``+u`` term."""
+    (B, C, D, H, W), (_, bwd) = _check_zhalo(d_h, u_h)
+    check_operand("g", g, (B, C, D, H, W), d_h.dtype, device=d_h.device)
     gd = torch.empty_like(d_h)
     gu = torch.empty_like(u_h)
-    B2Z.launch(d_h.device, ptr(d_h), ptr(u_h), ptr(g), ptr(gd), ptr(gu), B, C, D, H, W)
+    bwd.launch(d_h.device, ptr(d_h), ptr(u_h), ptr(g), ptr(gd), ptr(gu), B, C, D, H, W)
     return gd, gu
 
 
@@ -197,15 +209,15 @@ def split_compose_vjp(d: torch.Tensor, u: torch.Tensor, g: torch.Tensor):
 
 
 def split_compose_zhalo(d_h: torch.Tensor, u_h: torch.Tensor) -> torch.Tensor:
-    """B1Z, or its plain version on the CPU."""
+    """B1Z (B1Z-bf16 on bf16 operands), or its plain version on the CPU."""
     if d_h.is_cuda:
         return split_warp_fwd_zhalo_cuda(d_h, u_h)
     return split_compose_zhalo_plain(d_h, u_h)
 
 
 def split_compose_zhalo_vjp(d_h: torch.Tensor, u_h: torch.Tensor, g: torch.Tensor):
-    """B2Z plus the direct term's ``+g`` on the interior planes, or the
-    plain VJP on the CPU."""
+    """B2Z (B2Z-bf16) plus the direct term's ``+g`` on the interior planes,
+    added in the operands' dtype, or the plain VJP on the CPU."""
     if d_h.is_cuda:
         gd, gu = split_warp_bwd_zhalo_cuda(d_h, u_h, g)
         gu[:, :, 1:-1] += g

@@ -6,6 +6,7 @@ cut along D over them."""
 from .halo import (
     block_residual_overflow_sharded,
     box_filter3d_sharded,
+    fourier_energy_sharded,
     gradient_d_sharded,
     lag1_sums_sharded,
     separable_conv3d_sharded,
@@ -45,6 +46,7 @@ __all__ = [
     "block_residual_overflow_sharded",
     "box_filter3d_sharded",
     "lag1_sums_sharded",
+    "fourier_energy_sharded",
     "sum_sharded",
     "Mesh",
     "Sharded",

@@ -25,8 +25,10 @@ their z-halo modes B1Z/B2Z), the block-gather warp
 (:func:`warp_block_gather_sharded` and :func:`block_residual_overflow_sharded`,
 B3/B4 in their z-halo modes B3Z/B4Z, on a window of the volume placed once
 per shard), the LCC box filter (:func:`box_filter3d_sharded`), the lag-1
-products of the VD factor (:func:`lag1_sums_sharded`) and the global sums
-(:func:`sum_sharded`).  Each has a list form (``*_slabs``: one row's slabs
+products of the VD factor (:func:`lag1_sums_sharded`), the global sums
+(:func:`sum_sharded`), the Fourier reg energy (:func:`fourier_energy_sharded`:
+an all-to-all of the (H, W) spectra, no whole field on one device) and, for
+the ``use_gather`` integration, an all-gather (:func:`allgather_slabs`).  Each has a list form (``*_slabs``: one row's slabs
 in, slabs or one reduced tensor out) that the steps compose into one
 autograd graph over the slabs of a row; the halo exchanges are
 differentiable (slices, ``repeat``, ``.to`` and ``cat``), so autograd
@@ -40,6 +42,7 @@ volume's last plane (``ops.stencil._fwd_diff_axis``).
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -331,6 +334,54 @@ def lag1_sums_slabs(xs: list, dims=(-3, -2, -1)) -> tuple:
     return sx, sy, sz
 
 
+def allgather_slabs(xs: list) -> list:
+    """The whole field of one row's slabs (concatenated along D), one copy
+    on each slab's device, differentiable: autograd sends each slab its
+    share of every copy's gradient (``.to`` and ``cat``).  Unlike the halo
+    exchange it does not cut the field's memory: every shard holds the
+    whole field, as GSPMD's all-gather does for the JAX package's gather
+    path (``SVF3D(use_gather=True)``)."""
+    return [torch.cat([y.to(x.device, non_blocking=True) for y in xs], dim=-3) for x in xs]
+
+
+@functools.lru_cache(maxsize=64)
+def _omega2_rows(dims: tuple, h0: int, h1: int, device: torch.device) -> torch.Tensor:
+    """``|ω|²`` over the 3D FFT grid of ``dims`` (angular frequency), rows
+    ``[h0, h1)`` of H: ``(D, h1 - h0, W)``, made once per device."""
+    ws = [torch.fft.fftfreq(n, device=device) * (2.0 * math.pi) for n in dims]
+    wz, wy, wx = torch.meshgrid(ws[0], ws[1][h0:h1], ws[2], indexing="ij")
+    return (wx ** 2 + wy ** 2 + wz ** 2).to(torch.float32)
+
+
+def fourier_energy_slabs(xs: list, dims) -> torch.Tensor:
+    """``RegLoss.energy`` with the ``Fourier1stDerivativeOperator`` of one
+    row's slabs ``(B, C, D_loc, H, W)`` of a real field of ``dims``: ``y =
+    Σ (F⁻¹(|ω| x̂))² = Σ_ω |ω|² |x̂|² / N`` per leading index (Parseval;
+    ``|ω| x̂`` is Hermitian, so the inverse transform is real), on the first
+    slab's device.  Each slab takes the 2D FFT over (H, W); an all-to-all
+    re-cuts the spectrum along H (shard ``k`` gathers rows ``[h_k, h_k+1)``
+    of every slab, concatenated along D); each shard takes the FFT along D
+    of its rows and sums ``|ω|² |x̂|²`` over them.  No shard holds more than
+    its share of the spectrum, and the energy is a scalar, so there is no
+    inverse transform.  Differentiable (``torch.fft``, slices, ``.to`` and
+    ``cat``)."""
+    D, H, W = (int(n) for n in dims)
+    n = len(xs)
+    spectra = [torch.fft.fft2(x, dim=(-2, -1)) for x in xs]
+    cuts = [k * H // n for k in range(n + 1)]
+    parts = []
+    for k, x in enumerate(xs):
+        h0, h1 = cuts[k], cuts[k + 1]
+        if h1 == h0:
+            continue
+        rows = torch.cat([s[..., h0:h1, :].to(x.device, non_blocking=True) for s in spectra],
+                         dim=-3)
+        f = torch.fft.fft(rows, dim=-3)
+        p = (f.real ** 2 + f.imag ** 2) * _omega2_rows((D, H, W), h0, h1, x.device)
+        parts.append(torch.sum(p, dim=tuple(range(1, p.ndim))))
+    return sum_slabs(parts, xs[0].device) / float(D * H * W)
+
+
 def _reduce_row(op, mesh: Mesh, axis_name: str, *fields):
     """``op(slabs, …)`` over the first row along ``axis_name`` (every row
     computes the same), on that row's first device."""
@@ -344,6 +395,16 @@ def sum_sharded(field, mesh: Mesh, dims=(-3, -2, -1), axis_name: str = "space") 
     D): per-slab partial sums added on the row's first device."""
     return _reduce_row(lambda xs: sum_slabs([torch.sum(x, dim=dims) for x in xs]),
                        mesh, axis_name, field)
+
+
+def fourier_energy_sharded(field, mesh: Mesh, axis_name: str = "space") -> torch.Tensor:
+    """:func:`fourier_energy_slabs` of a D-sharded ``(B, C, D, H, W)``
+    field, on the row's first device."""
+    def run(xs):
+        D = sum(x.shape[-3] for x in xs)
+        return fourier_energy_slabs(xs, (D,) + tuple(xs[0].shape[-2:]))
+
+    return _reduce_row(run, mesh, axis_name, field)
 
 
 def lag1_sums_sharded(field, mesh: Mesh, axis_name: str = "space") -> tuple:

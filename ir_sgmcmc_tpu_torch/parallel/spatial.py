@@ -4,18 +4,30 @@ JAX package hands the step to GSPMD's partitioner with Pallas off,
 ``ir_sgmcmc_tpu/trainer.py:826-866`` and ``:1187-1211``).
 
 The port has no partitioner, so the step is written over the slabs of one
-row of the ``'space'`` axis as ONE Python function and one autograd graph:
+row of the ``'space'`` axis as ONE Python function and one autograd graph,
+with every branch of ``engine.vi.forward_sample`` for the dense ``SVF3D``:
 
-* the forward chain of ``engine.vi.forward_sample`` (``"post"``) from the
-  sharded ops of ``parallel/halo.py``: Sobolev smoothing (identity
-  backward), the Taylor squarings, the squarings above the threshold
-  (``HaloWarp``, B5Z-B7Z), the split compositions (B1Z/B2Z), the image warp
-  (the block-gather warp on each slab's window of the moving image, B3Z/B4Z,
-  or below 64³ ``grid_sample`` of the whole image, which each shard holds),
-  the fold and saturation counts, the LCC residuals;
+* Sobolev smoothing (identity backward) by halo exchange;
+* the integration (``SVF3D.integrate``) from the sharded ops of
+  ``parallel/halo.py``: the Taylor squarings (in bfloat16 under
+  ``compute_dtype: "bfloat16"``), the squarings above the threshold
+  (``HaloWarp``, B5Z-B7Z), the ``"split"`` compositions (B1Z/B2Z, or
+  B1Z-bf16/B2Z-bf16) or the ``"warp"`` ones (``HaloWarp`` on 3 channels);
+* the image warp, by :func:`image_path`: on ``"post"`` the block-gather
+  warp on each slab's window of the moving image (B3Z/B4Z), or below 64³
+  ``grid_sample`` of the whole image, which each shard holds; on ``"pre"``
+  (or without a noise magnitude) the image slabs ride the compositions
+  (1-channel ``HaloWarp``\\ s at ``u_ψ``, or the fused 4-channel ``[d | g]``
+  carry of the ``"warp"`` form), then a ``HaloWarp`` by the noise at radius
+  ``max(1, ceil(alpha))``; with ``use_gather`` the ``no_steps`` squarings
+  sample the whole field, all-gathered onto each shard, at the slab's
+  points, and the whole image is sampled at ``T + noise``;
+* the fold and saturation counts, the LCC residuals;
 * the global scalars (GMM NLL, VD sums, reg energy, entropy sums) as
   per-slab partial sums added on the row's first device, where the scalar
-  work runs: the GMM Adam steps, the hyperpriors, the reg-parameter Adam;
+  work runs: the GMM Adam steps, the hyperpriors, the reg-parameter Adam
+  (the Fourier energy through an all-to-all of the slabs' spectra,
+  ``halo.fourier_energy_slabs``);
 * the elementwise updates (Langevin step, Welford, q(v) Adam) on each slab.
 
 Noise is the unsharded draw, cut: each shard draws its chains' whole field
@@ -23,16 +35,14 @@ from the chains' generators (``engine.vi.key_generator``) on its own device
 and keeps its slab, so a sharded run takes the unsharded run's draws on the
 same device type.  Nothing in a step waits on a device.
 
-The path is the one every bundled config runs: the dense ``SVF3D``,
-``"post"`` noise with a magnitude, ``"split"`` compositions, float32, the
-``GradientOperator`` (or identity) energy, per-chain parameter sets.
-:func:`unported` names what else the JAX package shards and the port does
-not yet.
+Per-chain parameter sets only, as in the JAX trainer.  :func:`unported`
+names what the JAX package shards and the port does not.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -45,38 +55,45 @@ from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
 from ..models.transformation import SVF3D
 from ..ops.grids import _axis_scale_on, det_jacobian, identity_grid
-from ..ops.resample import grid_sample
+from ..ops.resample import grid_sample, grid_sample_each
 from ..ops.stencil import _fwd_diff_axis
 from ..optim.adam_decay import apply_updates
-from .halo import (HaloWarp, SobolevSmoothSlabs, _exchange_halo_d, block_halo,
-                   block_residual_overflow_slabs, box_filter3d_slabs, fwd_diff_d_slabs,
-                   lag1_sums_slabs, split_compose_slabs, sum_slabs, taylor_squaring_slabs,
-                   warp_block_gather_slabs)
-from .mesh import Mesh, Sharded, _map, gather, halo_images_spatial, replicate, run_in_turns
+from .halo import (HaloWarp, SobolevSmoothSlabs, _exchange_halo_d, allgather_slabs, block_halo,
+                   block_residual_overflow_slabs, box_filter3d_slabs, fourier_energy_slabs,
+                   fwd_diff_d_slabs, lag1_sums_slabs, split_compose_slabs, sum_slabs,
+                   taylor_squaring_slabs, warp_block_gather_slabs)
+from .mesh import Mesh, Sharded, _map, gather, halo_images_spatial, run_in_turns
 
-ROADMAP_ITEM = "ROADMAP A, 'The spatially sharded steps: the options left'"
+ROADMAP_ITEM = "ROADMAP A, 'The spatially sharded steps'"
 
 
 def unported(bundle) -> str | None:
     """Why the spatially sharded step does not take ``bundle``'s problem
-    (None: it does).  The JAX package shards each of these through GSPMD;
-    each is a ROADMAP item of its own."""
+    (None: it does).  It takes the dense ``SVF3D`` under every option."""
     tr = bundle.transformation
     if not isinstance(tr, SVF3D):
         return (f"the spatially sharded step takes the dense SVF3D, not "
                 f"{type(tr).__name__}")
-    if bundle.noise_scheme != "post" or bundle.uniform_noise_alpha is None:
-        return ("noise_scheme 'pre' (or no uniform noise: the image rides the integration "
-                "cascade) under spatial sharding is not ported")
-    if tr.use_gather:
-        return "use_gather under spatial sharding is not ported"
-    if tr.composition_form != "split":
-        return f"taylor_compositions {tr.composition_form!r} under spatial sharding is not ported"
-    if tr.compute_dtype is not None:
-        return "compute_dtype 'bfloat16' under spatial sharding is not ported"
-    if bundle.reg_loss.diff_op not in ("GradientOperator", "Identity"):
-        return f"diff_op {bundle.reg_loss.diff_op!r} under spatial sharding is not ported"
     return None
+
+
+def image_path(bundle) -> str:
+    """How ``engine.vi.forward_sample`` warps the moving image for
+    ``bundle``: ``"gather"`` (``use_gather``: ``grid_sample`` at ``T +
+    noise``), ``"block"`` (``"post"`` with a noise magnitude where the
+    block-gather warp engages), ``"grid"`` (``"post"`` below it:
+    ``grid_sample`` at ``T + noise``) or ``"cascade"`` (``"pre"``, or no
+    noise magnitude: the image rides the compositions)."""
+    if getattr(bundle.transformation, "use_gather", False):
+        return "gather"
+    if bundle.uniform_noise_alpha is not None and bundle.noise_scheme == "post":
+        return "block" if block_warp_engages(bundle) else "grid"
+    return "cascade"
+
+
+def _noise_radius(bundle) -> int:
+    """The ``"pre"`` scheme's noise warp radius: it covers the magnitude."""
+    return max(1, math.ceil(float(bundle.uniform_noise_alpha)))
 
 
 def _refuse(bundle) -> None:
@@ -120,6 +137,11 @@ def _to_normalised(x: torch.Tensor, dims) -> torch.Tensor:
     return x * _axis_scale_on(tuple(dims), x.device, True)
 
 
+def _to_voxel(x: torch.Tensor, dims) -> torch.Tensor:
+    """``ops.grids.normalised_to_voxel`` at the volume's ``dims``."""
+    return x * _axis_scale_on(tuple(dims), x.device, False)
+
+
 def _lcn_slabs(gmm: GMM, ims: list) -> list:
     """``GMM.residual_map``'s local contrast normalisation of one row's
     slabs, its box filters by halo exchange."""
@@ -144,17 +166,23 @@ def _gradient_slabs(xs: list, dims, normalised: bool = False) -> list:
 
 def _energy(bundle, vs: list) -> torch.Tensor:
     """``RegLoss.energy`` of a batch of slabs ``(B, 3, Dl, H, W)``, summed on
-    the row's first device: ``Σ ||∇v||²`` (or ``Σ v²`` for the identity)."""
-    if bundle.reg_loss.diff_op == "GradientOperator":
+    the row's first device: ``Σ ||∇v||²``, ``Σ ‖|ω| v̂‖²`` (the Fourier
+    operator) or ``Σ v²`` (the identity)."""
+    diff_op = bundle.reg_loss.diff_op
+    if diff_op == "Fourier1stDerivativeOperator":
+        return fourier_energy_slabs(vs, bundle.dims)
+    if diff_op == "GradientOperator":
         vs = _gradient_slabs(vs, bundle.dims)
     return sum_slabs([torch.sum(x * x, dim=tuple(range(1, x.ndim))) for x in vs])
 
 
 class _Images:
     """One row's images, placed once per step builder: the fixed image's
-    slabs, its LCN and the mask's slabs, and each shard's moving image, a
-    window of ``h`` planes on each side of its slab (the block-gather
-    warp) or the whole image (``grid_sample``)."""
+    slabs, its LCN and the mask's slabs, and what each shard's image warp
+    reads of the moving image (:func:`image_path`): a window of ``h``
+    planes on each side of its slab (the block-gather warp), its slab (the
+    cascade, whose ``HaloWarp``\\ s exchange the halos) or the whole image
+    (``grid_sample``)."""
 
     def __init__(self, bundle, fixed: Sharded, moving: Sharded, row: _Row,
                  moving_whole: dict):
@@ -162,57 +190,147 @@ class _Images:
         self.mask = [fixed[i]["mask"] for i in row.idx]
         with torch.no_grad():
             self.lcn_fixed = _lcn_slabs(bundle.gmm, self.fixed)
-        mesh, depth = fixed.mesh, int(bundle.dims[0])
-        if block_warp_engages(bundle):
+        self.path = image_path(bundle)
+        self.h = None
+        if self.path == "block":
             self.h = block_halo(block_warp_bound(bundle), bundle.block_radius)
-            placed = halo_images_spatial({"im": moving_whole["im"]}, mesh, depth, self.h)
+            placed = halo_images_spatial({"im": moving_whole["im"]}, fixed.mesh,
+                                         int(bundle.dims[0]), self.h)
+            self.moving = [placed[i]["im"] for i in row.idx]
+        elif self.path == "cascade":
+            self.moving = [moving[i]["im"] for i in row.idx]
         else:
-            self.h = None
-            placed = replicate({"im": moving_whole["im"]}, mesh)
-        self.moving = [placed[i]["im"] for i in row.idx]
+            self.moving = [moving_whole["im"].to(dev) for dev in row.devices]
 
 
-def forward_slabs(bundle, images: _Images, row: _Row, vs: list, unifs: list) -> dict:
-    """``engine.vi.forward_sample`` on the ``"post"`` scheme over one row's
-    slabs: ``vs`` the velocity's slabs ``(B, 3, Dl, H, W)``, ``unifs`` the
-    uniform voxel noise's.  Field results are lists of slabs; the counts
-    ``(B,)`` are summed on the row's first device."""
+def _warp_slabs(vols: list, disps: list, radius: int = 1) -> list:
+    """``ops.resample.warp_bounded`` of one row's slabs (``HaloWarp``)."""
+    return list(HaloWarp.apply(radius, len(vols), *(v.contiguous() for v in vols),
+                               *(d.contiguous() for d in disps)))
+
+
+def _integrate_slabs(tr: SVF3D, vs: list, ims: list | None = None) -> tuple:
+    """``SVF3D.integrate`` of one row's slabs of ``v (B, 3, Dl, H, W)``,
+    with the image slabs ``ims`` ``(Dl, H, W)`` riding the compositions
+    when given.  Returns the displacement's slabs (float32) and the warped
+    image's ``(B, Dl, H, W)`` (None without ``ims``).  The dtype casts are
+    ``SVF3D.integrate``'s: the reduced dtype after ``/2^N``, float32 before
+    the squarings above the threshold, before the ``"warp"`` form and on
+    output."""
+    disp = [x / float(2 ** tr.no_steps) for x in vs]
+    if tr.compute_dtype is not None:
+        disp = [d.to(tr.compute_dtype) for d in disp]
+    for _ in range(tr.no_taylor):
+        disp = taylor_squaring_slabs(disp)
+    if tr.no_squarings - tr.no_taylor:
+        disp = [d.float() for d in disp]
+        for _ in range(tr.no_squarings - tr.no_taylor):
+            disp = [d + w for d, w in zip(disp, _warp_slabs(disp, disp))]
+    if tr.composition_form == "warp":
+        disp = [d.float() for d in disp]
+    u_phi = [d.contiguous() for d in disp]
+    N = tr.no_compositions
+    if tr.composition_form == "split":
+        u_h = [t.contiguous() for t in _exchange_halo_d(u_phi, 1)]
+
+        def dstep(ds):
+            return split_compose_slabs(ds, u_h)
+    else:
+        def dstep(ds):
+            return [u + w for u, w in zip(u_phi, _warp_slabs(ds, u_phi))]
+
+    g = None
+    if ims is None:
+        for _ in range(N - 1):
+            disp = dstep(disp)
+    else:
+        B = vs[0].shape[0]
+        vols = [im.expand((B, 1) + tuple(im.shape)) for im in ims]
+        if tr.composition_form == "split":
+            K = tr.no_image_compositions
+            m = N // K
+            u_psi = u_phi
+            for _ in range(m - 1):
+                u_psi = dstep(u_psi)
+            disp = u_psi
+            u_psi32 = [u.float() for u in u_psi]  # float32 blend warps
+            g = _warp_slabs(vols, u_psi32)
+            for _ in range(K - 1):
+                for _ in range(m):
+                    disp = dstep(disp)
+                g = _warp_slabs(g, u_psi32)
+        else:
+            g = _warp_slabs(vols, u_phi)  # g_1 = im ∘ φ
+            if N > 1:  # the fused 4-channel [d | g] carry
+                u_phi_g = [torch.cat([u, torch.zeros_like(gi)], dim=1) for u, gi in zip(u_phi, g)]
+                state = [torch.cat([u, gi], dim=1) for u, gi in zip(u_phi, g)]
+                for _ in range(N - 1):
+                    state = [w + a for w, a in zip(_warp_slabs(state, u_phi), u_phi_g)]
+                disp, g = [x[:, :3] for x in state], [x[:, 3:] for x in state]
+        g = [x[:, 0] for x in g]
+    return [d.float() for d in disp], g
+
+
+def _gather_slabs(tr: SVF3D, row: _Row, vs: list, dims) -> tuple:
+    """``SVF3D._call_gather`` of one row's slabs: ``no_steps`` squarings
+    ``d <- d + d(id + d)`` in normalised units, each sampling the whole
+    field (:func:`~.halo.allgather_slabs`) at the slab's points.  Returns
+    the transformation's and the displacement's (voxels) slabs."""
+    ids = [_identity_slab(dims, v.device, z0, row.dl) for v, z0 in zip(vs, row.z0)]
+    disp = [_to_normalised(v, dims) / float(2 ** tr.no_steps) for v in vs]
+    for _ in range(tr.no_steps):
+        disp = [d + grid_sample_each(w, i + d)
+                for d, w, i in zip(disp, allgather_slabs(disp), ids)]
+    return [i + d for i, d in zip(ids, disp)], [_to_voxel(d, dims) for d in disp]
+
+
+def forward_slabs(bundle, images: _Images, row: _Row, vs: list, unifs: list | None) -> dict:
+    """``engine.vi.forward_sample`` over one row's slabs: ``vs`` the
+    velocity's slabs ``(B, 3, Dl, H, W)``, ``unifs`` the uniform voxel
+    noise's (None without a noise magnitude).  Field results are lists of
+    slabs; the counts ``(B,)`` are summed on the row's first device."""
     tr, dims = bundle.transformation, tuple(bundle.dims)
     if bundle._sobolev_kernel is not None:
         ks = [bundle.sobolev_kernel_on(dev) for dev in row.devices]
         vs = list(SobolevSmoothSlabs.apply(row.n, *ks, *vs))
-    disp = [x / float(2 ** tr.no_steps) for x in vs]
-    for _ in range(tr.no_taylor):
-        disp = taylor_squaring_slabs(disp)
-    for _ in range(tr.no_squarings - tr.no_taylor):
-        d5 = [d.contiguous() for d in disp]
-        disp = [d + w for d, w in zip(disp, HaloWarp.apply(1, row.n, *d5, *d5))]
-    u_h = [t.contiguous() for t in _exchange_halo_d(disp, 1)]
-    for _ in range(tr.no_compositions - 1):
-        disp = split_compose_slabs(disp, u_h)
-    trans = [_identity_slab(dims, d.device, z0, row.dl) + _to_normalised(d, dims)
-             for d, z0 in zip(disp, row.z0)]
     B = vs[0].shape[0]
     zero = torch.zeros((B,), dtype=torch.int64, device=row.dev0)
-    if images.h is not None:
-        block, radius = int(bundle.block_size), int(bundle.block_radius)
-        bound = block_warp_bound(bundle)
-        d_total = [d + u for d, u in zip(disp, unifs)]
-        vols = [m.expand((B, 1) + tuple(m.shape)).contiguous() for m in images.moving]
-        warped = [w[:, 0] for w in warp_block_gather_slabs(vols, d_total, bound, radius,
-                                                           block, images.h)]
-        anchor_sat = block_residual_overflow_slabs([d.detach() for d in d_total], bound,
-                                                   radius, block)
+    anchor_sat = zero
+    if images.path == "gather":
+        trans, disp = _gather_slabs(tr, row, vs, dims)
+        pts = trans if unifs is None else [t + _to_normalised(u, dims)
+                                           for t, u in zip(trans, unifs)]
+        warped = [grid_sample(m, p) for m, p in zip(images.moving, pts)]
+        clamp_bound = math.inf  # no warp of this path clamps
     else:
-        warped = [grid_sample(m, t + _to_normalised(u, dims))
-                  for m, t, u in zip(images.moving, trans, unifs)]
-        anchor_sat = zero
+        cascade = images.path == "cascade"
+        disp, warped = _integrate_slabs(tr, vs, images.moving if cascade else None)
+        trans = [_identity_slab(dims, d.device, z0, row.dl) + _to_normalised(d, dims)
+                 for d, z0 in zip(disp, row.z0)]
+        clamp_bound = float(tr.image_clamp_bound if cascade else tr.displacement_clamp_bound)
+        if cascade and unifs is not None:
+            warped = [w[:, 0] for w in _warp_slabs([w[:, None] for w in warped], unifs,
+                                                   _noise_radius(bundle))]
+        elif images.path == "grid":
+            warped = [grid_sample(m, t + _to_normalised(u, dims))
+                      for m, t, u in zip(images.moving, trans, unifs)]
+        elif images.path == "block":
+            block, radius = int(bundle.block_size), int(bundle.block_radius)
+            bound = block_warp_bound(bundle)
+            d_total = [d + u for d, u in zip(disp, unifs)]
+            vols = [m.expand((B, 1) + tuple(m.shape)).contiguous() for m in images.moving]
+            warped = [w[:, 0] for w in warp_block_gather_slabs(vols, d_total, bound, radius,
+                                                               block, images.h)]
+            anchor_sat = block_residual_overflow_slabs([d.detach() for d in d_total], bound,
+                                                       radius, block)
     folds = [torch.sum(det_jacobian(j) < 0.0, dim=(-3, -2, -1))
              for j in _gradient_slabs([t.detach() for t in trans], dims, normalised=True)]
     residuals = [f - w for f, w in zip(images.lcn_fixed, _lcn_slabs(bundle.gmm, warped))]
-    bound_sat = float(tr.displacement_clamp_bound)
-    sat = sum_slabs([torch.sum(torch.any(torch.abs(d.detach()) >= bound_sat, dim=-4),
-                               dim=(-3, -2, -1)) for d in disp])
+    if math.isinf(clamp_bound):
+        sat = zero
+    else:
+        sat = sum_slabs([torch.sum(torch.any(torch.abs(d.detach()) >= clamp_bound, dim=-4),
+                                   dim=(-3, -2, -1)) for d in disp])
     return {"v": vs, "displacement": disp, "transformation": trans, "warped": warped,
             "residuals": residuals, "ndv": sum_slabs(folds), "sat": sat + anchor_sat,
             "sat_resid": anchor_sat}
@@ -267,21 +385,23 @@ def _draw_slab(gen: torch.Generator, shape: tuple, k: int, row: _Row, normal: bo
 def _chain_noise_slabs(bundle, shards: list, row: _Row) -> tuple:
     """``engine.mcmc._chain_noise`` per slab: each shard draws its chains'
     whole ``eps`` and ``unif`` from the chains' generators and keeps its
-    slab."""
+    slab (``unif`` None without a noise magnitude)."""
     s0 = shards[0]
     field = (3,) + tuple(bundle.field_dims)
     dense = (3,) + tuple(bundle.dims)
-    alpha = float(bundle.uniform_noise_alpha)
+    alpha = bundle.uniform_noise_alpha
     eps, unif = [], []
     for k, dev in enumerate(row.devices):
         e, u = [], []
         for c in range(s0.v.shape[0]):
             gen = key_generator(s0.key[c], s0.step, dev)
             e.append(_draw_slab(gen, field, k, row, True))
-            u.append(_draw_slab(gen, dense, k, row, False, alpha))
+            if alpha is not None:
+                u.append(_draw_slab(gen, dense, k, row, False, float(alpha)))
         eps.append(torch.stack(e))
-        unif.append(torch.stack(u))
-    return eps, unif
+        if u:
+            unif.append(torch.stack(u))
+    return eps, (unif if alpha is not None else None)
 
 
 def make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau: float, images: _Images,
@@ -338,22 +458,32 @@ def make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau: float, images: _Im
     return transition
 
 
-def _rows(mesh: Mesh, depth: int) -> list:
+def _rows(bundle, mesh: Mesh) -> list:
+    """The rows of the ``'space'`` axis; raises where a slab is too thin for
+    the step's stencils: 2 planes (the Taylor squaring, the radius-1 blend
+    warps), and ``2R`` for the ``"pre"`` scheme's noise warp of radius
+    ``R``."""
+    depth = int(bundle.dims[0])
     if "space" not in mesh.axis_names:
         raise ValueError(f"a spatially sharded step needs a 'space' axis, got {mesh}")
-    if depth % mesh.shape["space"]:
-        raise ValueError(f"depth {depth} does not divide over {mesh.shape['space']} shards")
+    n = mesh.shape["space"]
+    if depth % n:
+        raise ValueError(f"depth {depth} does not divide over {n} shards")
+    need = 2
+    if image_path(bundle) == "cascade" and bundle.uniform_noise_alpha is not None:
+        need = 2 * _noise_radius(bundle)
+    if depth // n < need:
+        raise ValueError(f"{depth} planes over {n} shards leave {depth // n} per slab; the "
+                         f"step's stencils need {need} (the noise warp's 2R at alpha "
+                         f"{bundle.uniform_noise_alpha})")
     return [_Row(mesh, idx, depth) for idx in mesh.rows("space")]
 
 
 def _cut_chain_noise(noise, row: _Row, r: int, n_rows: int) -> tuple:
     """One step's whole ``(eps, unif)`` ``(C, 3, …)`` cut to row ``r``'s
-    chains and each of its slabs."""
-    out = []
-    for t in noise:
-        chains = t.chunk(n_rows)[r]
-        out.append([row.cut(chains, k) for k in range(row.n)])
-    return tuple(out)
+    chains and each of its slabs (``unif`` may be None)."""
+    return tuple(None if t is None else [row.cut(t.chunk(n_rows)[r], k) for k in range(row.n)]
+                 for t in noise)
 
 
 def make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau: float, fixed: Sharded,
@@ -369,7 +499,7 @@ def make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau: float, fixed: Sharded
     device."""
     _refuse(bundle)
     mesh = fixed.mesh
-    rows = _rows(mesh, int(bundle.dims[0]))
+    rows = _rows(bundle, mesh)
     moving_whole = gather(moving)
     transitions = [make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau,
                                               _Images(bundle, fixed, moving, row, moving_whole),
@@ -405,14 +535,16 @@ def _vi_draws_slabs(bundle, shards: list, row: _Row) -> tuple:
     the same scalar ``x``."""
     s0 = shards[0]
     field = (3,) + tuple(bundle.field_dims)
-    alpha = float(bundle.uniform_noise_alpha)
+    alpha = bundle.uniform_noise_alpha
     eps, xs, unif = [], [], []
     for k, dev in enumerate(row.devices):
         gen = key_generator(s0.key, s0.step, dev)
         eps.append(_draw_slab(gen, field, k, row, True))
         xs.append(torch.randn((), generator=gen, dtype=torch.float32, device=dev))
-        unif.append(_draw_slab(gen, (2, 3) + tuple(bundle.dims), k, row, False, alpha))
-    return eps, xs, unif
+        if alpha is not None:
+            unif.append(_draw_slab(gen, (2, 3) + tuple(bundle.dims), k, row, False,
+                                   float(alpha)))
+    return eps, xs, (unif if alpha is not None else None)
 
 
 def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, moving: Sharded):
@@ -425,7 +557,7 @@ def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, movi
     the whole ``(eps, x, unif)``, on any device."""
     _refuse(bundle)
     mesh = fixed.mesh
-    rows = _rows(mesh, int(bundle.dims[0]))
+    rows = _rows(bundle, mesh)
     if len(rows) != 1:
         raise ValueError(f"the sharded VI step takes a mesh with one row of 'space', got {mesh}")
     row = rows[0]
@@ -444,7 +576,7 @@ def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, movi
             e, x, u = noise
             eps = [row.cut(e, k) for k in range(row.n)]
             xs = [x.to(dev) for dev in row.devices]
-            unif = [row.cut(u, k) for k in range(row.n)]
+            unif = None if u is None else [row.cut(u, k) for k in range(row.n)]
         with torch.enable_grad():
             q = [{k: s.q_v[k].detach().requires_grad_(True) for k in q_keys} for s in shards]
             reg_keys = list(s0.reg)
@@ -517,5 +649,5 @@ def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, movi
     return step
 
 
-__all__ = ["unported", "forward_slabs", "make_sgld_transition_slabs",
+__all__ = ["unported", "image_path", "forward_slabs", "make_sgld_transition_slabs",
            "make_mcmc_chunk_sharded", "make_vi_step_sharded"]

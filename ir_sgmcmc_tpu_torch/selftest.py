@@ -60,9 +60,12 @@ TOL = {"split_warp_fwd": (2e-5, 0.0), "split_warp_bwd": (3e-5, 1e-4),
        "warp_bounded_fwd": (1e-5, 1e-5), "warp_bounded_dgrad": (1e-5, 1e-5),
        "warp_bounded_tblend": (1e-5, 1e-5), "warp_bounded_fwd_zhalo": (1e-5, 1e-5),
        "warp_bounded_dgrad_zhalo": (1e-5, 1e-5), "warp_bounded_tblend_zpad": (1e-5, 1e-5)}
-# the z-halo modes of B1-B4: their default modes' sums, read at an offset
+# the z-halo modes of B1-B4 (and the bf16 ones of B1/B2): their default
+# modes' sums, read at an offset
 TOL.update({"split_warp_fwd_zhalo": TOL["split_warp_fwd"],
             "split_warp_bwd_zhalo": TOL["split_warp_bwd"],
+            "split_warp_fwd_zhalo_bf16": TOL["split_warp_fwd_bf16"],
+            "split_warp_bwd_zhalo_bf16": TOL["split_warp_bwd_bf16"],
             "block_warp_fwd_zhalo": TOL["block_warp_fwd"],
             "block_warp_dgrad_zhalo": TOL["block_warp_dgrad"]})
 
@@ -170,12 +173,13 @@ def block_operands(gen, shape, bound, radius, saturate=False, block=8):
     return vol, r.contiguous(), m, torch.randn(shape, generator=gen, device=dev)
 
 
-def split_zhalo_operands(gen, shape):
+def split_zhalo_operands(gen, shape, dtype=torch.float32):
     """d_h, u_h (one plane deeper on each side than ``shape``) and g for
-    B1Z/B2Z, drawn as :func:`split_operands` draws them."""
+    B1Z/B2Z (``dtype`` bf16: B1Z-bf16/B2Z-bf16), drawn as
+    :func:`split_operands` draws them."""
     B, C, D, H, W = shape
-    d_h, u_h, _ = split_operands(gen, (B, C, D + 2, H, W))
-    return d_h, u_h, torch.randn(shape, generator=gen, device=gen.device)
+    d_h, u_h, _ = split_operands(gen, (B, C, D + 2, H, W), dtype=dtype)
+    return d_h, u_h, torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
 def block_zhalo_operands(gen, shape, bound, radius, block, h):
@@ -363,15 +367,16 @@ def run_selftest(dev=None, log: bool = True) -> dict:
         check(f"warp_bounded_tblend_zpad{tag}", wb.warp_bounded_tblend_cuda(disp, g, R, z_pad=True),
               wb.warp_bounded_tblend_zpad_plain(disp, g, R), TOL["warp_bounded_tblend_zpad"])
 
-    for shape in SPLIT_ZHALO_SHAPES:
-        d_h, u_h, g = split_zhalo_operands(gen, shape)
-        tag = f"{tuple(shape)}"
-        check(f"split_warp_fwd_zhalo{tag}", sw.split_warp_fwd_zhalo_cuda(d_h, u_h),
-              sw.split_compose_zhalo_plain(d_h, u_h), TOL["split_warp_fwd_zhalo"])
-        gd_k, gu_k = sw.split_compose_zhalo_vjp(d_h, u_h, g)
-        gd_p, gu_p = sw.split_compose_zhalo_vjp_plain(d_h, u_h, g)
-        check(f"split_warp_bwd_zhalo.d{tag}", gd_k, gd_p, TOL["split_warp_bwd_zhalo"])
-        check(f"split_warp_bwd_zhalo.u{tag}", gu_k, gu_p, TOL["split_warp_bwd_zhalo"])
+    for (shape, dtype) in itertools.product(SPLIT_ZHALO_SHAPES, (torch.float32, torch.bfloat16)):
+        d_h, u_h, g = split_zhalo_operands(gen, shape, dtype)
+        tag, sfx = f"{tuple(shape)}", "_bf16" if dtype == torch.bfloat16 else ""
+        fwd, bwd = f"split_warp_fwd_zhalo{sfx}", f"split_warp_bwd_zhalo{sfx}"
+        check(f"{fwd}{tag}", sw.split_warp_fwd_zhalo_cuda(d_h, u_h),
+              sw.split_compose_zhalo_plain(d_h, u_h), TOL[fwd])
+        gd_k, gu_k = sw.split_warp_bwd_zhalo_cuda(d_h, u_h, g)
+        gd_p, gu_p = sw.split_warp_vjp_zhalo_plain(d_h, u_h, g)
+        check(f"{bwd}.d{tag}", gd_k, gd_p, TOL[bwd])
+        check(f"{bwd}.u{tag}", gu_k, gu_p, TOL[bwd])
 
     for shape, bound, R, block, h in BLOCK_ZHALO_SHAPES:
         vol_h, r, m, g = block_zhalo_operands(gen, shape, bound, R, block, h)

@@ -59,11 +59,10 @@ rule).  ``spatial_shards`` above 1 cuts the MCMC step along D over a
 conditions (``parallel/spatial.py``; each slab a whole number of
 block-warp blocks where that warp engages); ``vi_spatial_shards: "auto"``
 runs VI on the first device, where one card beats the sharded step.  The
-sharded steps take the dense ``"post"`` path: ``noise_scheme: "pre"``,
-``taylor_compositions: "warp"``, ``use_gather``, ``compute_dtype:
-"bfloat16"`` and the Fourier energy raise ``NotImplementedError`` under
-them (ROADMAP A).  On one device all of these change nothing, as in the
-JAX trainer.
+sharded steps take every option of the dense ``SVF3D`` (either noise
+scheme, ``"split"`` or ``"warp"`` compositions, ``use_gather``,
+``compute_dtype: "bfloat16"``, each energy).  On one device all of these
+change nothing, as in the JAX trainer.
 There is no kernel fallback: a kernel that fails to build or launch
 raises.
 
@@ -91,7 +90,7 @@ from .engine import (VIState, gmm_warmup, init_chains, make_mcmc_chunk, make_vi_
 from .engine.mcmc import welford_finalize, welford_init, welford_update
 from .engine.pairs import (make_pair_mcmc_chunk, make_pair_mesh, make_pair_vi_chunk,
                            shard_pairs, stack_trees, take_pairs, unstack_tree)
-from .engine.vi import block_warp_engages, key_generator
+from .engine.vi import key_generator
 from .models.sampler import sample_q_v
 from .ops.grids import count_non_diffeomorphic, det_jacobian
 from .ops.resample import warp
@@ -243,7 +242,7 @@ class Trainer:
             raise NotImplementedError(
                 "mcmc_anchor=true (anchored residual warping) is not ported "
                 "(ROADMAP 'Rules of the port', Not ported)")
-        # the spatially sharded steps take the dense "post" path
+        # the spatially sharded steps take the dense SVF3D
         for phase, runs, shards in (("MCMC", self.run_mcmc, self._mcmc_spatial_shards()),
                                     ("VI", self.run_vi, self._vi_spatial_shards())):
             why = spatial.unported(self.bundle) if runs and shards > 1 else None
@@ -253,8 +252,9 @@ class Trainer:
 
     def _spatial_fits(self, shards: int) -> bool:
         """The port's own condition beside the JAX trainer's: each slab a
-        whole number of block-warp blocks where that warp engages."""
-        if not block_warp_engages(self.bundle):
+        whole number of block-warp blocks where the step's image warp is
+        that warp (``"post"`` with a noise magnitude, no ``use_gather``)."""
+        if spatial.image_path(self.bundle) != "block":
             return True
         return (int(self.bundle.dims[0]) // shards) % int(self.bundle.block_size) == 0
 

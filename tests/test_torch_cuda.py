@@ -1,7 +1,7 @@
 """Port kernels on the card: B1-B7 against their plain versions, the
 autograd Functions end to end, and the wrappers' operand checks; B1/B2
-also in their bf16 modes; the z-halo modes of B1-B7, and the spatially
-sharded chunk on virtual shards of the card.
+also in their bf16 modes; the z-halo modes of B1-B7 (B1/B2 in f32 and
+bf16), and the spatially sharded chunk on virtual shards of the card.
 
 Imports only torch and the port, so it runs on a GPU host without JAX:
 
@@ -419,6 +419,50 @@ def test_split_zhalo_kernels_match_plain(cuda, shape):
     for got, want in zip(sw.split_compose_zhalo_vjp(d_h, u_h, g),
                          sw.split_compose_zhalo_vjp_plain(d_h, u_h, g)):
         torch.testing.assert_close(got, want, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 17, 24, 130), (1, 3, 4, 9, 33), (2, 3, 32, 16, 64),
+                                   (2, 3, 33, 24, 40)])
+def test_split_zhalo_bf16_kernels_match_plain(cuda, shape):
+    """B1Z-bf16 and B2Z-bf16 (the bf16 modes on a slab with one halo plane
+    on each side) against their plain versions (f32 arithmetic, one
+    rounding), on both staging paths (W 64: 16-byte copies; W 40: a tile
+    across the x border; W 33/130: 2-byte loads), each output bf16; and
+    bitwise the same run to run."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    d_h, u_h, g = st.split_zhalo_operands(gen, shape, torch.bfloat16)
+    out = sw.split_warp_fwd_zhalo_cuda(d_h, u_h)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == shape
+    torch.testing.assert_close(out.float(), sw.split_compose_zhalo_plain(d_h, u_h).float(),
+                               atol=BF16_ATOL["fwd"], rtol=BF16_RTOL)
+    got = sw.split_warp_bwd_zhalo_cuda(d_h, u_h, g)
+    for a, b in zip(got, sw.split_warp_vjp_zhalo_plain(d_h, u_h, g)):
+        assert a.dtype == torch.bfloat16 and a.shape == d_h.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=BF16_ATOL["bwd"], rtol=BF16_RTOL)
+    again = (sw.split_warp_fwd_zhalo_cuda(d_h, u_h),) + sw.split_warp_bwd_zhalo_cuda(d_h, u_h, g)
+    for a, b in zip((out,) + got, again):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("slabs", [2, 4])
+def test_split_zhalo_bf16_slabs_concatenate_on_card(cuda, slabs):
+    """z-slabs through B1Z-bf16, each with its real neighbour planes,
+    concatenate bitwise to B1-bf16 on the whole volume."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    d, u, _ = st.split_operands(gen, (2, 3, 64, 24, 64), dtype=torch.bfloat16)
+    dp, up = (torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 1, 1), mode="replicate")
+              .to(torch.bfloat16) for t in (d, u))
+    n = 64 // slabs
+    out = torch.cat([sw.split_warp_fwd_zhalo_cuda(dp[:, :, z:z + n + 2].contiguous(),
+                                                  up[:, :, z:z + n + 2].contiguous())
+                     for z in range(0, 64, n)], 2)
+    assert torch.equal(out.view(torch.int16), sw.split_warp_fwd_cuda(d, u).view(torch.int16))
 
 
 @pytest.mark.parametrize("shape,bound,radius,block,h", [

@@ -3,7 +3,7 @@ at the main paths' shapes, and the device on which the entry points that
 create state put it.
 
 The byte counts are those of PERF.md's kernel table (each input read once,
-each output written once, f32, or bf16 for the bf16 modes of B1/B2); the bound is the larger of bytes over the
+each output written once, f32, or bf16 for the bf16 modes of B1/B2 and their z-halo modes); the bound is the larger of bytes over the
 H100 SXM's 3.35 TB/s and flops over its 67 TFLOP/s f32 rate.  With no
 ``device`` argument, state goes to the CUDA card or the call raises: there
 is no CPU fallback.  The CPU tests pass ``device="cpu"``.
@@ -41,6 +41,9 @@ MAIN_PATH = {
     "split_warp_bwd_zhalo": ((2, 3, 64, 128, 128), 126),
     "block_warp_fwd_zhalo": ((2, 1, 64, 128, 128), 42),
     "block_warp_dgrad_zhalo": ((2, 1, 64, 128, 128), 67),
+    # the bf16 z-halo modes of B1 and B2 at the same slab: half of f32's
+    "split_warp_fwd_zhalo_bf16": ((2, 3, 64, 128, 128), 38),
+    "split_warp_bwd_zhalo_bf16": ((2, 3, 64, 128, 128), 63),
 }
 
 
@@ -66,7 +69,8 @@ def test_kernel_bytes_and_bound(symbol):
 @pytest.mark.parametrize("symbol", ["warp_bounded_fwd_zhalo", "warp_bounded_dgrad_zhalo",
                                     "warp_bounded_tblend_zpad", "block_warp_fwd_zhalo",
                                     "block_warp_dgrad_zhalo", "split_warp_fwd_zhalo",
-                                    "split_warp_bwd_zhalo"])
+                                    "split_warp_bwd_zhalo", "split_warp_fwd_zhalo_bf16",
+                                    "split_warp_bwd_zhalo_bf16"])
 @pytest.mark.parametrize("radius", [1, 2])
 def test_zhalo_kernel_bytes_count_the_halo_planes(symbol, radius):
     """A z-halo kernel reads ``2R`` more vol planes than its output has, and
@@ -74,7 +78,7 @@ def test_zhalo_kernel_bytes_count_the_halo_planes(symbol, radius):
     ``4·B·C·2R·H·W`` bytes beyond the mode without them (B3Z/B4Z: ``R`` is
     the window's halo ``h``).  B1Z reads the halo planes of d and u
     (``4·(C+3)`` bytes per voxel of a plane), and B2Z also writes its two
-    gradients there (twice that)."""
+    gradients there (twice that); their bf16 modes move half of that."""
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
     from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
     from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
@@ -83,11 +87,14 @@ def test_zhalo_kernel_bytes_count_the_halo_planes(symbol, radius):
     plain = {"warp_bounded_fwd_zhalo": wb.B5, "warp_bounded_dgrad_zhalo": wb.B6,
              "warp_bounded_tblend_zpad": wb.B7, "block_warp_fwd_zhalo": bw.B3,
              "block_warp_dgrad_zhalo": bw.B4, "split_warp_fwd_zhalo": sw.B1,
-             "split_warp_bwd_zhalo": sw.B2}[symbol]
+             "split_warp_bwd_zhalo": sw.B2, "split_warp_fwd_zhalo_bf16": sw.B1_BF16,
+             "split_warp_bwd_zhalo_bf16": sw.B2_BF16}[symbol]
     C = 3 if symbol.startswith("split") else 4
     shape = (2, C, 32, 24, 40)
     per_plane_voxel = {"split_warp_fwd_zhalo": 4 * (C + 3),
-                       "split_warp_bwd_zhalo": 8 * (C + 3)}.get(symbol, 4 * C)
+                       "split_warp_bwd_zhalo": 8 * (C + 3),
+                       "split_warp_fwd_zhalo_bf16": 2 * (C + 3),
+                       "split_warp_bwd_zhalo_bf16": 4 * (C + 3)}.get(symbol, 4 * C)
     extra = 2 * per_plane_voxel * 2 * radius * 24 * 40
     assert kernel.bytes(shape, radius) == plain.bytes(shape) + extra
     assert plain.bytes(shape, radius) == plain.bytes(shape)  # no halo, no planes

@@ -425,10 +425,9 @@ def test_trainer_pairs_over_a_pair_mesh(tmp_path):
 def test_trainer_refuses_the_spatially_sharded_steps(tmp_path):
     """An explicit ``spatial_shards`` or ``vi_spatial_shards`` above 1 that
     cuts a step along D over several devices engages the sharded step (its
-    mesh), and refuses, naming its ROADMAP item, only an option the sharded
-    steps do not take (here ``noise_scheme: "pre"``;
-    tests/test_torch_spatial.py has each); on one device it changes
-    nothing."""
+    mesh), and so it does under ``noise_scheme: "pre"``, which it once
+    refused (tests/test_torch_spatial.py runs each option through the
+    trainer); on one device it changes nothing."""
     t = Trainer(_cfg(tmp_path / "a", spatial_shards=2, VI=False, no_samples_MCMC=2),
                 devices=[CPU, CPU])
     t.run()
@@ -437,10 +436,12 @@ def test_trainer_refuses_the_spatially_sharded_steps(tmp_path):
                 devices=[CPU, CPU])
     t.run()
     assert t._vi_mesh.shape == {"space": 2}
-    pre = _cfg(tmp_path / "c", spatial_shards=2, vi_spatial_shards=2)
+    pre = _cfg(tmp_path / "c", spatial_shards=2, vi_spatial_shards=2, no_samples_MCMC=2)
     pre.cfg["trainer"]["uniform_noise"]["scheme"] = "pre"
     pre.cfg["trainer"]["uniform_noise"]["enabled"] = True
-    with pytest.raises(NotImplementedError, match="spatially sharded steps: the options left"):
-        Trainer(pre, devices=[CPU, CPU])
+    t = Trainer(pre, devices=[CPU, CPU])
+    t.run()
+    assert t._mcmc_mesh.shape == {"chain": 1, "space": 2}
+    assert t._vi_mesh.shape == {"space": 2}
     one = Trainer(_cfg(tmp_path / "d", spatial_shards=2, vi_spatial_shards=2), devices=[CPU])
     assert one._mcmc_spatial_shards() == one._vi_spatial_shards() == 1

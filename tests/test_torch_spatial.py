@@ -23,7 +23,8 @@ name the CPU several times (virtual shards).
 * The trainer with ``spatial_shards: 2`` and ``vi_spatial_shards: 2`` over
   ``[cpu, cpu]`` against one device: MCMC Dice within 1e-4
   (``test_parallel.py:455-497``), a checkpoint the one-device trainer
-  resumes, and each option the sharded steps refuse.
+  resumes, and the trainer engaging both meshes under each option
+  (tests/test_torch_spatial_options.py holds each option's steps to JAX's).
 """
 
 import json
@@ -232,7 +233,8 @@ def test_zhalo_plain_versions_concatenate_to_the_default_modes(n):
     """B1Z/B2Z and B3Z/B4Z (plain versions) on the slabs of a volume, each
     given its real neighbour planes (edge planes repeated at the two ends),
     concatenate to B1/B2 and B3/B4 on the whole volume; B2Z's halo rows,
-    folded onto their owners, complete B2's gradient."""
+    folded onto their owners, complete B2's gradient.  The same for
+    B1Z-bf16/B2Z-bf16 against B1-bf16/B2-bf16's functions."""
     gen = torch.Generator().manual_seed(50 + n)
     d, u, g = st.split_operands(gen, (2, 3, 16, 8, 12))
     dp, up = _replicate_pad_z(d, 1), _replicate_pad_z(u, 1)
@@ -255,6 +257,27 @@ def test_zhalo_plain_versions_concatenate_to_the_default_modes(n):
     gd_ref, gu_ref = sw.split_compose_vjp_plain(d, u, g)
     torch.testing.assert_close(fold(gd), gd_ref, rtol=0, atol=2e-5)
     torch.testing.assert_close(fold(gu), gu_ref, rtol=0, atol=2e-5)
+    # the bf16 modes (B1Z-bf16/B2Z-bf16's plain versions: f32 arithmetic,
+    # each output rounded once): the forward bitwise; B2Z-bf16's own outputs
+    # (without the direct term's +g), folded in f32, against B2-bf16's
+    # function unrounded, within the 2e-5 above plus the two roundings of a
+    # halo plane's shares (2u of the largest element)
+    d16, u16, g16 = (t.to(torch.bfloat16) for t in (d, u, g))
+    dp16, up16 = (_replicate_pad_z(t.float(), 1).to(torch.bfloat16) for t in (d16, u16))
+    outs, gd, gu = [], torch.zeros(dp16.shape), torch.zeros(up16.shape)
+    for z0 in range(0, 16, dl):
+        d_h, u_h = dp16[:, :, z0:z0 + dl + 2], up16[:, :, z0:z0 + dl + 2]
+        outs.append(sw.split_compose_zhalo_plain(d_h, u_h))
+        a, b = sw.split_warp_vjp_zhalo_plain(d_h, u_h, g16[:, :, z0:z0 + dl])
+        assert outs[-1].dtype == a.dtype == b.dtype == torch.bfloat16
+        gd[:, :, z0:z0 + dl + 2] += a.float()
+        gu[:, :, z0:z0 + dl + 2] += b.float()
+    assert torch.equal(torch.cat(outs, 2).view(torch.int16),
+                       sw.split_compose_plain(d16, u16).view(torch.int16))
+    for got, ref in zip((fold(gd), fold(gu)),
+                        sw.split_warp_vjp_plain(d16.float(), u16.float(), g16.float())):
+        atol = 2e-5 + 2 * 2.0 ** -8 * float(ref.abs().max())
+        torch.testing.assert_close(got, ref, rtol=0, atol=atol)
 
     vol, r, m, gv = st.block_operands(gen, (2, 1, 64, 16, 24), 9, 2, saturate=True)
     h = 12
@@ -450,10 +473,12 @@ def test_trainer_spatial_shards_match_one_device(tmp_path):
 
 @pytest.mark.parametrize("option", ["pre", "warp", "use_gather", "bfloat16", "fourier"])
 def test_trainer_refuses_the_options_left(tmp_path, option):
-    """Under ``spatial_shards`` (and ``vi_spatial_shards``) above 1 on two
-    devices, each option the sharded steps do not take raises
-    ``NotImplementedError`` naming its ROADMAP item; on one device it
-    runs."""
+    """Under ``spatial_shards`` and ``vi_spatial_shards`` 2 on two devices,
+    the trainer takes each option (it refuses none of them): it cuts both
+    steps along D (a ``(1, 2)`` ``('chain', 'space')`` mesh and a
+    ``('space',)`` mesh of 2) and runs to a finite MCMC Dice; on one device
+    the same config builds.  tests/test_torch_spatial_options.py holds each
+    option's sharded steps to the JAX package's."""
     c = _cfg(tmp_path / option, spatial_shards=2, vi_spatial_shards=2)
     args = c["transformation_module"]["args"]
     if option == "pre":
@@ -466,6 +491,10 @@ def test_trainer_refuses_the_options_left(tmp_path, option):
         args["compute_dtype"] = "bfloat16"
     else:
         c["reg_loss"]["args"]["diff_op"] = "Fourier1stDerivativeOperator"
-    with pytest.raises(NotImplementedError, match="spatially sharded steps: the options left"):
-        Trainer(Config(c, run_id="t"), devices=[CPU, CPU])
-    Trainer(Config(c, run_id="t"), devices=[CPU])
+    t = Trainer(Config(c, run_id="t"), devices=[CPU, CPU])
+    s = t.run()[0]
+    assert t._mcmc_mesh.shape == {"chain": 1, "space": 2}
+    assert t._vi_mesh.shape == {"space": 2}
+    assert np.isfinite(s["mcmc_mean_dsc"]) and "mcmc_aborted" not in s
+    one = Trainer(Config(c, run_id="t"), devices=[CPU])
+    assert one._mcmc_spatial_shards() == one._vi_spatial_shards() == 1
