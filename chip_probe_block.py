@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
   constexpr int E = Wn::E;
   extern __shared__ float win[];
   const BlockTile t = block_tile(g);
-  stage_windows<R>(win, vol, m, t, g);
+  stage_windows<R, false>(win, vol, m, t, g);
   cp_async_commit();
   const int tid = threadIdx.x, tx = tid % TXB, ty = tid / TXB;
   const int x = t.x0 + tx;
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(NTB, kFwdWindowMinBlocks)
   constexpr int E = Wn::E;
   extern __shared__ float win[];
   const BlockTile t = block_tile(g);
-  stage_windows<R>(win, vol, m, t, g);
+  stage_windows<R, false>(win, vol, m, t, g);
   cp_async_commit();
   const int tid = threadIdx.x, tx = tid % TXB, ty = tid / TXB;
   const int x = t.x0 + tx;
@@ -171,7 +171,7 @@ extern "C" int probe_dgrad_voxel(const float* vol, const float* r, const int* m,
                                  int W, int block, int radius, void* stream) {
   const Geom g{B, C, D, H, W, block};
   const dim3 threads(32, 8);
-  block_warp_dgrad_kernel<<<grid_for(g, threads), threads, 0, (cudaStream_t)stream>>>(
+  block_warp_dgrad_kernel<false><<<grid_for(g, threads), threads, 0, (cudaStream_t)stream>>>(
       vol, r, m, g_in, out, g);
   return (int)cudaGetLastError();
 }
@@ -202,7 +202,7 @@ extern "C" int probe_fwd_voxel(const float* vol, const float* r, const int* m, f
                                void* stream) {
   const Geom g{B, C, D, H, W, block};
   const dim3 threads(32, 8);
-  block_warp_fwd_kernel<<<grid_for(g, threads), threads, 0, (cudaStream_t)stream>>>(
+  block_warp_fwd_kernel<false><<<grid_for(g, threads), threads, 0, (cudaStream_t)stream>>>(
       vol, r, m, out, g);
   return (int)cudaGetLastError();
 }
@@ -241,8 +241,8 @@ def _build() -> dict:
     libs, logs = _lib.build_variants("block_warp.cu", PROBE_CU, VARIANTS)
     for name, log in logs.items():
         for row in _lib.ptxas_summary(log):
-            if row.startswith(("dgrad_window_kernel<2>", "dgrad_stage_kernel<2>",
-                               "fwd_window_kernel<2>", "fwd_stage_kernel<2>")):
+            if row.startswith(("dgrad_window_kernel<2, 0>", "dgrad_stage_kernel<2>",
+                               "fwd_window_kernel<2, 0>", "fwd_stage_kernel<2>")):
                 print(f"ptxas {name}: {row}", flush=True)
     for lib in libs.values():
         for names, entry in ((FWD_SIGNATURE, "block_warp_fwd"),

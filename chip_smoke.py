@@ -48,7 +48,7 @@ Phases, each of which raises on failure (exit code != 0):
    counters must move by exactly B1 7, B2 7, B3 1, B4 1 per transition;
    then 5 more transitions under ``torch.profiler``, printed as device
    kernel time by kind (the hand-written kernels by name: B3 as
-   ``fwd_window_kernel<2>``);
+   ``fwd_window_kernel<2, false>``);
 4. the same transition at 64³ with fixed noise on the card and on the CPU
    (plain versions) must agree;
 5. the VI path: ``bench.py --phase vi``'s problem at 128³ on the "pre"
@@ -156,7 +156,20 @@ Phases, each of which raises on failure (exit code != 0):
    (B1Z-bf16 7, B2Z-bf16 7, B3Z 1, B4Z 1) and the Fourier energy (13(a)'s
    kernels), VI on ``"pre"`` (B1Z 7, B5Z 9, B6Z 8, B7Z 8), with 13(a)-(b)'s
    checks, both rates and each card's peak memory (a ``spatial_options:``
-   line).
+   line);
+14. the benchmark entry (``python -m ir_sgmcmc_tpu_torch.bench``): (a) run
+   from the repository's root with no argument, a subprocess: rc 0, one
+   JSON line with the canonical metric and keys, finite rates, and B1 7,
+   B2 7, B3 1, B4 1 launches per step in both phases; (c) B1-B4 against
+   their plain versions at the 256³ benchmark's shapes, at phase 2's
+   tolerances, timed; (b) ``bench.main`` in process on ``--phase vi
+   --noise-scheme pre``, ``--compute-dtype bfloat16``,
+   ``--taylor-compositions off``, ``--use-gather``, ``--model svffd``,
+   ``--dims 256`` and ``--dims 256 --phase vi`` (remat), each line printed
+   and its launches per step held to its table (``BENCH_RUNS``; the 256³
+   runs at one timed chunk); (d) the 256³ MCMC run with ``--trace``, the
+   trace grouped by ``scripts/trace_summary.py``, which must find B1-B4 at
+   their launches.
 
 The operand builders, shape tables and tolerances of phase 2 are the
 selftest's (``ir_sgmcmc_tpu_torch/selftest.py``); every profile is a
@@ -164,7 +177,8 @@ Chrome trace grouped by ``ir_sgmcmc_tpu_torch/scripts/trace_summary.py``.
 Each path's counters are set to 0 just before its timed run (the
 trainer's: its whole CLI run) and read just after.  Then one JSON line of
 kernel results (B3 and B4 once per radius: ``block_warp_fwd`` at R 2 with
-the dense paths' launches, ``block_warp_fwd_r3`` at R 3 with the SVFFD
+the dense paths' launches and phase 14's (``--model svffd`` at radius 2
+too), ``block_warp_fwd_r3`` at R 3 with phase 8's and 11's SVFFD
 paths'; the bf16 modes of B1/B2 with phase 11's launches; the z-halo modes
 of B5/B6 and the z-pad mode of B7 with phase 12's and 13(e)'s, those of
 B1-B4 with phase 13's, the bf16 z-halo modes of B1/B2 with 13(e)'s: no
@@ -178,6 +192,7 @@ matmuls and cuDNN.
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -235,42 +250,24 @@ def _err(out, ref, atol: float, rtol: float, name: str, **inputs) -> float:
     return float(diff.max())
 
 
-def _bundle(dims, noise_scheme="post", cps=None, compute_dtype=None):
-    """``bench.py``'s model; with ``cps``, ``bench.py --model svffd``'s
-    (the experiment-5 SVFFD model on a control grid of spacing ``cps``,
-    Sobolev s 2, block radius 3); ``compute_dtype`` the integrator's."""
-    from ir_sgmcmc_tpu_torch.engine import ModelBundle
-    from ir_sgmcmc_tpu_torch.models import (GMM, SVF3D, SVFFD3D, DirichletPrior,
-                                            LogEnergyExpGammaPrior,
-                                            LogScaleNormalPrior, RegLossLogNormal)
-
-    dof = 3.0 * dims[0] * dims[1] * dims[2]
-    if cps is not None:
-        model = dict(transformation=SVFFD3D(dims, (cps,) * 3, no_steps=12,
-                                            compute_dtype=compute_dtype),
-                     sobolev_s=2, block_radius=SVFFD_RADIUS)
-    else:
-        model = dict(transformation=SVF3D(dims, no_steps=12, compute_dtype=compute_dtype),
-                     sobolev_s=3)
-    return ModelBundle(
-        dims=dims, gmm=GMM(4, 1),
-        scale_prior=LogScaleNormalPrior(0.0, 2.3),
-        proportion_prior=DirichletPrior(4, 0.5),
-        reg_loss=RegLossLogNormal(w_reg=1.4, dims=dims, learnable=True),
-        reg_loc_prior=LogEnergyExpGammaPrior(w_reg=1.4, dof=dof),
-        reg_scale_prior=LogScaleNormalPrior(loc=2.8, scale=5.0),
-        sobolev_lambda=0.5, uniform_noise_alpha=0.1,
-        noise_scheme=noise_scheme, virtual_decimation=True, **model)
-
-
 def _problem(dims, device, noise_scheme="post", cps=None, compute_dtype=None):
-    from ir_sgmcmc_tpu_torch.data import sphere_pair
+    """``bench.py``'s model and pair (``ir_sgmcmc_tpu_torch.bench``), with its
+    MCMC optimizers.  With ``cps``, the SVFFD model of phases 8 and 11:
+    experiment 5's control grid of spacing ``cps`` and its Sobolev s 2
+    (``configs/experiment5``) with block radius 3 (configs/README.md), on
+    ``bench.py``'s likelihood and regulariser; not ``bench.py --model
+    svffd``'s model, which keeps s 3 and radius 2.  ``compute_dtype``: the
+    integrator's."""
+    import dataclasses
+
+    from ir_sgmcmc_tpu_torch.bench import make_bundle_and_pair
     from ir_sgmcmc_tpu_torch.optim import adam_decay
 
-    bundle = _bundle(dims, noise_scheme, cps, compute_dtype)
-    fixed, moving = sphere_pair(dims, offset=(0.0, 0.0, 4.0))
-    fixed = {k: torch.as_tensor(v, device=device) for k, v in fixed.items()}
-    moving = {k: torch.as_tensor(v, device=device) for k, v in moving.items()}
+    bundle, fixed, moving = make_bundle_and_pair(
+        noise_scheme, dims, "svf" if cps is None else "svffd", cps, device,
+        compute_dtype=compute_dtype)
+    if cps is not None:
+        bundle = dataclasses.replace(bundle, sobolev_s=2, block_radius=SVFFD_RADIUS)
     opt_gmm = adam_decay(0.2, 1e-3)
     opt_reg = adam_decay({"loc": 0.01, "log_scale": 0.01}, 1e-3)
     return bundle, fixed, moving, opt_gmm, opt_reg
@@ -2441,6 +2438,180 @@ def phase_spatial_cards(n_cards: int, single: dict) -> dict:
     return paths
 
 
+# ---- phase 14: the benchmark entry -------------------------------------------------
+
+BIG = (256, 256, 256)
+# launches per step of the benchmark's variants beside POST_PER_STEP,
+# VI_PER_STEP and BF16_PER_STEP (a symbol not named: 0), from SVF3D's
+# forms: taylor_compositions "off" composes by radius-1 blend warps (B5 7,
+# their backward B6 7 and B7 7) before the block-gather warp; use_gather
+# integrates and warps by grid_sample alone; remat (VI at 256³) runs the
+# two antithetic chains in turn and recomputes each one's forward in the
+# backward (B1 2 x 2 x 7, B2 2 x 7, B3 2 x 2, B4 2)
+OFF_PER_STEP = {"warp_bounded_fwd": 7, "warp_bounded_dgrad": 7, "warp_bounded_tblend": 7,
+                "block_warp_fwd": 1, "block_warp_dgrad": 1}
+GATHER_PER_STEP = {}
+REMAT_PER_STEP = {"split_warp_fwd": 28, "split_warp_bwd": 14, "block_warp_fwd": 4,
+                  "block_warp_dgrad": 2}
+# the canonical line's keys in their order: bench.py's but its Pallas
+# fallback and VI error tags, then the port's; vs_baseline (after
+# noise_scheme) and baseline_* (after vi_compile_warm_s) come only with a
+# cached torch-CPU anchor
+CANONICAL_KEYS = ("metric", "value", "unit", "noise_scheme", "spread_rel", "timed_chunks_s",
+                  "compile_warm_s", "vi_iters_per_sec", "vi_spread_rel", "vi_compile_warm_s",
+                  "backend", "device", "power_limit", "build_s", "peak_mem_bytes",
+                  "vi_peak_mem_bytes", "launches_per_step", "vi_launches_per_step")
+# 14(b): (tag, argv, the launch table of each phase the line times); the
+# 256³ runs time one chunk, the MCMC one also traced (14(d))
+BENCH_RUNS = (("vi_pre", ("--phase", "vi", "--noise-scheme", "pre"), (VI_PER_STEP,)),
+              ("bf16", ("--compute-dtype", "bfloat16"), (BF16_PER_STEP,) * 2),
+              ("off", ("--taylor-compositions", "off"), (OFF_PER_STEP,) * 2),
+              ("use_gather", ("--use-gather",), (GATHER_PER_STEP,) * 2),
+              ("svffd", ("--model", "svffd"), (POST_PER_STEP,)),
+              ("256", ("--dims", "256"), (POST_PER_STEP,)),
+              ("256_vi", ("--dims", "256", "--phase", "vi"), (REMAT_PER_STEP,)))
+
+
+def _check_bench_line(tag: str, line: dict, tables) -> None:
+    """Finite positive rates, and each timed phase's launches per step equal
+    to its table."""
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+
+    rates = [line["value"]] + ([line["vi_iters_per_sec"]] if len(tables) == 2 else [])
+    if not all(math.isfinite(x) and x > 0 for x in rates):
+        raise AssertionError(f"bench {tag}: rates {rates}")
+    for key, table in zip(("launches_per_step", "vi_launches_per_step"), tables):
+        got, want = line[key], {s: n for s, n in table.items() if n}
+        if any(got.get(k.symbol, 0) != want.get(k.symbol, 0) for k in all_kernels()):
+            raise AssertionError(f"bench {tag}: {key} {got}, expected {want}")
+
+
+def phase_bench_canonical(dev) -> dict:
+    """14(a): ``python -m ir_sgmcmc_tpu_torch.bench`` from the repository's
+    root with no argument: rc 0, one JSON line with the canonical metric and
+    keys, finite rates, both phases at POST_PER_STEP's launches."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ir_sgmcmc_tpu_torch.bench"], cwd=str(root),
+                          capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(out) != 1:
+        raise AssertionError(f"bench: rc {proc.returncode}, {len(out)} stdout lines; stderr "
+                             f"{proc.stderr[-3000:]}")
+    line = json.loads(out[0])
+    keys = [k for k in line if k != "vs_baseline" and not k.startswith("baseline_")]
+    if line["metric"] != "sgmcmc_samples_per_sec_128cubed_2chains" or keys != list(
+            CANONICAL_KEYS):
+        raise AssertionError(f"bench: metric {line['metric']}, keys {list(line)}")
+    if line["backend"] != "torch-cuda" or line["device"] != torch.cuda.get_device_name(dev):
+        raise AssertionError(f"bench: backend {line['backend']}, device {line['device']}")
+    _check_bench_line("canonical", line, (POST_PER_STEP,) * 2)
+    print(f"bench canonical ({seconds:.1f} s, a subprocess): {out[0]}", flush=True)
+    return line
+
+
+def _bench_in_process(tag: str, argv) -> tuple:
+    """``bench.main(argv)`` with every counter set to 0 just before and read
+    just after; its line printed with a tag.  Returns the line and the
+    launches."""
+    from ir_sgmcmc_tpu_torch import bench
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        line = bench.main(list(argv))
+    printed = buf.getvalue().strip().splitlines()
+    if len(printed) != 1 or json.loads(printed[0]) != line:
+        raise AssertionError(f"bench {tag}: printed {printed}")
+    print(f"bench {tag} ({time.perf_counter() - t0:.1f} s): {printed[0]}", flush=True)
+    return line, {k.symbol: k.launches for k in kernels}
+
+
+def phase_bench(dev) -> dict:
+    """14(b)-(d): each variant of BENCH_RUNS through ``bench.main`` in
+    process (the 256³ ones at one timed chunk), its line checked against its
+    launch tables; the 256³ MCMC run traced (``--trace``) and the trace
+    read by ``scripts/trace_summary.py``, which must find B1-B4 at their
+    launches.  Returns each run's launches."""
+    import tempfile
+
+    from ir_sgmcmc_tpu_torch import bench
+    from ir_sgmcmc_tpu_torch.scripts import trace_summary
+
+    paths = {}
+    repeats = bench.TIMED_REPEATS
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, argv, tables in BENCH_RUNS:
+            bench.TIMED_REPEATS = 1 if "256" in argv else repeats
+            if tag == "256":
+                argv += ("--trace", tmp)
+            line, paths[f"bench_{tag}"] = _bench_in_process(tag, argv)
+            _check_bench_line(tag, line, tables)
+        bench.TIMED_REPEATS = repeats
+        buf = io.StringIO()
+        shapes = [f"B1={CHAINS},3,{','.join(map(str, BIG))}",
+                  f"B2={CHAINS},3,{','.join(map(str, BIG))}",
+                  f"B3={CHAINS},1,{','.join(map(str, BIG))}:2",
+                  f"B4={CHAINS},1,{','.join(map(str, BIG))}:2"]
+        with contextlib.redirect_stdout(buf):
+            kinds = trace_summary.summarise(Path(tmp) / "trace.json", bench.TIMED_STEPS, shapes)
+    for ln in buf.getvalue().splitlines():
+        print(f"profile bench 256: {ln}", flush=True)
+    for kind, sym in (("B1", "split_warp_fwd"), ("B2", "split_warp_bwd"),
+                      ("B3", "block_warp_fwd"), ("B4", "block_warp_dgrad")):
+        want = POST_PER_STEP[sym] * bench.TIMED_STEPS
+        if kind not in kinds or kinds[kind]["launches"] != want:
+            raise AssertionError(f"bench trace: {kind} {kinds.get(kind)}, expected {want} "
+                                 f"launches")
+    return paths
+
+
+def phase_bench_kernels(dev) -> list:
+    """14(c): B1-B4 against their plain versions at the 256³ benchmark's
+    shapes (B1/B2 ``(2, 3, 256³)``, B3/B4 vol ``(2, 1, 256³)`` bound 9 R 2),
+    at phase 2's tolerances, timed; printed, not in the kernels line."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+    from ir_sgmcmc_tpu_torch.kernels import split_warp as sw
+
+    gen = torch.Generator(device=dev).manual_seed(256)
+    tol = {k: st.TOL[k.symbol] for k in (sw.B1, sw.B2, bw.B3, bw.B4)}
+    shape = (CHAINS, 3) + BIG
+    d, u, g = st.split_operands(gen, shape)
+    e1 = _err(sw.split_warp_fwd_cuda(d, u), sw.split_compose_plain(d, u), *tol[sw.B1],
+              f"B1 {shape}")
+    gd_k, gu_k = sw.split_warp_bwd_cuda(d, u, g)
+    gd_p, gu_p = sw.split_compose_vjp_plain(d, u, g)
+    e2 = max(_err(gd_k, gd_p, *tol[sw.B2], f"B2 gd {shape}"),
+             _err(gu_k + g, gu_p, *tol[sw.B2], f"B2 gu {shape}"))
+    rows = [_row(sw.B1, shape, e1, *tol[sw.B1],
+                 _time_ms(lambda: sw.split_warp_fwd_cuda(d, u)),
+                 _time_ms(lambda: sw.split_compose_plain(d, u))),
+            _row(sw.B2, shape, e2, *tol[sw.B2],
+                 _time_ms(lambda: sw.split_warp_bwd_cuda(d, u, g)),
+                 _time_ms(lambda: sw.split_compose_vjp_plain(d, u, g)))]
+    del d, u, g, gd_k, gu_k, gd_p, gu_p
+    shape = (CHAINS, 1) + BIG
+    vol, r, m, gv = st.block_operands(gen, shape, 9, 2)
+    e3 = _err(bw.block_warp_cuda(vol, r, m, 2), bw.block_warp_plain(vol, r, m), *tol[bw.B3],
+              f"B3 {shape}")
+    e4 = _err(bw.block_warp_dgrad_cuda(vol, r, m, gv, 2),
+              bw.block_warp_dgrad_plain(vol, r, m, gv), *tol[bw.B4], f"B4 {shape}")
+    rows += [_row(bw.B3, shape, e3, *tol[bw.B3],
+                  _time_ms(lambda: bw.block_warp_cuda(vol, r, m, 2)),
+                  _time_ms(lambda: bw.block_warp_plain(vol, r, m)), radius=2),
+             _row(bw.B4, shape, e4, *tol[bw.B4],
+                  _time_ms(lambda: bw.block_warp_dgrad_cuda(vol, r, m, gv, 2)),
+                  _time_ms(lambda: bw.block_warp_dgrad_plain(vol, r, m, gv)), radius=2)]
+    _print_rows(rows)
+    return rows
+
+
 def _to_tree(x, device, dtype=None):
     """Tensors of a nested dict / named tuple on ``device``; floating ones
     also cast to ``dtype`` when given."""
@@ -2531,6 +2702,9 @@ def main() -> int:
     else:
         print("spatial_cards: one card: 13(d) (the spatial steps and the demo config over real "
               "cards) not run", flush=True)
+    phase_bench_canonical(dev)
+    phase_bench_kernels(dev)
+    paths.update(phase_bench(dev))
 
     kernels = []
     for r in rows:

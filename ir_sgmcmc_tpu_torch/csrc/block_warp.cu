@@ -63,10 +63,13 @@
 // (ir_sgmcmc_tpu_torch/parallel/halo.py): vol is the slab's window of the
 // moving volume, its D planes and h on each side, and r, m, g and the
 // output are the slab's.  Both kernels (window and per-voxel) read it
-// with Geom::h: output plane z is window plane z + h, and z taps clamp to
-// the window's Dv = D + 2h planes where the default mode clamps to the
-// volume.  With h at least the means' bound + R + 1 no tap reaches the
-// window's ends, so a slab computes exactly what one device does.
+// under the template flag ZH, with Geom::h: output plane z is window plane
+// z + h, and z taps clamp to the window's D + 2h planes where the default
+// mode clamps to the volume.  With h at least the means' bound + R + 1 no
+// tap reaches the window's ends, so a slab computes exactly what one
+// device does.  The default mode's instantiations (ZH false) hold no h:
+// with it as a run-time field, B4's window kernel spilled under its
+// 40-register cap (kWindowMinBlocks) and read ~21% slower.
 
 #include <cuda_runtime.h>
 
@@ -100,17 +103,24 @@ __device__ __forceinline__ Taps taps(float r, int base, int n) {
   return a;
 }
 
-// D: the output's planes.  h > 0 is the z-halo mode (B3Z, B4Z): vol is a
-// window of Dv = D + 2h planes, output plane z at window plane z + h, and z
-// taps clamp to the window instead of the volume.
+// D: the output's planes.  h: the z-halo mode's planes on each side
+// (B3Z, B4Z), read only under the kernels' flag ZH.
 struct Geom {
   int B, C, D, H, W, block, h = 0;
-  __host__ __device__ int Dv() const { return D + 2 * h; }
 };
+
+// Under ZH (the z-halo mode) vol is a window of D + 2h planes, output plane
+// z at window plane z + h, and z taps clamp to the window instead of the
+// volume; without it both are constants of the volume.
+template <bool ZH>
+__host__ __device__ __forceinline__ int zoff(const Geom& g) { return ZH ? g.h : 0; }
+template <bool ZH>
+__host__ __device__ __forceinline__ int vplanes(const Geom& g) { return g.D + 2 * zoff<ZH>(g); }
 
 __device__ __forceinline__ int clampi(int i, int n) { return min(max(i, 0), n - 1); }
 
 // per-thread setup shared by both kernels: the three axes' taps
+template <bool ZH>
 __device__ __forceinline__ bool setup(const Geom& g, const float* r,
                                       const int* m, Taps& tx, Taps& ty,
                                       Taps& tz, int& b, long long& here) {
@@ -128,10 +138,11 @@ __device__ __forceinline__ bool setup(const Geom& g, const float* r,
   const float* rb = r + (long long)b * 3 * V + here;
   tx = taps(rb[0], x + mb[0], g.W);
   ty = taps(rb[V], y + mb[NB], g.H);
-  tz = taps(rb[2 * V], z + g.h + mb[2 * NB], g.Dv());
+  tz = taps(rb[2 * V], z + zoff<ZH>(g) + mb[2 * NB], vplanes<ZH>(g));
   return true;
 }
 
+template <bool ZH>
 __global__ void block_warp_fwd_kernel(const float* __restrict__ vol,
                                       const float* __restrict__ r,
                                       const int* __restrict__ m,
@@ -139,8 +150,8 @@ __global__ void block_warp_fwd_kernel(const float* __restrict__ vol,
   Taps tx, ty, tz;
   int b;
   long long here;
-  if (!setup(g, r, m, tx, ty, tz, b, here)) return;
-  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)g.Dv() * g.H * g.W;
+  if (!setup<ZH>(g, r, m, tx, ty, tz, b, here)) return;
+  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)vplanes<ZH>(g) * g.H * g.W;
   const int zi[2] = {tz.i0, tz.i1}, yi[2] = {ty.i0, ty.i1};
   const float wz[2] = {tz.w0, tz.w1}, wy[2] = {ty.w0, ty.w1};
   for (int c = 0; c < g.C; ++c) {
@@ -157,6 +168,7 @@ __global__ void block_warp_fwd_kernel(const float* __restrict__ vol,
   }
 }
 
+template <bool ZH>
 __global__ void block_warp_dgrad_kernel(const float* __restrict__ vol,
                                         const float* __restrict__ r,
                                         const int* __restrict__ m,
@@ -165,8 +177,8 @@ __global__ void block_warp_dgrad_kernel(const float* __restrict__ vol,
   Taps tx, ty, tz;
   int b;
   long long here;
-  if (!setup(g, r, m, tx, ty, tz, b, here)) return;
-  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)g.Dv() * g.H * g.W;
+  if (!setup<ZH>(g, r, m, tx, ty, tz, b, here)) return;
+  const long long V = (long long)g.D * g.H * g.W, Vv = (long long)vplanes<ZH>(g) * g.H * g.W;
   const int zi[2] = {tz.i0, tz.i1}, yi[2] = {ty.i0, ty.i1};
   const float wz[2] = {tz.w0, tz.w1}, wy[2] = {ty.w0, ty.w1};
   const float dwz[2] = {tz.dw0, tz.dw1}, dwy[2] = {ty.dw0, ty.dw1};
@@ -249,12 +261,12 @@ __device__ __forceinline__ BlockTile block_tile(const Geom& g) {
 // index arithmetic is done once per column.  Offsets are 32-bit inside one
 // batch element (the host keeps max(C, 3) V < 2^31).  The caller commits,
 // waits and synchronises.
-template <int R>
+template <int R, bool ZH>
 __device__ __forceinline__ void stage_windows(float* win, const float* vol, const int* m,
                                               const BlockTile& t, const Geom& g) {
   using Wn = Window<R>;
   constexpr int E = Wn::E;
-  const int P = g.H * g.W, Vv = g.Dv() * P;
+  const int P = g.H * g.W, Vv = vplanes<ZH>(g) * P;
   const int nby = g.H / BK, nbx = g.W / BK, NB = g.D / BK * nby * nbx;
   const int* mb = m + (long long)t.b * 3 * NB + (t.z0 / BK * nby + t.y0 / BK) * nbx + t.x0 / BK;
   const float* vb = vol + (long long)t.b * g.C * Vv;
@@ -262,13 +274,14 @@ __device__ __forceinline__ void stage_windows(float* win, const float* vol, cons
     const int i = q / (E * E), jy = q / E % E, jx = q % E;
     if (t.x0 + i * BK >= g.W) break;  // i only grows with q
     const int ox = t.x0 + i * BK + mb[i] - R, oy = t.y0 + mb[NB + i] - R,
-              oz = t.z0 + g.h + mb[2 * NB + i] - R;
+              oz = t.z0 + zoff<ZH>(g) + mb[2 * NB + i] - R;
     const int col = clampi(oy + jy, g.H) * g.W + clampi(ox + jx, g.W);
     for (int c = 0; c < g.C; ++c) {
       float* dst = win + (c * NBX + i) * Wn::NP + jy * E + jx;
       const float* src = vb + c * Vv + col;
 #pragma unroll
-      for (int jz = 0; jz < E; ++jz) cp_async4(dst + jz * E * E, src + clampi(oz + jz, g.Dv()) * P);
+      for (int jz = 0; jz < E; ++jz)
+        cp_async4(dst + jz * E * E, src + clampi(oz + jz, vplanes<ZH>(g)) * P);
     }
   }
 }
@@ -294,11 +307,29 @@ __device__ __forceinline__ int window_taps(const float (&rc)[3], const int (&lo)
   return off;
 }
 
+// B4's dtri weights of an axis's taps k and k+1 are (q, -q), q = dtri(t0)
+// (t1 = t0 - 1), but where the residual r is within 2^-25 of 0 (and not
+// 0): there t0 = r + 1 rounds to 1 or t1 = r - 1 to -1, and, as the
+// per-voxel kernels and the plain version take each weight as rounded,
+// only one tap has one, s = -sign(r); the taps' tri weights are exactly
+// (0, 1) or (1, 0), and the dtri weights s times them.  q = 2s marks that
+// case: one float per axis, as (q, -q) alone held, since a second weight
+// per axis spilled under the 40-register cap of B4's window kernel.
+__device__ __forceinline__ float dtri_q(float r, float t0) {
+  return (r != 0.0f && fabsf(r) <= 0x1p-25f) ? (r < 0.0f ? 2.0f : -2.0f) : dtri(t0);
+}
+
+// the dtri weight of tap k (hi false) or k + 1 (hi true) from dtri_q's q
+// and the tap's tri weight w
+__device__ __forceinline__ float dtri_w(float q, float w, bool hi) {
+  return fabsf(q) > 1.5f ? 0.5f * q * w : (hi ? -q : q);
+}
+
 // B3: each thread owns column (x0 + tx, y0 + ty) of the tile and marches
 // its 8 z-planes: r read coalesced, kFwdRAhead planes ahead, the 8 taps per
 // channel from its block's window, summed in the per-voxel kernel's order,
 // C output words written coalesced.
-template <int R>
+template <int R, bool ZH>
 __global__ void __launch_bounds__(NTB, kFwdWindowMinBlocks)
     fwd_window_kernel(const float* __restrict__ vol, const float* __restrict__ r,
                       const int* __restrict__ m, float* __restrict__ out, Geom g) {
@@ -306,7 +337,7 @@ __global__ void __launch_bounds__(NTB, kFwdWindowMinBlocks)
   constexpr int E = Wn::E;
   extern __shared__ float win[];  // [C][NBX][NP]
   const BlockTile t = block_tile(g);
-  stage_windows<R>(win, vol, m, t, g);
+  stage_windows<R, ZH>(win, vol, m, t, g);
   cp_async_commit();
   const int tid = threadIdx.x, tx = tid % TXB, ty = tid / TXB;
   const int C = g.C, x = t.x0 + tx;
@@ -352,7 +383,7 @@ __global__ void __launch_bounds__(NTB, kFwdWindowMinBlocks)
 
 // B4: as B3, with g read coalesced beside r, the channel sum taken per tap,
 // and 3 output words written per voxel.
-template <int R>
+template <int R, bool ZH>
 __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
     dgrad_window_kernel(const float* __restrict__ vol, const float* __restrict__ r,
                         const int* __restrict__ m, const float* __restrict__ gin,
@@ -361,7 +392,7 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
   constexpr int E = Wn::E;
   extern __shared__ float win[];  // [C][NBX][NP]
   const BlockTile t = block_tile(g);
-  stage_windows<R>(win, vol, m, t, g);
+  stage_windows<R, ZH>(win, vol, m, t, g);
   cp_async_commit();
   const int tid = threadIdx.x, tx = tid % TXB, ty = tid / TXB;
   const int C = g.C, x = t.x0 + tx;
@@ -382,11 +413,11 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
   if (!live) return;
   for (int lz = 0; lz < BK; ++lz) {
     const int zo = lz * P;
-    float w0[3], w1[3], dw[3];
+    float w0[3], w1[3], q[3];
     const int lo[3] = {tx % BK, ty, lz};
-    const float* tap = wb + lz * E * E + window_taps<R>(rc, lo, w0, w1, dw);
+    const float* tap = wb + lz * E * E + window_taps<R>(rc, lo, w0, w1, q);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) dw[a] = dtri(dw[a]);  // dtri(t1) = -dtri(t0): t1 = t0 - 1
+    for (int a = 0; a < 3; ++a) q[a] = dtri_q(rc[a], q[a]);
     float acc_x = 0.0f, acc_y = 0.0f, acc_z = 0.0f;
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -401,9 +432,10 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
           sg1 += gc * row[c * NBX * Wn::NP + 1];
         }
         const float wz = a ? w1[2] : w0[2], wy = e ? w1[1] : w0[1];
-        const float dwz = a ? -dw[2] : dw[2], dwy = e ? -dw[1] : dw[1];
-        const float a_sum = dw[0] * sg0 + -dw[0] * sg1;
+        const float dwz = dtri_w(q[2], wz, a), dwy = dtri_w(q[1], wy, e);
         const float b_sum = w0[0] * sg0 + w1[0] * sg1;
+        // x: the taps' dtri weights times sg0 and sg1; s b_sum where one has
+        const float a_sum = fabsf(q[0]) > 1.5f ? 0.5f * q[0] * b_sum : q[0] * sg0 + -q[0] * sg1;
         acc_x += (wz * wy) * a_sum;
         acc_y += (wz * dwy) * b_sum;
         acc_z += (dwz * wy) * b_sum;
@@ -420,7 +452,8 @@ __global__ void __launch_bounds__(NTB, kWindowMinBlocks)
 // The window kernels take block 8, 1 <= R <= 3, windows that fit in shared
 // memory, and batch elements of fewer than 2^31 words (32-bit offsets).
 bool window_fits(const Geom& g, int radius) {
-  if (g.block != BK || (g.C > 3 ? g.C : 3) * ((long long)g.Dv() * g.H * g.W) >= (1LL << 31))
+  if (g.block != BK ||
+      (g.C > 3 ? g.C : 3) * ((long long)vplanes<true>(g) * g.H * g.W) >= (1LL << 31))
     return false;
   const size_t bytes = radius == 1   ? window_bytes<1>(g.C)
                        : radius == 2 ? window_bytes<2>(g.C)
@@ -431,26 +464,27 @@ bool window_fits(const Geom& g, int radius) {
 
 dim3 window_grid(const Geom& g) { return dim3((g.W + TXB - 1) / TXB, g.H / TYB, g.B * (g.D / BK)); }
 
-template <int R>
+template <int R, bool ZH>
 int fwd_window(const float* vol, const float* r, const int* m, float* out, const Geom& g,
                cudaStream_t stream) {
   // set on every launch: the attribute belongs to the current device's context
   const cudaError_t attr = cudaFuncSetAttribute(
-      fwd_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      fwd_window_kernel<R, ZH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
-  fwd_window_kernel<R><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, out, g);
+  fwd_window_kernel<R, ZH><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, out,
+                                                                                  g);
   return (int)cudaGetLastError();
 }
 
-template <int R>
+template <int R, bool ZH>
 int dgrad_window(const float* vol, const float* r, const int* m, const float* g_in,
                  float* out, const Geom& g, cudaStream_t stream) {
   // set on every launch: the attribute belongs to the current device's context
   const cudaError_t attr = cudaFuncSetAttribute(
-      dgrad_window_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      dgrad_window_kernel<R, ZH>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
-  dgrad_window_kernel<R><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(vol, r, m, g_in,
-                                                                               out, g);
+  dgrad_window_kernel<R, ZH><<<window_grid(g), NTB, window_bytes<R>(g.C), stream>>>(
+      vol, r, m, g_in, out, g);
   return (int)cudaGetLastError();
 }
 
@@ -459,29 +493,31 @@ dim3 grid_for(const Geom& g, dim3 block) {
               g.B * g.D);
 }
 
+template <bool ZH>
 int fwd_entry(const float* vol, const float* r, const int* m, float* out, const Geom& g,
               int radius, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (window_fits(g, radius)) {
-    if (radius == 1) return fwd_window<1>(vol, r, m, out, g, st);
-    if (radius == 2) return fwd_window<2>(vol, r, m, out, g, st);
-    return fwd_window<3>(vol, r, m, out, g, st);
+    if (radius == 1) return fwd_window<1, ZH>(vol, r, m, out, g, st);
+    if (radius == 2) return fwd_window<2, ZH>(vol, r, m, out, g, st);
+    return fwd_window<3, ZH>(vol, r, m, out, g, st);
   }
   const dim3 threads(32, 8);
-  block_warp_fwd_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, out, g);
+  block_warp_fwd_kernel<ZH><<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, out, g);
   return (int)cudaGetLastError();
 }
 
+template <bool ZH>
 int dgrad_entry(const float* vol, const float* r, const int* m, const float* g_in, float* out,
                 const Geom& g, int radius, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (window_fits(g, radius)) {
-    if (radius == 1) return dgrad_window<1>(vol, r, m, g_in, out, g, st);
-    if (radius == 2) return dgrad_window<2>(vol, r, m, g_in, out, g, st);
-    return dgrad_window<3>(vol, r, m, g_in, out, g, st);
+    if (radius == 1) return dgrad_window<1, ZH>(vol, r, m, g_in, out, g, st);
+    if (radius == 2) return dgrad_window<2, ZH>(vol, r, m, g_in, out, g, st);
+    return dgrad_window<3, ZH>(vol, r, m, g_in, out, g, st);
   }
   const dim3 threads(32, 8);
-  block_warp_dgrad_kernel<<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, g_in, out, g);
+  block_warp_dgrad_kernel<ZH><<<grid_for(g, threads), threads, 0, st>>>(vol, r, m, g_in, out, g);
   return (int)cudaGetLastError();
 }
 
@@ -491,7 +527,7 @@ int dgrad_entry(const float* vol, const float* r, const int* m, const float* g_i
 extern "C" int block_warp_fwd(const float* vol, const float* r, const int* m,
                               float* out, int B, int C, int D, int H, int W,
                               int block, int radius, void* stream) {
-  return fwd_entry(vol, r, m, out, Geom{B, C, D, H, W, block}, radius, stream);
+  return fwd_entry<false>(vol, r, m, out, Geom{B, C, D, H, W, block}, radius, stream);
 }
 
 // radius: as for block_warp_fwd
@@ -499,7 +535,7 @@ extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
                                 const float* g_in, float* out, int B, int C,
                                 int D, int H, int W, int block, int radius,
                                 void* stream) {
-  return dgrad_entry(vol, r, m, g_in, out, Geom{B, C, D, H, W, block}, radius, stream);
+  return dgrad_entry<false>(vol, r, m, g_in, out, Geom{B, C, D, H, W, block}, radius, stream);
 }
 
 // The z-halo modes (B3Z, B4Z) for a z-slab of D planes: vol_h is the
@@ -510,12 +546,13 @@ extern "C" int block_warp_dgrad(const float* vol, const float* r, const int* m,
 extern "C" int block_warp_fwd_zhalo(const float* vol_h, const float* r, const int* m,
                                     float* out, int B, int C, int D, int H, int W,
                                     int block, int radius, int h, void* stream) {
-  return fwd_entry(vol_h, r, m, out, Geom{B, C, D, H, W, block, h}, radius, stream);
+  return fwd_entry<true>(vol_h, r, m, out, Geom{B, C, D, H, W, block, h}, radius, stream);
 }
 
 extern "C" int block_warp_dgrad_zhalo(const float* vol_h, const float* r, const int* m,
                                       const float* g_in, float* out, int B, int C,
                                       int D, int H, int W, int block, int radius,
                                       int h, void* stream) {
-  return dgrad_entry(vol_h, r, m, g_in, out, Geom{B, C, D, H, W, block, h}, radius, stream);
+  return dgrad_entry<true>(vol_h, r, m, g_in, out, Geom{B, C, D, H, W, block, h}, radius,
+                           stream);
 }

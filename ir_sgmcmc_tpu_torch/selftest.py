@@ -82,7 +82,7 @@ SPLIT_SHAPES = (((CHAINS, 3) + MAIN, None, 0), ((1, 3, 2, 9, 33), None, 0),
 # block 8), ragged shapes whose dims divide by 8 but are neither cubes nor
 # multiples of the window kernels' 32-wide tile, and the SVFFD path's
 # (bound 9, R 3); all four take B3's and B4's window kernels
-# (fwd_window_kernel<R>, dgrad_window_kernel<R>)
+# (fwd_window_kernel<R, false>, dgrad_window_kernel<R, false>)
 BLOCK_SHAPES = (((CHAINS, 1) + MAIN, 9, 2), ((1, 4, 16, 24, 136), 6, 1), ((2, 2, 24, 8, 40), 9, 2),
                 ((CHAINS, 1) + MAIN, 9, SVFFD_RADIUS))
 # (shape, bound, radius, block) that take B3's and B4's per-voxel kernels

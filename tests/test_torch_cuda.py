@@ -180,6 +180,35 @@ def test_block_kernels_match_plain(cuda, shape, bound, radius, block, saturate):
                                atol=5e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("radius,block,h", [(1, 8, 0), (2, 8, 0), (3, 8, 0), (2, 4, 0),
+                                             (2, 8, 12)])
+def test_block_dgrad_at_tiny_negative_residuals(cuda, radius, block, h):
+    """B4 (B4Z with ``h``) where a residual lies within ~2^-25 of 0: below
+    0, ``r + 1`` rounds to 1, so the lower tap's ``dtri(r + 1)`` is 0 while
+    the upper one's ``dtri(r)`` is +1; above 0, ``r - 1`` rounds to -1 and
+    the upper tap's ``dtri`` is 0 while the lower one's is -1.  The kernels
+    take both weights as the plain version rounds them (the window kernel
+    once took the upper one as minus the lower one, off by a voxel
+    difference there).  Residuals of ``±2^-27`` and ``±1e-9``, 4 of every
+    6."""
+    from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
+
+    shape = (2, 1, 16, 24, 40)
+    vol, r, m, g = _block_inputs(cuda, shape, 9, radius, block)
+    flat = r.view(-1)
+    flat[::6] = -2.0 ** -27
+    flat[1::6] = 2.0 ** -27
+    flat[3::6] = -1e-9
+    flat[4::6] = 1e-9
+    if h:
+        vol = torch.nn.functional.pad(vol, (0, 0, 0, 0, h, h), mode="replicate")
+        out = bw.block_warp_dgrad_zhalo_cuda(vol, r, m, g, radius, h, block)
+    else:
+        out = bw.block_warp_dgrad_cuda(vol, r, m, g, radius, block)
+    torch.testing.assert_close(out, bw.block_warp_dgrad_plain(vol, r, m, g, block, h),
+                               atol=5e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("shape,bound,radius,block,saturate", BLOCK_SHAPES[2:4])
 def test_block_dgrad_is_deterministic(cuda, shape, bound, radius, block, saturate):
     """Two launches of B4 on the same inputs are bitwise equal."""
@@ -200,10 +229,10 @@ def test_block_warp_fwd_is_deterministic(cuda, shape, bound, radius, block, satu
     assert torch.equal(first, bw.block_warp_cuda(vol, r, m, radius, block))
 
 
-@pytest.mark.parametrize("radius,block,kernel", [(2, 8, "fwd_window_kernel<2>"),
-                                                 (3, 8, "fwd_window_kernel<3>"),
-                                                 (0, 8, "block_warp_fwd_kernel"),
-                                                 (2, 4, "block_warp_fwd_kernel")])
+@pytest.mark.parametrize("radius,block,kernel", [(2, 8, "fwd_window_kernel<2, false>"),
+                                                 (3, 8, "fwd_window_kernel<3, false>"),
+                                                 (0, 8, "block_warp_fwd_kernel<false>"),
+                                                 (2, 4, "block_warp_fwd_kernel<false>")])
 def test_block_warp_fwd_dispatch(cuda, radius, block, kernel):
     """B3 takes its window kernel at block 8 and R 1-3 and its per-voxel
     kernel otherwise: the one device kernel a launch runs, by name."""
@@ -240,7 +269,8 @@ def test_autograd_functions_on_card_match_cpu(cuda):
         grads = torch.autograd.grad((o * g.to(dev)).sum() + (w * gv.to(dev)).sum(),
                                     (dd, uu, xx))
         outs[dev.type] = [t.detach().cpu() for t in (o, w, *grads)]
-    assert [k.launches - b for k, b in zip(all_kernels(), before)] == [1, 1, 1, 1] + [0] * 8
+    assert [k.launches - b for k, b in zip(all_kernels(), before)] == (
+        [1, 1, 1, 1] + [0] * (len(before) - 4))
     for got, ref, atol in zip(outs["cuda"], outs["cpu"], (2e-5, 1e-5, 3e-5, 3e-5, 5e-4)):
         torch.testing.assert_close(got, ref, atol=atol, rtol=1e-4)
 

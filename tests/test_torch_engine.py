@@ -321,16 +321,18 @@ def test_init_chains_modes(mode):
 
 
 def test_port_never_imports_jax():
-    """Import the port (its tools and ``chip_smoke.py`` too), run a 16³
-    transition and make an 8³ known-deformation phantom, and find no JAX
-    module loaded."""
+    """Import the port (its tools, its benchmark entry and ``chip_smoke.py``
+    too), build the benchmark's 16³ problem, run a 16³ transition and make
+    an 8³ known-deformation phantom, and find no JAX module loaded."""
     code = (
         "import sys, torch\n"
         "from ir_sgmcmc_tpu_torch.data import sphere_pair, svf_pair, brain_phantom_pair\n"
         "from ir_sgmcmc_tpu_torch import engine, models, convert, selftest\n"
         "from ir_sgmcmc_tpu_torch.scripts import (quality_eval, ablate_integrator,\n"
         "    calibration_sweep, trace_summary)\n"
+        "from ir_sgmcmc_tpu_torch import bench\n"
         "import chip_smoke\n"
+        "bench.make_bundle_and_pair('post', (16, 16, 16), device='cpu')\n"
         "svf_pair((8, 8, 8), device='cpu')\n"
         "from ir_sgmcmc_tpu_torch.optim import adam_decay\n"
         "dims = (16, 16, 16)\n"
