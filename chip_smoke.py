@@ -169,7 +169,27 @@ Phases, each of which raises on failure (exit code != 0):
    and its launches per step held to its table (``BENCH_RUNS``; the 256³
    runs at one timed chunk); (d) the 256³ MCMC run with ``--trace``, the
    trace grouped by ``scripts/trace_summary.py``, which must find B1-B4 at
-   their launches.
+   their launches;
+15. anchored residual warping (``mcmc_anchor``) and the ``"taylor"``
+   compositions: (a) anchored MCMC at 128³ x 2 chains on "post" (the
+   bench model), in the ``"taylor"`` and ``"blend"`` modes, re-anchored
+   every ANCHOR_PERIOD transitions at the anchor radius ANCHOR_RADIUS: one
+   warm-up and TIMED transitions, B1 7 per transition and 7 per
+   re-anchoring, B2 7, and in the ``"blend"`` mode B5 1 and B6 1 at R 2
+   (B3/B4 and B7 0) asserted, finite data terms, ``sat_resid`` reported,
+   the rate beside phase 3's; (b) a 64³ anchored transition in each mode,
+   card against CPU; (c) ``taylor_compositions: "taylor"`` (e 4, K 8): one
+   warm-up and TIMED transitions on "post" (B3 1, B4 1, nothing else) and
+   GMM warm-up, one warm-up and TIMED VI steps on "pre" (B5 9, B6 8, B7
+   8), then a 64³ transition and VI step card against CPU; (d) the demo
+   config through the CLI in-process at 128³ with ``mcmc_anchor: true``,
+   phase 7's cuts: no crash, the summary keys, and any saturation warning
+   or abort naming ``anchor_radius``; (e) 13(e)'s pattern for anchored
+   MCMC in both modes and for ``"taylor"`` (MCMC on "post", VI on "pre")
+   on 2 virtual shards against the unsharded step; one ``phase_15:``
+   line with the rates, peaks and launches.  Phase 2 also holds B5 and B6
+   at the anchored path's ``(2, 1, 128³)`` R 2 to their plain versions,
+   timed, with their library calls.
 
 The operand builders, shape tables and tolerances of phase 2 are the
 selftest's (``ir_sgmcmc_tpu_torch/selftest.py``); every profile is a
@@ -179,12 +199,14 @@ trainer's: its whole CLI run) and read just after.  Then one JSON line of
 kernel results (B3 and B4 once per radius: ``block_warp_fwd`` at R 2 with
 the dense paths' launches and phase 14's (``--model svffd`` at radius 2
 too), ``block_warp_fwd_r3`` at R 3 with phase 8's and 11's SVFFD
-paths'; the bf16 modes of B1/B2 with phase 11's launches; the z-halo modes
-of B5/B6 and the z-pad mode of B7 with phase 12's and 13(e)'s, those of
-B1-B4 with phase 13's, the bf16 z-halo modes of B1/B2 with 13(e)'s: no
-kernel may have 0),
-the ``nvidia-smi``
-name/power line, and the final status line.  Imports nothing of JAX.
+paths'; B5 and B6 once per radius: ``warp_bounded_fwd`` at R 1 with
+every path's but the anchored ``"blend"`` ones, ``warp_bounded_fwd_r2``
+with phase 15's anchored ``"blend"`` paths'; the bf16 modes of B1/B2
+with phase 11's launches; the z-halo modes of B5/B6 and the z-pad mode
+of B7 with phase 12's, 13(e)'s and 15(e)'s, those of B1-B4 with phase
+13's and 15(e)'s, the bf16 z-halo modes of B1/B2 with 13(e)'s: no kernel
+may have 0), the ``nvidia-smi`` name/power line, and the final status
+line.  Imports nothing of JAX.
 Exits non-zero, with no result, when CUDA is unavailable.  TF32 is off for
 matmuls and cuDNN.
 """
@@ -211,6 +233,8 @@ TIMED = 10
 SMALL = (64, 64, 64)
 SVFFD_CPS = 2  # experiment 5's config_SVFFD_2.json: a 67³ control grid at 128³
 SVFFD_RADIUS = 3  # configs/README.md, "SVFFD at high resolution"
+ANCHOR_RADIUS = 2  # the trainer's default anchor_radius (phase 15)
+ANCHOR_PERIOD = 5  # phase 15's re-anchoring period: twice in TIMED transitions
 
 
 def _smi() -> str:
@@ -250,14 +274,14 @@ def _err(out, ref, atol: float, rtol: float, name: str, **inputs) -> float:
     return float(diff.max())
 
 
-def _problem(dims, device, noise_scheme="post", cps=None, compute_dtype=None):
+def _problem(dims, device, noise_scheme="post", cps=None, compute_dtype=None, **svf):
     """``bench.py``'s model and pair (``ir_sgmcmc_tpu_torch.bench``), with its
     MCMC optimizers.  With ``cps``, the SVFFD model of phases 8 and 11:
     experiment 5's control grid of spacing ``cps`` and its Sobolev s 2
     (``configs/experiment5``) with block radius 3 (configs/README.md), on
     ``bench.py``'s likelihood and regulariser; not ``bench.py --model
-    svffd``'s model, which keeps s 3 and radius 2.  ``compute_dtype``: the
-    integrator's."""
+    svffd``'s model, which keeps s 3 and radius 2.  ``compute_dtype`` and
+    ``svf`` (``taylor_compositions``): the integrator's."""
     import dataclasses
 
     from ir_sgmcmc_tpu_torch.bench import make_bundle_and_pair
@@ -265,7 +289,7 @@ def _problem(dims, device, noise_scheme="post", cps=None, compute_dtype=None):
 
     bundle, fixed, moving = make_bundle_and_pair(
         noise_scheme, dims, "svf" if cps is None else "svffd", cps, device,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, **svf)
     if cps is not None:
         bundle = dataclasses.replace(bundle, sobolev_s=2, block_radius=SVFFD_RADIUS)
     opt_gmm = adam_decay(0.2, 1e-3)
@@ -777,11 +801,15 @@ def _field_dims(dims, cps):
     return tuple(dims) if cps is None else control_grid_size(dims, (cps,) * 3)
 
 
-def _reference_transition(device, cps=None, compute_dtype=None) -> dict:
+def _reference_transition(device, cps=None, compute_dtype=None, anchor_mode=None,
+                          **svf) -> dict:
     """One 64³ transition (tau 1e-5) on ``device`` from a fixed state and
     fixed noise, the GMM warm: ``σ²∇U`` read back from v_next (``q``), the
-    ulp floor of v' / tau, the loss terms and the counters, on the CPU."""
+    ulp floor of v' / tau, the loss terms and the counters, on the CPU.
+    ``anchor_mode``: anchored at ANCHOR_RADIUS, the chains anchored at the
+    state; ``svf``: the integrator's options."""
     from ir_sgmcmc_tpu_torch.engine import make_sgld_transition
+    from ir_sgmcmc_tpu_torch.engine.mcmc import make_chain_anchor
     from ir_sgmcmc_tpu_torch.models.sampler import langevin_noise
 
     tau = 1e-5
@@ -789,15 +817,18 @@ def _reference_transition(device, cps=None, compute_dtype=None) -> dict:
     eps = rng.standard_normal((CHAINS, 3) + _field_dims(SMALL, cps)).astype(np.float32)
     unif = rng.uniform(-0.1, 0.1, (CHAINS, 3) + SMALL).astype(np.float32)
     bundle, fixed, moving, opt_gmm, opt_reg = _problem(SMALL, device, cps=cps,
-                                                       compute_dtype=compute_dtype)
+                                                       compute_dtype=compute_dtype, **svf)
     state = _init(bundle, opt_gmm, opt_reg, torch.device("cpu"))
     gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params("cpu"), 1.0)
     gmm["logits"] = torch.tensor([0.3, -0.2, 0.1, -0.4])
     state = _to(state._replace(gmm={k: t.expand(CHAINS, -1).clone()
                                     for k, t in gmm.items()}), device)
     eps, unif = (torch.as_tensor(a, device=device) for a in (eps, unif))
-    tr = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving)
-    new, met = tr(state, 1.0, noise=(eps, unif))
+    tr = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
+                              anchor_radius=ANCHOR_RADIUS)
+    anchor = (None if anchor_mode is None
+              else make_chain_anchor(bundle, moving, anchor_mode)(state.v))
+    new, met = tr(state, 1.0, noise=(eps, unif), anchor=anchor)
     v_noised = state.v + langevin_noise(None, state.sigma, tau, eps)
     return {"q": ((v_noised - new.v) / tau).cpu(),
             "floor": 8 * float(torch.finfo(torch.float32).eps * v_noised.abs().max()) / tau,
@@ -806,9 +837,11 @@ def _reference_transition(device, cps=None, compute_dtype=None) -> dict:
                                          "ndv", "sat", "sat_resid")}}
 
 
-def phase_reference(dev, cps=None) -> None:
+def phase_reference(dev, cps=None, anchor_mode=None, **svf) -> None:
     """One 64³ transition with fixed noise: card (kernels) vs CPU (plain);
-    with ``cps``, of the SVFFD model (the state on its control grid).
+    with ``cps``, of the SVFFD model (the state on its control grid); with
+    ``anchor_mode``, anchored (phase 15(b)); ``svf``: the integrator's
+    options (phase 15(c): ``taylor_compositions``).
 
     The GMM starts as the trainer's warm-up leaves it (spread scales,
     unequal logits): with all components identical the logits gradient is
@@ -817,7 +850,8 @@ def phase_reference(dev, cps=None) -> None:
     σ²∇U (read back from v_next) within 1e-3 RMS of its RMS above the
     ulp floor of v' / tau, and no element off by 2% of its maximum.
     """
-    cpu, gpu = (_reference_transition(device, cps) for device in (torch.device("cpu"), dev))
+    cpu, gpu = (_reference_transition(device, cps, anchor_mode=anchor_mode, **svf)
+                for device in (torch.device("cpu"), dev))
     for k in ("ndv", "sat", "sat_resid"):
         if not torch.equal(cpu[k], gpu[k]):
             raise AssertionError(f"reference: {k} {gpu[k]} on the card, {cpu[k]} on the CPU")
@@ -830,20 +864,23 @@ def phase_reference(dev, cps=None) -> None:
     err = _err(gpu["q"], cpu["q"], cpu["floor"] + 2e-2 * float(cpu["q"].abs().max()),
                0.0, "reference σ²∇U")
     what = "" if cps is None else f" (SVFFD, cps {cps})"
+    what += "" if anchor_mode is None else f" (anchored, {anchor_mode} mode)"
+    what += "".join(f" ({k} {v})" for k, v in svf.items())
     print(f"reference: 64³ transition{what}, card vs CPU agree: loss terms within 1e-4, "
           f"σ²∇U RMS error {rms:.3e} (RMS {rms_q:.3e}), max abs err {err:.3e}",
           flush=True)
 
 
-def _vi_problem(dims, device, scheme="pre", cps=None, compute_dtype=None):
+def _vi_problem(dims, device, scheme="pre", cps=None, compute_dtype=None, **svf):
     """``bench.py:measure_vi`` (on the "pre" scheme unless given; with
-    ``cps``, the SVFFD model; ``compute_dtype`` the integrator's): the
-    bundle, images, the experiment-1 optimizers and the initial
-    ``VIState``."""
+    ``cps``, the SVFFD model; ``compute_dtype`` and ``svf`` the
+    integrator's): the bundle, images, the experiment-1 optimizers and the
+    initial ``VIState``."""
     from ir_sgmcmc_tpu_torch.engine import VIState
     from ir_sgmcmc_tpu_torch.optim import adam_decay
 
-    bundle, fixed, moving, _, opt_reg = _problem(dims, device, scheme, cps, compute_dtype)
+    bundle, fixed, moving, _, opt_reg = _problem(dims, device, scheme, cps, compute_dtype,
+                                                 **svf)
     opt_q_v = adam_decay({"mu": 0.01, "log_var": 0.01, "u": 0.01}, 1e-3)
     opt_gmm = adam_decay({"log_std": 0.2, "logits": 0.2}, 1e-3)
     q_v = bundle.init_q_v(0.5, 0.1, device)
@@ -996,9 +1033,10 @@ def _profile(run, state, steps: int, what: str) -> dict:
     return kinds
 
 
-def phase_vi_reference(dev, cps=None) -> None:
+def phase_vi_reference(dev, cps=None, **svf) -> None:
     """One 64³ VI step with fixed draws: card (kernels) vs CPU (plain); on
-    "pre", or with ``cps`` of the SVFFD model on "post" (the B3/B4 path).
+    "pre", or with ``cps`` of the SVFFD model on "post" (the B3/B4 path);
+    ``svf``: the integrator's options (phase 15(c)).
 
     The GMM starts warm (spread scales, unequal logits), as in phase 4.
     Tolerances as in tests/test_torch_vi.py: loss terms 1e-4 relative,
@@ -1023,7 +1061,8 @@ def phase_vi_reference(dev, cps=None) -> None:
         runs.append(("cpu64", cpu, torch.float64))
     results = {}
     for name, device, dtype in runs:
-        bundle, fixed, moving, (oq, og, orr), state = _vi_problem(SMALL, device, scheme, cps)
+        bundle, fixed, moving, (oq, og, orr), state = _vi_problem(SMALL, device, scheme, cps,
+                                                                  **svf)
         gmm = bundle.gmm.init_scales_from_residual_std(bundle.gmm.init_params("cpu"), 1.0)
         gmm["logits"] = torch.tensor([0.3, -0.2, 0.1, -0.4])
         state = _to(state._replace(gmm=gmm), device, dtype)
@@ -1055,6 +1094,7 @@ def phase_vi_reference(dev, cps=None) -> None:
         worst = max(worst, rms / rms_ref)
         floors[k] = (floor_rms / rms_ref, floor_max / float(ref.abs().max()))
     what = "" if cps is None else f" (SVFFD, cps {cps}, 'post')"
+    what += "".join(f" ({k} {v})" for k, v in svf.items())
     floor = "" if cps is None else (
         "; float32 vs float64 on the CPU (RMS, max, relative): "
         + ", ".join(f"{k} {r:.3e} {m:.3e}" for k, (r, m) in floors.items()))
@@ -1132,7 +1172,7 @@ SVFFD_OVERRIDES = ('data_loader;type="SyntheticDataLoader"',
 
 @contextlib.contextmanager
 def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=(),
-             not_launched=NOT_ON_F32_RUNS):
+             not_launched=NOT_ON_F32_RUNS, judge: bool = True):
     """The port's CLI in-process on ``config`` at 128³ (``TRAINER_OVERRIDES``
     and ``extra``; ``argv_extra``: more CLI arguments, such as
     ``--devices``), in a temporary save directory that lives as long as the
@@ -1141,7 +1181,9 @@ def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=(),
     device sync at its ends) and its launches counted by a wrapper that is
     removed after.  Every counter is set to 0 just before the run and read
     just after: the kernels of ``not_launched`` must read 0, every other
-    kernel more.  Yields ``{"summaries", "trainer", "wall_s", "launches",
+    kernel more.  ``judge``: no summary may report an MCMC abort, and every
+    Dice must be no worse than ``dsc_before`` less 0.05 (off: the caller
+    judges).  Yields ``{"summaries", "trainer", "wall_s", "launches",
     "phases", "peak_bytes", "run_dir"}``."""
     import tempfile
 
@@ -1205,7 +1247,7 @@ def _cli_run(tag: str, config: str, extra, phase_methods: dict, argv_extra=(),
             for obj, name, fn in saved:
                 setattr(obj, name, fn)
         t = seen[0]
-        for s in summaries:
+        for s in summaries if judge else ():
             if "mcmc_aborted" in s:
                 raise AssertionError(f"{tag}: MCMC aborted: {s['mcmc_aborted']}")
             for key in ("vi_test_mean_dsc", "mcmc_mean_dsc"):
@@ -2612,6 +2654,317 @@ def phase_bench_kernels(dev) -> list:
     return rows
 
 
+# ---- phase 15: anchored residual warping and the Taylor-form compositions -------------
+
+# launches per transition of anchored SG-MCMC on "post": the integration's 7
+# split compositions forward and backward, no block-gather warp (the
+# anchored image replaces it), and in the "blend" mode one bounded warp of
+# W0 at the anchor radius and its displacement gradient (W0 carries no
+# gradient: no B7); each re-anchoring integrates forward once more (B1 7)
+ANCHOR_PER_STEP = {
+    "taylor": {"split_warp_fwd": 7, "split_warp_bwd": 7},
+    "blend": {"split_warp_fwd": 7, "split_warp_bwd": 7, "warp_bounded_fwd": 1,
+              "warp_bounded_dgrad": 1}}
+ANCHOR_PER_ANCHOR = {"split_warp_fwd": 7}
+# the "taylor" compositions compose by plain stencils: on "post" one
+# block-gather warp per transition (B3 1, B4 1), on "pre" the image's
+# grouped cascade, K = 8 radius-1 warps at e = 4, and the noise warp (B5 9;
+# their backward B6 8, B7 8), as VI_PER_STEP's but no B1
+TAYLOR_POST = {"block_warp_fwd": 1, "block_warp_dgrad": 1}
+TAYLOR_PRE = {"warp_bounded_fwd": 9, "warp_bounded_dgrad": 8, "warp_bounded_tblend": 8}
+
+
+def _expected(per_step: dict, steps: int, anchors: int = 0, per_anchor=None,
+              per_shard: int = 1, zhalo: bool = False) -> dict:
+    """Every kernel's launches in ``steps`` steps with ``anchors``
+    re-anchorings (``per_anchor`` each), on each of ``per_shard`` shards,
+    in the z-halo modes when ``zhalo``; every kernel not named: 0."""
+    from ir_sgmcmc_tpu_torch.kernels import all_kernels
+
+    zmode = {v: k for k, v in _DEFAULT_MODE.items()}
+    out = {k.symbol: 0 for k in all_kernels()}
+    for table, n in ((per_step, steps), (per_anchor or {}, anchors)):
+        for sym, count in table.items():
+            out[zmode[sym] if zhalo else sym] += count * n * per_shard
+    return out
+
+
+def _check_launches(launches: dict, expected: dict, what: str) -> None:
+    bad = {k: (launches[k], n) for k, n in expected.items() if launches[k] != n}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}")
+
+
+def phase_anchor_kernels(dev) -> list:
+    """B5 and B6 at the anchored "blend" path's shape, ``(2, 1, 128³)`` at
+    the anchor radius 2, against their plain versions at phase 2's
+    tolerance, timed, bounded and held to their library calls (B6's away
+    from ties)."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import warp_bounded as wb
+
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    atol, rtol = st.TOL[wb.B5.symbol]
+    shape, R = (CHAINS, 1) + DIMS, ANCHOR_RADIUS
+    vol, disp, g = st.bounded_operands(gen, shape, R)
+    calls = {wb.B5: (lambda: wb.warp_bounded_fwd_cuda(vol, disp, R),
+                     lambda: wb.warp_bounded_plain(vol, disp, R)),
+             wb.B6: (lambda: wb.warp_bounded_dgrad_cuda(vol, disp, g, R),
+                     lambda: wb.warp_bounded_dgrad_plain(vol, disp, g, R))}
+    at = disp.clamp(-R, R)
+    grid = _grid(at)
+    library = {wb.B5: (lambda: _grid_sample(vol, grid), None),
+               wb.B6: (lambda: _grid_grad_voxels(
+                   _grid_sample_grads(g, vol, grid, [False, True])[1]), _off_ties(at))}
+    rows = []
+    for k, (kern, plain) in calls.items():
+        err = _err(kern(), plain(), atol, rtol, f"{k.symbol} {shape} R {R}",
+                   disp=disp if k is wb.B6 else torch.zeros(0))
+        lib = _library_ms(k.symbol, library[k][0], kern(), library[k][1])
+        rows.append(_row(k, shape, err, atol, rtol, _time_ms(kern), _time_ms(plain), lib, R))
+    _print_rows(rows)
+    return rows
+
+
+def phase_anchor(dev, slice_rate: float) -> tuple:
+    """15(a): anchored SG-MCMC at 128³ x 2 chains on "post" (the bench
+    model), in each mode, re-anchored every ANCHOR_PERIOD transitions: one
+    warm-up and TIMED transitions, the launches of ``ANCHOR_PER_STEP`` per
+    transition and ``ANCHOR_PER_ANCHOR`` per re-anchoring asserted (every
+    other kernel 0), finite data terms and chain states, ``sat_resid``
+    reported; the rate beside phase 3's unanchored ``slice_rate``, the peak
+    memory.  Returns ``(paths, record)``."""
+    from ir_sgmcmc_tpu_torch.engine import make_mcmc_chunk
+
+    paths, record = {}, {}
+    for mode in ("taylor", "blend"):
+        bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev)
+
+        def chunk(k):
+            return make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed, moving, chunk=k,
+                                   burn_in=0, thin=1, anchored=True,
+                                   anchor_radius=ANCHOR_RADIUS, anchor_mode=mode,
+                                   anchor_period=ANCHOR_PERIOD)
+
+        state, _ = chunk(1)(_init(bundle, opt_gmm, opt_reg, dev))
+        state, metrics, seconds, launches, peak = _timed_run(chunk(TIMED), state, TIMED,
+                                                             f"anchor {mode}", {})
+        anchors = -(-TIMED // ANCHOR_PERIOD)
+        _check_launches(launches, _expected(ANCHOR_PER_STEP[mode], TIMED, anchors,
+                                            ANCHOR_PER_ANCHOR), f"anchor {mode}")
+        for name in ("data_term", "reg_term", "vd_alpha"):
+            if not torch.isfinite(metrics[name]).all():
+                raise AssertionError(f"anchor {mode}: non-finite {name}: {metrics[name]}")
+        if not torch.isfinite(state.v).all():
+            raise AssertionError(f"anchor {mode}: non-finite chain state")
+        sat_resid = metrics["sat_resid"]
+        if sat_resid.shape != (TIMED, CHAINS) or bool((sat_resid < 0).any()):
+            raise AssertionError(f"anchor {mode}: sat_resid {sat_resid}")
+        rate = CHAINS * TIMED / seconds
+        record[mode] = {"samples_per_sec": rate, "unanchored_samples_per_sec": slice_rate,
+                        "peak_bytes": peak, "anchors": anchors,
+                        "launches": {k: n for k, n in launches.items() if n},
+                        "last": {k: metrics[k][-1].tolist() for k in
+                                 ("data_term", "reg_term", "ndv", "sat", "sat_resid")}}
+        paths[f"anchor_{mode}"] = launches
+        print(f"anchor: {mode} mode, period {ANCHOR_PERIOD}, radius {ANCHOR_RADIUS}: "
+              f"{rate:.3f} samples/sec ({CHAINS} chains x {TIMED} transitions in "
+              f"{seconds:.3f} s) against {slice_rate:.3f} unanchored (phase 3; "
+              f"{rate / slice_rate:.3f}x), peak {peak / 2**30:.3f} GiB, sat_resid "
+              f"{sat_resid[-1].tolist()}", flush=True)
+    return paths, record
+
+
+def phase_taylor(dev) -> tuple:
+    """15(c): ``taylor_compositions: "taylor"`` at 128³ on the bench model (e
+    4, K 8): one warm-up and TIMED transitions on "post" (``TAYLOR_POST``
+    launches per transition, every other kernel 0) and GMM warm-up, one
+    warm-up and TIMED VI steps on "pre" (``TAYLOR_PRE``); finite losses,
+    rates and peaks.  Returns ``(paths, record)``."""
+    from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_mcmc_chunk, make_vi_chunk, make_vi_step
+
+    svf = {"taylor_compositions": "taylor"}
+    bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev, **svf)
+    tr = bundle.transformation
+    if (tr.composition_form, tr.no_compositions, tr.no_image_compositions) != ("taylor", 16, 8):
+        raise AssertionError(f"taylor: plan {tr.composition_form} N {tr.no_compositions} "
+                             f"K {tr.no_image_compositions}")
+
+    def chunk(k):
+        return make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed, moving, chunk=k,
+                               burn_in=0, thin=1)
+
+    state, _ = chunk(1)(_init(bundle, opt_gmm, opt_reg, dev))
+    state, metrics, seconds, mcmc_launches, peak = _timed_run(chunk(TIMED), state, TIMED,
+                                                              "taylor mcmc", {})
+    _check_launches(mcmc_launches, _expected(TAYLOR_POST, TIMED), "taylor mcmc")
+    vb, vfixed, vmoving, (oq, og, orr), vstate = _vi_problem(DIMS, dev, "pre", **svf)
+    step = make_vi_step(vb, oq, og, orr, vfixed, vmoving)
+    vstate, _ = make_vi_chunk(step, 1)(gmm_warmup(vb, og, vstate, vfixed, vmoving))
+    vstate, vmetrics, vseconds, vi_launches, vpeak = _timed_run(
+        make_vi_chunk(step, TIMED), vstate, TIMED, "taylor vi", {})
+    _check_launches(vi_launches, _expected(TAYLOR_PRE, TIMED), "taylor vi")
+    for name, m in (("data_term", metrics), ("reg_term", metrics), ("total_loss", vmetrics)):
+        if not torch.isfinite(m[name]).all():
+            raise AssertionError(f"taylor: non-finite {name}: {m[name]}")
+    record = {"mcmc_samples_per_sec": CHAINS * TIMED / seconds, "mcmc_peak_bytes": peak,
+              "vi_iters_per_sec": TIMED / vseconds, "vi_peak_bytes": vpeak,
+              "mcmc_last": {k: metrics[k][-1].tolist() for k in ("data_term", "ndv", "sat")},
+              "vi_last": {k: vmetrics[k][-1].tolist() for k in ("total_loss", "ndv", "sat")}}
+    print(f"taylor: 'taylor' compositions at {DIMS}: MCMC ('post') "
+          f"{record['mcmc_samples_per_sec']:.3f} samples/sec, peak {peak / 2**30:.3f} GiB; VI "
+          f"('pre') {record['vi_iters_per_sec']:.3f} iters/sec, peak {vpeak / 2**30:.3f} GiB",
+          flush=True)
+    return {"taylor_mcmc": mcmc_launches, "taylor_vi": vi_launches}, record
+
+
+def phase_anchor_trainer(dev) -> tuple:
+    """15(d): the demo config through the CLI in-process at 128³ with
+    ``mcmc_anchor: true``, phase 7's cuts: no crash, the one-device summary
+    keys, and a saturation warning or abort, where one comes, naming
+    ``anchor_radius``.  Dice is printed, not held (anchored MCMC is a
+    negative result of the JAX package).  Returns ``(paths, record)``."""
+    import logging
+
+    class Seen(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, rec):
+            self.messages.append(rec.getMessage())
+
+    seen = Seen()
+    log = logging.getLogger()  # the trainer's logger propagates here (its own handlers
+    log.addHandler(seen)       # are replaced when the CLI builds its config)
+    methods = {"VI": "_run_vi_phase", "VI test": "_test_vi", "MCMC": "_run_mcmc_phase"}
+    try:
+        with _cli_run("anchor_trainer", "configs/demo/config_synthetic.json",
+                      ("trainer;mcmc_anchor=true",), methods, judge=False) as r:
+            s, t = r["summaries"][0], r["trainer"]
+    finally:
+        log.removeHandler(seen)
+    if not t.mcmc_anchor:
+        raise AssertionError("anchor_trainer: mcmc_anchor is off")
+    keys = ["pair", "dsc_before", "vi_time_s", "vi_test_mean_dsc", "vi_samples_per_sec",
+            "mcmc_time_s"] + (["mcmc_aborted"] if "mcmc_aborted" in s
+                              else ["mcmc_mean_dsc", "mcmc_samples_per_sec"])
+    missing = [k for k in keys if k not in s]
+    if missing:
+        raise AssertionError(f"anchor_trainer: summary {s} lacks {missing}")
+    sat = [m for m in seen.messages + [s.get("mcmc_aborted", "")]
+           if "saturates" in m and m.startswith("MCMC")]
+    if any("anchor_radius" not in m for m in sat):
+        raise AssertionError(f"anchor_trainer: a saturation message without anchor_radius: "
+                             f"{sat}")
+    record = {"summary": s, "wall_s": r["wall_s"], "saturation_messages": sat,
+              "phase_s": {name: p["s"] for name, p in r["phases"].items()},
+              "peak_bytes": r["peak_bytes"]}
+    print(f"anchor_trainer: {json.dumps(record, default=float)}", flush=True)
+    return {"anchor_trainer": r["launches"]}, record
+
+
+# 15(e): (option, scheme, the problem's integrator options, anchor mode or
+# None, the sharded step's launches per step, per re-anchoring) on each shard
+ANCHOR_SPATIAL = (
+    ("anchor_taylor", "post", {}, "taylor", ANCHOR_PER_STEP["taylor"], ANCHOR_PER_ANCHOR),
+    ("anchor_blend", "post", {}, "blend", ANCHOR_PER_STEP["blend"], ANCHOR_PER_ANCHOR),
+    ("taylor_post", "post", {"taylor_compositions": "taylor"}, None, TAYLOR_POST, {}),
+    ("taylor_pre", "pre", {"taylor_compositions": "taylor"}, None, TAYLOR_PRE, {}),
+)
+
+
+def phase_anchor_spatial(devices, tag: str = "anchor_spatial") -> tuple:
+    """15(e): phase 13(e)'s pattern for anchored MCMC (both modes) and the
+    "taylor" compositions (MCMC on "post", VI on "pre") at 128³ on
+    ``devices`` (virtual shards) against the unsharded step on the first:
+    one warm-up and TIMED steps each, the launches asserted on both (the
+    sharded ones per shard in the z-halo modes, with each row's
+    re-anchorings), the checks of 13(a)-(b), both rates and each card's
+    peak.  Returns ``(paths, record)``."""
+    from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_mcmc_chunk, make_vi_chunk, make_vi_step
+    from ir_sgmcmc_tpu_torch.parallel import (gather, make_mesh, shard_images_spatial,
+                                              shard_state_spatial, shard_tree_spatial)
+
+    dev, n, depth = devices[0], len(devices), DIMS[0]
+    record, paths = {}, {}
+    for option, scheme, svf, mode, per_step, per_anchor in ANCHOR_SPATIAL:
+        what = f"{tag} {option}"
+        anchors = 0 if mode is None else -(-TIMED // ANCHOR_PERIOD)
+        plain_exp = _expected(per_step, TIMED, anchors, per_anchor)
+        sharded_exp = _expected(per_step, TIMED, anchors, per_anchor, n, zhalo=True)
+        if scheme == "post":
+            mesh = make_mesh((1, n), axes=("chain", "space"), devices=devices)
+            bundle, fixed, moving, opt_gmm, opt_reg = _problem(DIMS, dev, scheme, **svf)
+            fixed_s, moving_s = (shard_images_spatial(x, mesh, depth) for x in (fixed, moving))
+            kw = ({} if mode is None else
+                  dict(anchored=True, anchor_radius=ANCHOR_RADIUS, anchor_mode=mode,
+                       anchor_period=ANCHOR_PERIOD))
+
+            def chunk(k, sharded=False):
+                return make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5,
+                                       fixed_s if sharded else fixed,
+                                       moving_s if sharded else moving, chunk=k, burn_in=0,
+                                       thin=1, **kw)
+
+            state, _ = chunk(1)(_init(bundle, opt_gmm, opt_reg, dev))
+            shards = shard_state_spatial(state, mesh, CHAINS, depth)
+            chunk(1, True)(shards)  # warm-up of the sharded path (dropped)
+            plain, m_plain, t_plain, plain_launches, peak_plain = _timed_on(
+                [dev], chunk(TIMED), state, TIMED, f"{what} unsharded", {})
+            out, m_sh, t_sh, launches, peak_sh = _timed_on(
+                devices, chunk(TIMED, True), shards, TIMED, f"{what} sharded", {})
+            whole = gather(out)
+            checks = _close(what, {
+                "v": (whole.v, plain.v), "welford mean": (whole.welford.mean, plain.welford.mean),
+                "data_term": (m_sh["data_term"], m_plain["data_term"])})
+            for k in ("sat", "sat_resid"):
+                if not torch.equal(m_sh[k], m_plain[k]):
+                    raise AssertionError(f"{what}: {k} {m_sh[k]} sharded, {m_plain[k]} not")
+            rates = {"unsharded": CHAINS * TIMED / t_plain, "sharded": CHAINS * TIMED / t_sh}
+            unit = "samples/sec"
+        else:
+            vmesh = make_mesh((n,), axes=("space",), devices=devices)
+            vb, vfixed, vmoving, (oq, og, orr), vstate = _vi_problem(DIMS, dev, scheme, **svf)
+            step = make_vi_step(vb, oq, og, orr, vfixed, vmoving)
+            step_s = make_vi_step(vb, oq, og, orr, *(shard_images_spatial(x, vmesh, depth)
+                                                    for x in (vfixed, vmoving)))
+            vstate, _ = make_vi_chunk(step, 1)(gmm_warmup(vb, og, vstate, vfixed, vmoving))
+            vshards = shard_tree_spatial(vstate, vmesh, depth)
+            make_vi_chunk(step_s, 1)(vshards)  # warm-up, dropped
+            _, m_plain, t_plain, plain_launches, peak_plain = _timed_on(
+                [dev], make_vi_chunk(step, TIMED), vstate, TIMED, f"{what} unsharded", {})
+            _, m_sh, t_sh, launches, peak_sh = _timed_on(
+                devices, make_vi_chunk(step_s, TIMED), vshards, TIMED, f"{what} sharded", {})
+            m_u = make_vi_chunk(step, 1)(vstate)[0].opt_q_v.mu
+            m_s = gather(make_vi_chunk(step_s, 1)(vshards)[0]).opt_q_v.mu
+            checks = {}
+            for name in ("mu", "log_var", "u"):
+                scale = float(m_u[name].abs().max())
+                checks[f"first moment {name}"] = {
+                    "max_abs_err": _err(m_s[name], m_u[name], VI_MOMENT_REL * scale, 0.0,
+                                        f"{what} first moment {name}"),
+                    "bitwise": torch.equal(m_s[name], m_u[name]), "max_abs": scale}
+            checks["total_loss"] = {
+                "max_abs_err": _err(m_sh["total_loss"], m_plain["total_loss"], 0.0, 1e-4,
+                                    f"{what} total_loss"),
+                "bitwise": torch.equal(m_sh["total_loss"], m_plain["total_loss"])}
+            rates = {"unsharded": TIMED / t_plain, "sharded": TIMED / t_sh}
+            unit = "iters/sec"
+        _check_launches(plain_launches, plain_exp, f"{what} unsharded")
+        _check_launches(launches, sharded_exp, f"{what} sharded")
+        record[option] = {"checks": checks, unit.replace("/", "_per_"): rates,
+                          "peak_bytes": {"unsharded": peak_plain, "sharded_per_card": peak_sh},
+                          "launches": {k: v for k, v in launches.items() if v}}
+        paths[f"{tag}_{option}"] = launches
+        print(f"{what}: over {n} shards {rates['sharded']:.3f} {unit} against "
+              f"{rates['unsharded']:.3f} unsharded ({rates['sharded'] / rates['unsharded']:.3f}x);"
+              f" peak {max(peak_sh.values()) / 2**30:.3f} GiB per card, unsharded "
+              f"{max(peak_plain.values()) / 2**30:.3f} GiB", flush=True)
+        _sync_all()
+    return paths, record
+
+
 def _to_tree(x, device, dtype=None):
     """Tensors of a nested dict / named tuple on ``device``; floating ones
     also cast to ``dtype`` when given."""
@@ -2658,7 +3011,7 @@ def main() -> int:
         print(f"ptxas: {ln}", flush=True)
 
     rows = (phase_kernels(dev) + phase_blend_kernels(dev) + phase_zhalo_kernels(dev)
-            + phase_spatial_kernels(dev))
+            + phase_spatial_kernels(dev) + phase_anchor_kernels(dev))
     paths = {}
     paths["mcmc"], slice_rate = phase_slice(dev)
     phase_reference(dev)
@@ -2705,17 +3058,40 @@ def main() -> int:
     phase_bench_canonical(dev)
     phase_bench_kernels(dev)
     paths.update(phase_bench(dev))
+    t15, p15 = time.perf_counter(), {}
+    anchor_paths, p15["anchor"] = phase_anchor(dev, slice_rate)
+    paths.update(anchor_paths)
+    for mode in ("taylor", "blend"):
+        phase_reference(dev, anchor_mode=mode)
+    taylor_paths, p15["taylor"] = phase_taylor(dev)
+    paths.update(taylor_paths)
+    phase_reference(dev, taylor_compositions="taylor")
+    phase_vi_reference(dev, taylor_compositions="taylor")
+    trainer_paths, p15["anchor_trainer"] = phase_anchor_trainer(dev)
+    paths.update(trainer_paths)
+    spatial_paths, p15["spatial"] = phase_anchor_spatial([dev] * SPATIAL_SHARDS)
+    paths.update(spatial_paths)
+    p15["wall_s"] = time.perf_counter() - t15
+    print(f"phase_15: {json.dumps(p15, default=float)}", flush=True)
 
     kernels = []
     for r in rows:
         k = r["kernel"]
         bound, by = _bound(r)
         # B3/B4 have a row per radius: R 3 counts the SVFFD paths' launches
-        # (block radius 3), R 2 the others'; every other kernel every path's
+        # (block radius 3), R 2 the others'; B5/B6 too: R 2 counts the
+        # anchored "blend" paths' (the anchor radius), R 1 the others'; every
+        # other kernel every path's
         per_radius = r["radius"] is not None and not k.z_halo
-        on = [p for name, p in paths.items()
-              if not per_radius or (r["radius"] == SVFFD_RADIUS) == name.startswith("svffd")]
-        name = k.symbol if not per_radius or r["radius"] == 2 else f"{k.symbol}_r{r['radius']}"
+        if k.symbol in ("warp_bounded_fwd", "warp_bounded_dgrad"):
+            anchored = r["radius"] == ANCHOR_RADIUS
+            on = [p for name, p in paths.items() if ("anchor_blend" in name) == anchored]
+            name = f"{k.symbol}_r{ANCHOR_RADIUS}" if anchored else k.symbol
+        else:
+            on = [p for name, p in paths.items()
+                  if not per_radius or (r["radius"] == SVFFD_RADIUS) == name.startswith("svffd")]
+            name = (k.symbol if not per_radius or r["radius"] == 2
+                    else f"{k.symbol}_r{r['radius']}")
         kernels.append({"name": name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces,
                         "launches": sum(p[k.symbol] for p in on),

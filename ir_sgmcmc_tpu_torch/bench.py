@@ -40,9 +40,12 @@ Not ported: ``bench.py``'s Pallas fallback (a kernel that fails to build
 or launch ends the run non-zero), its ``vi_error`` tag (a failed VI phase
 ends the canonical run non-zero), its VI sidecar ``.bench_vi_cache.json``
 and its JAX compilation cache (the port's cold start is the ``nvcc`` build,
-reported as ``build_s``); ``--anchor`` raises ``NotImplementedError`` by
-the port's rules, as ``--taylor-compositions on`` does, and ``--unroll``
-(JAX's scan unroll) is accepted and has no effect.
+reported as ``build_s``); ``--unroll`` (JAX's scan unroll) is accepted and
+has no effect.  ``--anchor`` (with ``--anchor-radius``) runs the MCMC
+chunks with anchored residual warping, as ``bench.py`` does (the JAX
+engine's defaults: the ``"taylor"`` mode, re-anchored every 25 transitions,
+so once per chunk); ``--taylor-compositions on`` integrates with the pure
+Taylor compositions.  Both are kept for the record, as in the JAX package.
 
 Every stage is stamped to stderr with its elapsed time, a 30 s heartbeat
 repeats the current one, and ``--budget SECONDS`` (default 1500 or
@@ -267,10 +270,11 @@ def _capture_trace(trace_dir: str, run, state, device) -> None:
 
 
 def measure_mcmc(device, trace_dir: str | None = None, noise_scheme="post", dims=None,
-                 chains=None, model="svf", cps=2, **svf_kwargs) -> dict:
+                 chains=None, model="svf", cps=2, anchored=False, anchor_radius=2,
+                 **svf_kwargs) -> dict:
     """``bench.py``'s ``measure_tpu``: 2 chains from noise (seed 0) through
     ``init_chains`` -> ``make_mcmc_chunk`` (tau 1e-5, chunks of
-    ``TIMED_STEPS``)."""
+    ``TIMED_STEPS``; ``anchored`` at ``anchor_radius``)."""
     from .engine import init_chains, make_mcmc_chunk
     from .optim import adam_decay
 
@@ -284,7 +288,7 @@ def measure_mcmc(device, trace_dir: str | None = None, noise_scheme="post", dims
                         "noise", None, bundle.gmm.init_params(device),
                         bundle.reg_loss.init_params(device), opt_gmm, opt_reg, device=device)
     timed = make_mcmc_chunk(bundle, opt_gmm, opt_reg, 1e-5, fixed, moving, chunk=TIMED_STEPS,
-                            burn_in=0, thin=1)
+                            burn_in=0, thin=1, anchored=anchored, anchor_radius=anchor_radius)
     state, stats = _timed_chunks(timed, state, device, TIMED_STEPS, "")
     stats["samples_per_sec"] = chains * TIMED_STEPS / stats.pop("mean_s")
     stats["_trace"] = ((lambda: _capture_trace(trace_dir, timed, state, device))
@@ -340,7 +344,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--taylor-compositions", choices=["on", "off", "split"], default=None,
                         help="composition-phase step: 'split' = dimensionally-split per-axis "
                              "lerps (B1/B2), 'off' = radius-1 warp kernels (B5-B7), 'on' = "
-                             "pure Taylor stencils (not ported: raises); default: 'split'")
+                             "pure Taylor stencils (unstable end-to-end, kept for the "
+                             "record); default: 'split'")
     parser.add_argument("--use-gather", action="store_true")
     parser.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
                         help="squaring-phase compute dtype (SVF3D compute_dtype; default f32)")
@@ -348,7 +353,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="'post' = reference-exact transformation noise (single-warp "
                              "image path, the block-gather warp)")
     parser.add_argument("--anchor", action="store_true",
-                        help="anchored residual warping: not ported (raises)")
+                        help="with --noise-scheme post: experimental anchored residual "
+                             "warping in the MCMC chunks (a known quality regression)")
     parser.add_argument("--anchor-radius", type=int, default=2)
     parser.add_argument("--chains", type=int, default=None, help="chain count (default 2)")
     parser.add_argument("--model", choices=["svf", "svffd"], default="svf",
@@ -393,9 +399,6 @@ def _emit(line: dict) -> dict:
 def main(argv=None) -> dict:
     """Run the benchmark; prints its JSON line and returns it."""
     args = _parser().parse_args(argv)
-    if args.anchor:
-        raise NotImplementedError("--anchor (anchored residual warping) is not ported "
-                                  "(ROADMAP 'Rules of the port', Not ported)")
     device = resolve_device(args.device)
     _T0[0] = time.monotonic()
     _DEADLINE[0] = _T0[0] + args.budget
@@ -447,6 +450,7 @@ def main(argv=None) -> dict:
         # non-canonical scale: no torch anchor, the raw device throughput
         mc = measure_mcmc(device, trace_dir=args.trace, noise_scheme=args.noise_scheme,
                           dims=dims, chains=args.chains, model=args.model, cps=args.cps,
+                          anchored=args.anchor, anchor_radius=args.anchor_radius,
                           **svf_kwargs)
         trace = mc.pop("_trace")
         line = _emit({
@@ -471,7 +475,8 @@ def main(argv=None) -> dict:
                f"the line omits vs_baseline and baseline_*; --refresh-baseline measures it "
                f"(about 7 minutes of CPU at 128³)")
     mc = measure_mcmc(device, trace_dir=args.trace, noise_scheme=args.noise_scheme,
-                      chains=args.chains, **svf_kwargs)
+                      chains=args.chains, anchored=args.anchor,
+                      anchor_radius=args.anchor_radius, **svf_kwargs)
     trace = mc.pop("_trace")
     vi_fields, vi = {}, None
     if _remaining() > 240:

@@ -30,6 +30,9 @@ from ..parallel.mesh import Sharded, gather, run_in_turns
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
+from ..ops.grids import inv_jacobian
+from ..ops.resample import grid_sample
+from ..ops.stencil import gradient
 from ..optim.adam_decay import AdamDecayState, apply_updates
 from .bundle import ModelBundle
 from .vi import forward_sample, gmm_adam_step, key_generator, vd_alpha
@@ -190,11 +193,39 @@ def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor | None,
     return reg, log_y, prior, per_set
 
 
+def make_chain_anchor(bundle: ModelBundle, moving: dict, anchor_mode: str = "taylor"):
+    """``anchor(v) -> dict``: the chains' anchor for anchored residual
+    warping (JAX ``make_chain_anchor``), made once per re-anchoring block
+    from the chains' unsmoothed ``v (C, 3, *field_dims)``, with no gradient:
+    ``W0 = moving ∘ T0`` (``grid_sample``) ``(C, D, H, W)``, the
+    displacement ``d0 (C, 3, D, H, W)``, the frame map ``Jinv = (I +
+    ∇d0)⁻¹`` clipped to ±3 ``(C, 3, 3, D, H, W)`` (a near-folded anchor
+    voxel would otherwise put ~1/det factors into the residual map), and in
+    the ``"taylor"`` mode ``GW0 = ∇W0 (C, 3, D, H, W)``.  The integration
+    runs forward only (kernels B1 on the main path)."""
+    if anchor_mode not in ("taylor", "blend"):
+        raise ValueError(f"anchor_mode must be 'taylor' or 'blend', got {anchor_mode!r}")
+
+    def anchor(v_unsmoothed: torch.Tensor) -> dict:
+        with torch.no_grad():
+            v = bundle.smooth(v_unsmoothed)
+            transformation, d0, _ = bundle.transformation.integrate(v)
+            w0 = grid_sample(moving["im"], transformation)
+            eye = torch.eye(3, dtype=d0.dtype, device=d0.device).reshape(3, 3, 1, 1, 1)
+            out = {"W0": w0, "d0": d0,
+                   "Jinv": torch.clamp(inv_jacobian(eye + gradient(d0)), -3.0, 3.0)}
+            if anchor_mode == "taylor":
+                out["GW0"] = gradient(w0.unsqueeze(-4))[:, 0]
+        return out
+
+    return anchor
+
+
 def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
                          fixed: dict, moving: dict, param_mode: str = "per_chain",
-                         per_row: bool = False):
-    """Build ``transition(state, collect_weight, noise=None) -> (state,
-    metrics)`` over all chains of ``state``.
+                         per_row: bool = False, anchor_radius: int = 2):
+    """Build ``transition(state, collect_weight, noise=None, anchor=None) ->
+    (state, metrics)`` over all chains of ``state``.
 
     ``noise``: optional ``(eps, unif)`` — the standard-normal Langevin draw
     ``(C, 3, *field_dims)`` and the ``U(-alpha, alpha)`` voxel noise ``(C, 3,
@@ -208,16 +239,21 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     ``per_row``: the images of ``fixed`` and ``moving`` are ``(C, D, H,
     W)``, one per chain (the folded pairs of ``engine/pairs.py``), not one
     ``(D, H, W)`` pair shared by the chains.
+
+    ``anchor``: the chains' anchor (:func:`make_chain_anchor`); the image
+    warp is then the anchored residual warp at ``anchor_radius``
+    (``engine.vi.forward_sample``).
     """
     if param_mode not in ("per_chain", "shared"):
         raise ValueError(f"unknown MCMC_params: {param_mode!r}")
     shared = param_mode == "shared"
     mask = fixed["mask"]
 
-    def potential(v_noised, reg_p, gmm, opt_gmm_state, unif):
+    def potential(v_noised, reg_p, gmm, opt_gmm_state, unif, anchor):
         # the forward chain does not read the GMM, so it runs as one batch
         # over the chains in either mode
-        out = forward_sample(bundle, fixed, moving, v_noised, unif, per_row=per_row)
+        out = forward_sample(bundle, fixed, moving, v_noised, unif, anchor=anchor,
+                             per_row=per_row, anchor_radius=anchor_radius)
         res = out["residuals"]
         if shared:
             # one GMM, C sequential detached Adam steps: chain c's data term
@@ -251,7 +287,7 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
 
     learnable_reg = bundle.reg_loss.learnable and len(bundle.reg_loss.param_names) > 0
 
-    def transition(state: MCMCState, collect_weight: float, noise=None):
+    def transition(state: MCMCState, collect_weight: float, noise=None, anchor=None):
         if noise is None:
             noise = _chain_noise(state, bundle.uniform_noise_alpha, bundle.dims)
         eps, unif = noise
@@ -261,7 +297,7 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
             reg_keys = list(state.reg)
             reg_p = {k: state.reg[k].detach().requires_grad_(learnable_reg)
                      for k in reg_keys}
-            loss, aux = potential(v_noised, reg_p, state.gmm, state.opt_gmm, unif)
+            loss, aux = potential(v_noised, reg_p, state.gmm, state.opt_gmm, unif, anchor)
             wrt = [v_noised] + ([reg_p[k] for k in reg_keys] if learnable_reg else [])
             grads = torch.autograd.grad(loss.sum(), wrt)
         g_v = grads[0]
@@ -307,13 +343,26 @@ def make_sgld_transition_shared(bundle: ModelBundle, opt_gmm, opt_reg, tau: floa
 def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
                     fixed: dict, moving: dict, chunk: int, burn_in: int,
                     thin: int, param_mode: str = "per_chain", per_row: bool = False,
-                    chain_mesh=None):
-    """``run(state) -> (state, metrics)``: ``chunk`` SGLD transitions over all
-    chains as a Python loop; metrics are stacked ``(chunk, C, …)``.
+                    chain_mesh=None, anchored: bool = False, anchor_radius: int = 2,
+                    anchor_mode: str = "taylor", anchor_period: int = 25):
+    """``run(state, noise=None) -> (state, metrics)``: ``chunk`` SGLD
+    transitions over all chains as a Python loop; metrics are stacked
+    ``(chunk, C, …)``.  ``noise``: ``chunk`` ``(eps, unif)`` draws (see
+    :func:`make_sgld_transition`) in place of the chains' own.
 
     Thinned displacement samples feed the per-chain Welford accumulators
     once past ``burn_in`` (every ``thin`` steps).  ``param_mode`` and
     ``per_row``: see :func:`make_sgld_transition`.
+
+    ``anchored``: anchored residual warping (``trainer.mcmc_anchor``, off
+    by default; the JAX package records it as a negative result).  Every
+    ``min(max(anchor_period, 1), chunk)`` transitions from the chunk's start,
+    the chains are re-anchored (:func:`make_chain_anchor` in ``anchor_mode``)
+    and the transitions warp the anchored image by the residual at
+    ``anchor_radius``; a chunk the period does not divide ends with a shorter
+    block.  Off, silently, as in the JAX package, under ``param_mode
+    "shared"``, the ``"pre"`` scheme, a model without ``integrate`` and
+    ``use_gather``: those chunks run the per-step exact warp.
 
     ``chain_mesh``: a ``('chain',)`` mesh (``parallel.make_mesh``); ``run``
     then takes and returns a chain-sharded state
@@ -325,7 +374,7 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     step), so the chains follow the trajectories of the unsharded run.  The
     metrics come back gathered on the mesh's first device.  Per-chain
     parameter sets only, as in the JAX engine (a shared set steps every
-    chain in turn).
+    chain in turn); each device anchors its own chains.
 
     Spatially sharded (``fixed`` and ``moving`` placed by
     ``parallel.shard_images_spatial`` over a ``('chain', 'space')`` mesh):
@@ -334,7 +383,15 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
     axis running its chains' transition cut along D over its devices
     (``parallel/spatial.py``; per-chain sets, every option of the dense ``SVF3D``).
     ``noise``: ``chunk`` whole ``(eps, unif)`` draws over all chains.
+    Each row anchors its own chains.
     """
+    tr = bundle.transformation
+    anchored = (bool(anchored) and param_mode != "shared" and bundle.noise_scheme == "post"
+                and hasattr(tr, "integrate") and not getattr(tr, "use_gather", False))
+    if anchored and per_row:
+        raise ValueError("an anchored chunk takes one image pair (the trainer registers "
+                         "the pairs of an anchored run in turn)")
+    period = min(max(int(anchor_period), 1), chunk)
     if isinstance(fixed, Sharded):
         from ..parallel.spatial import make_mcmc_chunk_sharded
 
@@ -342,12 +399,16 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
             raise ValueError("a spatially sharded chunk takes per-chain sets, one image pair "
                              "and no chain_mesh")
         return make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau, fixed, moving, chunk,
-                                       burn_in, thin)
+                                       burn_in, thin, anchored=anchored,
+                                       anchor_radius=anchor_radius, anchor_mode=anchor_mode,
+                                       anchor_period=period)
     if chain_mesh is None:
-        step = _sgld_step(make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
-                                               param_mode, per_row), burn_in, thin)
+        transition = make_sgld_transition(bundle, opt_gmm, opt_reg, tau, fixed, moving,
+                                          param_mode, per_row, anchor_radius)
+        anchor_fn = make_chain_anchor(bundle, moving, anchor_mode) if anchored else None
 
-        def run(state: MCMCState):
+        def run(state: MCMCState, noise=None):
+            step = _sgld_step(transition, burn_in, thin, anchor_fn, period, noise)
             (state,), (metrics,) = run_in_turns([step], [state], chunk)
             return state, metrics
 
@@ -361,12 +422,16 @@ def make_mcmc_chunk(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
         n = len(devices)
         return {k: (t.chunk(n)[i] if per_row else t).to(dev) for k, t in images.items()}
 
-    steps = [_sgld_step(make_sgld_transition(bundle, opt_gmm, opt_reg, tau, on(fixed, i, dev),
-                                             on(moving, i, dev), param_mode, per_row),
-                        burn_in, thin)
-             for i, dev in enumerate(devices)]
+    images = [(on(fixed, i, dev), on(moving, i, dev)) for i, dev in enumerate(devices)]
+    transitions = [make_sgld_transition(bundle, opt_gmm, opt_reg, tau, f, m, param_mode,
+                                        per_row, anchor_radius) for f, m in images]
+    # each device anchors its own chains
+    anchor_fns = [make_chain_anchor(bundle, m, anchor_mode) if anchored else None
+                  for _, m in images]
 
     def run(state: Sharded):
+        steps = [_sgld_step(t, burn_in, thin, a, period)
+                 for t, a in zip(transitions, anchor_fns)]
         shards, metrics = run_in_turns(steps, list(state), chunk)
         dev0 = devices[0]
         return Sharded(shards, state.mesh, state.cuts), {
@@ -381,13 +446,24 @@ def _sgld_weight(n: int, burn_in: int, thin: int) -> float:
     return 1.0 if n > burn_in and (n - burn_in) % thin == 0 else 0.0
 
 
-def _sgld_step(transition, burn_in: int, thin: int):
+def _sgld_step(transition, burn_in: int, thin: int, anchor_fn=None, period: int = 1,
+               noise=None):
     """``state -> (state, metrics)``: one transition, its thinned sample fed
-    to the Welford accumulators once past ``burn_in``."""
+    to the Welford accumulators once past ``burn_in``.  With ``anchor_fn``,
+    the chains are re-anchored before the first step and every ``period``
+    steps after it (one step per chunk's run: build it per run).  ``noise``:
+    the steps' draws, in order."""
+    feed = None if noise is None else iter(noise)
+    taken, anchor = [0], [None]
 
     def step(state: MCMCState):
+        if anchor_fn is not None and taken[0] % period == 0:
+            anchor[0] = anchor_fn(state.v)
+        taken[0] += 1
         n = state.step + 1
-        state, metrics = transition(state, _sgld_weight(n, burn_in, thin))
+        state, metrics = transition(state, _sgld_weight(n, burn_in, thin),
+                                    noise=None if feed is None else next(feed),
+                                    anchor=anchor[0])
         return state._replace(step=n), metrics
 
     return step

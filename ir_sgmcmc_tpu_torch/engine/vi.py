@@ -72,9 +72,28 @@ def block_warp_bound(bundle: ModelBundle) -> int:
     return int(-(-float(bundle.transformation.max_disp + bundle.uniform_noise_alpha) // 1))
 
 
+def anchored_residual(displacement: torch.Tensor, noise: torch.Tensor | None, anchor: dict,
+                      radius: int) -> tuple:
+    """The anchored residual warp's offset ``δ' = J0⁻¹ (d - d0 + noise)``
+    (``noise`` None: none), clipped to ``±radius`` in the ``"taylor"`` mode
+    (``GW0`` in the anchor), and the voxels per leading index where
+    ``|δ'| >= radius`` (the residual clamp the saturation guard counts)."""
+    delta = displacement - anchor["d0"]
+    if noise is not None:
+        delta = delta + noise
+    # into the anchor's source frame: T0(x + δ') ≈ T0(x) + J0 δ'
+    delta = torch.sum(anchor["Jinv"] * delta.unsqueeze(-5), dim=-4)
+    if "GW0" in anchor:
+        delta = torch.clamp(delta, -radius, radius)
+    clamped = torch.sum(torch.any(torch.abs(delta.detach()) >= radius, dim=-4),
+                        dim=(-3, -2, -1))
+    return delta, clamped
+
+
 def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
                    v_unsmoothed: torch.Tensor, noise: torch.Tensor | None,
-                   anchor: dict | None = None, per_row: bool = False) -> dict:
+                   anchor: dict | None = None, per_row: bool = False,
+                   anchor_radius: int = 2) -> dict:
     """Smooth -> integrate (+ warp) -> LCC residuals, over a leading batch.
 
     ``v_unsmoothed`` lives on ``bundle.field_dims`` (the control grid for
@@ -97,16 +116,20 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
     * a model without ``integrate`` (``BSplineFFD3D``) or with
       ``use_gather``, under either scheme: ``transformation(v)``, the noise
       added on the normalised grid, one ``grid_sample`` of the image.
+    * ``anchor`` (SG-MCMC on ``"post"``, from ``engine.mcmc.make_chain_anchor``;
+      ignored on the other paths, as in the JAX package): the anchored
+      residual warp.  Integrate without the image, map the residual
+      ``δ = d - d0 + noise`` into the anchor's source frame, ``δ' = J0⁻¹ δ``,
+      and warp the anchored image ``W0 = moving ∘ T0`` by it: in the
+      ``"taylor"`` mode (``GW0`` in the anchor) ``W0 + ∇W0 · clip(δ', ±R)``,
+      in the ``"blend"`` mode ``warp_bounded(W0, δ', R)`` (kernels B5/B6;
+      ``W0`` carries no gradient, so no B7), ``R = anchor_radius``.  Voxels
+      with ``|δ'| >= R`` are counted into ``sat``/``sat_resid``.
 
     ``sat`` counts voxels whose displacement reaches the bound where the
-    path clamps: ``displacement_clamp_bound`` on ``"post"``,
-    ``image_clamp_bound`` on the cascade, none on the gather path.  The
-    anchored residual warp is not ported (ROADMAP rule).
+    path clamps: ``displacement_clamp_bound`` on ``"post"`` (anchored or
+    not), ``image_clamp_bound`` on the cascade, none on the gather path.
     """
-    if anchor is not None:
-        raise NotImplementedError(
-            "the anchored residual warp of forward_sample is not ported (ROADMAP "
-            "'Rules of the port', Not ported)")
     tr = bundle.transformation
     alpha = bundle.uniform_noise_alpha
     gather = not hasattr(tr, "integrate") or getattr(tr, "use_gather", False)
@@ -121,7 +144,17 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
     def sample(t):
         return grid_sample_each(im[:, None], t)[:, 0] if per_row else grid_sample(im, t)
 
-    if gather:
+    if anchor is not None and not gather and bundle.noise_scheme == "post":
+        transformation, displacement, _ = tr.integrate(v)
+        R = int(anchor_radius)
+        delta, anchor_sat = anchored_residual(displacement, None if alpha is None else noise,
+                                              anchor, R)
+        if "GW0" in anchor:
+            warped = anchor["W0"] + torch.sum(anchor["GW0"] * delta, dim=-4)
+        else:
+            warped = warp_bounded(anchor["W0"].unsqueeze(-4), delta, R)[:, 0]
+        clamp_bound = float(tr.displacement_clamp_bound)
+    elif gather:
         transformation, displacement = tr(v)
         t = transformation
         if alpha is not None:

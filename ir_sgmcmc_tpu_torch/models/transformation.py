@@ -4,10 +4,12 @@
 ``SVF3D.integrate`` runs scaling and squaring: ``no_taylor`` second-order
 Taylor squarings (plain stencils), the squarings above ``taylor_threshold``
 as ``d + warp_bounded(d, d, 1)`` (kernels B5-B7), then ``2^e - 1``
-compositions in the ``"split"`` form (kernels B1/B2) or the ``"warp"`` form
-(B5-B7).  With an image, the image rides the composition phase as radius-1
-blend warps (the ``"pre"`` noise scheme's cascade).  See the JAX class for
-the integration plan and its measurements.  ``use_gather=True`` selects
+compositions in the ``"split"`` form (kernels B1/B2), the ``"warp"`` form
+(B5-B7) or the ``"taylor"`` form (plain second-order stencils, ``e`` raised
+until the offset is under ``taylor_threshold``; kept for the record, as in
+the JAX package).  With an image, the image rides the composition phase as
+radius-1 blend warps (the ``"pre"`` noise scheme's cascade).  See the JAX
+class for the integration plan and its measurements.  ``use_gather=True`` selects
 the reference formulation instead: ``no_steps`` squarings through
 ``grid_sample``.  ``compute_dtype="bfloat16"`` runs the Taylor squarings
 and, on the ``"split"`` form, the compositions in bfloat16 (kernels
@@ -29,7 +31,7 @@ from .._device import resolve_device
 from ..ops.bspline import CubicBSplineFFD3D, control_grid_size
 from ..ops.grids import identity_grid, normalised_to_voxel, voxel_to_normalised
 from ..ops.resample import grid_sample, grid_sample_each, warp_bounded
-from ..ops.stencil import split_compose_step, taylor_squaring_step
+from ..ops.stencil import split_compose_step, taylor_compose_step, taylor_squaring_step
 
 
 def _reduced_dtype(compute_dtype):
@@ -99,10 +101,6 @@ class SVF3D:
             1 for k in range(self.no_squarings)
             if self.max_disp / 2 ** (self.no_steps - k) <= self.taylor_threshold
         )
-        if form == "taylor":
-            raise NotImplementedError(
-                "taylor_compositions='taylor' is not ported (ROADMAP rule "
-                "'Not ported'); use 'split' or 'warp'")
 
     def __call__(self, v: torch.Tensor):
         transformation, disp, _ = self.integrate(v)
@@ -116,13 +114,14 @@ class SVF3D:
         Returns ``(transformation, displacement, im_warped)``.  ``im`` is
         ``(D, H, W)`` or ``(C, D, H, W)``, shared by the batch, or with
         ``per_row`` ``(B, C, D, H, W)``, one per row; the warped image is
-        ``(B, D, H, W)`` or ``(B, C, D, H, W)``.  In the ``"split"``
-        form the image takes one radius-1 warp by ``ψ = φ^m`` every
-        ``m = N // K`` split steps (``K = no_image_compositions``); in the
-        ``"warp"`` form it rides the compositions as the last channel(s) of
-        one fused ``[d | g]`` carry.  With ``use_gather`` the image is
-        warped once by ``grid_sample`` at the transformation, and without an
-        image ``im_warped`` is None.
+        ``(B, D, H, W)`` or ``(B, C, D, H, W)``.  In the ``"split"`` and
+        ``"taylor"`` forms the image takes one radius-1 warp by ``ψ = φ^m``
+        every ``m = N // K`` displacement steps (``K =
+        no_image_compositions``; ``m > 1`` only in the ``"taylor"`` form,
+        whose ``e`` is raised); in the ``"warp"`` form it rides the
+        compositions as the last channel(s) of one fused ``[d | g]`` carry.
+        With ``use_gather`` the image is warped once by ``grid_sample`` at
+        the transformation, and without an image ``im_warped`` is None.
         """
         if per_row and im is not None and im.ndim != 5:
             raise ValueError(f"per-row images are (B, C, D, H, W), got {tuple(im.shape)}")
@@ -154,6 +153,11 @@ class SVF3D:
         if self.composition_form == "split":
             def dstep(d):
                 return split_compose_step(d.contiguous(), u_phi)
+        elif self.composition_form == "taylor":
+            # |u_phi| <= taylor_threshold by the choice of e (unstable
+            # end-to-end; the JAX class docstring)
+            def dstep(d):
+                return taylor_compose_step(d, u_phi)
         else:
             def dstep(d):
                 return u_phi + warp_bounded(d, u_phi, 1)
@@ -168,7 +172,7 @@ class SVF3D:
             else:
                 vol = im if im.ndim == 4 else im[None]
                 vol = vol.expand((v.shape[0],) + tuple(vol.shape))
-            if self.composition_form == "split":
+            if self.composition_form in ("split", "taylor"):
                 K = self.no_image_compositions
                 m = N // K
                 u_psi = u_phi
@@ -312,8 +316,7 @@ def make_transformation(kind: str, dims, cps=None, no_steps: int = 12, max_disp:
     ``unroll`` is the JAX package's scan unroll factor; the port's
     integration is a Python loop, so it has no effect here.  The JAX
     package resolves ``compute_dtype=None`` to float32 off a TPU, and so
-    does the port; ``"bfloat16"`` is opt-in (``SVF3D``).  What is not ported
-    raises ``NotImplementedError`` naming its ROADMAP item.
+    does the port; ``"bfloat16"`` is opt-in (``SVF3D``).
     """
     _reduced_dtype(compute_dtype)  # validated for every kind
     if kind in ("SVF_3D", "SVF3D"):

@@ -27,12 +27,14 @@ def _nearest(v: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """``v (C, D, H, W)`` at the nearest voxel of each point of ``grid (…, 3,
     D', H', W')``: ``(…, C, D', H', W')``.  The coordinate arithmetic is the
     JAX package's (``i = (g + 1) · 0.5 · (S - 1)``, clamped to the volume),
-    rounded half to even as ``jnp.rint`` does."""
+    rounded half to even as ``jnp.rint`` does; a NaN coordinate takes index
+    0, as XLA's float-to-int conversion gives it."""
     C = v.shape[0]
     D, H, W = v.shape[-3:]
 
     def index(c: torch.Tensor, n: int) -> torch.Tensor:
-        return torch.round(torch.clamp((c + 1.0) * 0.5 * (n - 1), 0.0, n - 1)).to(torch.int64)
+        i = torch.round(torch.clamp((c + 1.0) * 0.5 * (n - 1), 0.0, n - 1))
+        return torch.nan_to_num(i, nan=0.0).to(torch.int64)
 
     flat = (index(grid[..., 2, :, :, :], D) * H
             + index(grid[..., 1, :, :, :], H)) * W + index(grid[..., 0, :, :, :], W)
@@ -81,7 +83,8 @@ def grid_sample_2d(im: torch.Tensor, grid: torch.Tensor, mode: str = "linear") -
         H, W = v.shape[-2:]
 
         def index(c: torch.Tensor, n: int) -> torch.Tensor:
-            return torch.round(torch.clamp((c + 1.0) * 0.5 * (n - 1), 0.0, n - 1)).to(torch.int64)
+            i = torch.round(torch.clamp((c + 1.0) * 0.5 * (n - 1), 0.0, n - 1))
+            return torch.nan_to_num(i, nan=0.0).to(torch.int64)
 
         flat = index(grid[1], H) * W + index(grid[0], W)
         out = v.reshape(v.shape[0], -1)[:, flat.reshape(-1)].reshape(

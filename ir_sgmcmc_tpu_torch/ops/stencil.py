@@ -153,6 +153,44 @@ def taylor_squaring_step(d: torch.Tensor) -> torch.Tensor:
     return TaylorSquaringStep.apply(d)
 
 
+def _taylor_compose_impl(d: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    out = u + d
+    for c, axis in _AXES:
+        out = out + _fwd_diff_axis(d, axis) * u[..., c:c + 1, :, :, :]
+    return out
+
+
+class TaylorComposeStep(torch.autograd.Function):
+    """``d' = u + d + (u·∇)d`` with the Jacobian-free backward of the JAX
+    ``taylor_compose_step``: only ``(d, u)`` are saved, and the backward
+    rebuilds the three directional differences of ``d``
+
+        ḡ_u[c] = g_c + Σ_i g_i (D_c d)_i,    ḡ_d = g + Σ_c D_cᵀ(g · u_c).
+    """
+
+    @staticmethod
+    def forward(ctx, d, u):
+        ctx.save_for_backward(d, u)
+        return _taylor_compose_impl(d, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, u = ctx.saved_tensors
+        gd, gu = g, g.clone()
+        for c, axis in _AXES:
+            gu[..., c, :, :, :] += torch.sum(g * _fwd_diff_axis(d, axis), dim=-4)
+            gd = gd + _fwd_diff_axis_t(g * u[..., c:c + 1, :, :, :], axis)
+        return gd, gu
+
+
+def taylor_compose_step(d: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One second-order one-sided composition ``d' = u + d ∘ (id+u) ≈ u + d
+    + (u·∇)d`` of ``(…, 3, D, H, W)`` fields: the ``"taylor"`` composition
+    form of ``SVF3D`` (plain stencils, as in the JAX package, where no
+    Pallas kernel computes it; see the JAX docstring)."""
+    return TaylorComposeStep.apply(d, u)
+
+
 # ---- split composition -------------------------------------------------------
 
 def _shift_axis(field: torch.Tensor, off: int, axis: int) -> torch.Tensor:

@@ -12,6 +12,7 @@ from .halo import (
     separable_conv3d_sharded,
     split_compose_sharded,
     sum_sharded,
+    taylor_compose_sharded,
     taylor_squaring_sharded,
     warp_block_gather_sharded,
     warp_bounded_sharded,
@@ -41,6 +42,7 @@ __all__ = [
     "gradient_d_sharded",
     "warp_bounded_sharded",
     "taylor_squaring_sharded",
+    "taylor_compose_sharded",
     "split_compose_sharded",
     "warp_block_gather_sharded",
     "block_residual_overflow_sharded",

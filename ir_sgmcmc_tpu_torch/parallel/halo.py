@@ -19,7 +19,8 @@ slab, with no fallback.
 
 The spatially sharded training steps (``parallel/spatial.py``) need a
 halo form of every stencil of the step, which the JAX package leaves to
-GSPMD's partitioner: the Taylor squaring (:func:`taylor_squaring_sharded`),
+GSPMD's partitioner: the Taylor squaring (:func:`taylor_squaring_sharded`)
+and composition (:func:`taylor_compose_sharded`),
 the split composition (:func:`split_compose_sharded`, kernels B1/B2 in
 their z-halo modes B1Z/B2Z), the block-gather warp
 (:func:`warp_block_gather_sharded` and :func:`block_residual_overflow_sharded`,
@@ -50,7 +51,7 @@ from ..kernels import block_warp as _bw
 from ..kernels import split_warp as _sw
 from ..kernels import warp_bounded as _wb
 from ..ops.resample import _residual, block_residual_overflow
-from ..ops.stencil import TaylorSquaringStep, conv1d_axis
+from ..ops.stencil import TaylorComposeStep, TaylorSquaringStep, conv1d_axis
 from .mesh import Mesh, Sharded, halo_images_spatial, shard_tree_spatial
 
 
@@ -208,6 +209,32 @@ def taylor_squaring_slabs(ds: list) -> list:
             closed = TaylorSquaringStep.apply(torch.cat([d, nxt], dim=-3))
             out.append(closed[..., :-1, :, :])
     return out
+
+
+def taylor_compose_slabs(ds: list, us: list) -> list:
+    """One Taylor composition ``d' = u + d + (u·∇)d`` of one row's slabs of
+    ``(…, 3, D, H, W)`` fields, with its analytic backward
+    (``ops.stencil.TaylorComposeStep``): as :func:`taylor_squaring_slabs`,
+    each slab of ``d`` but the last takes the next shard's first plane (a
+    one-plane halo along D, whose cotangent autograd sends back to that
+    shard), and ``u``, read at each voxel alone, takes its own last plane
+    again; each slab keeps its own planes, the unsharded step's to the
+    bit."""
+    out = []
+    for d, u, nxt in zip(ds, us, _next_planes(ds)):
+        if nxt is None:
+            out.append(TaylorComposeStep.apply(d, u))
+        else:
+            closed = TaylorComposeStep.apply(torch.cat([d, nxt], dim=-3),
+                                             torch.cat([u, u[..., -1:, :, :]], dim=-3))
+            out.append(closed[..., :-1, :, :])
+    return out
+
+
+def taylor_compose_sharded(d, u, mesh: Mesh, axis_name: str = "space") -> Sharded:
+    """``ops.stencil.taylor_compose_step`` of D-sharded ``(…, 3, D, H, W)``
+    fields (each shard at least 2 planes), differentiable in both."""
+    return _per_row(taylor_compose_slabs, mesh, axis_name, d, u)
 
 
 def taylor_squaring_sharded(field, mesh: Mesh, axis_name: str = "space") -> Sharded:

@@ -12,7 +12,8 @@ with every branch of ``engine.vi.forward_sample`` for the dense ``SVF3D``:
   ``parallel/halo.py``: the Taylor squarings (in bfloat16 under
   ``compute_dtype: "bfloat16"``), the squarings above the threshold
   (``HaloWarp``, B5Z-B7Z), the ``"split"`` compositions (B1Z/B2Z, or
-  B1Z-bf16/B2Z-bf16) or the ``"warp"`` ones (``HaloWarp`` on 3 channels);
+  B1Z-bf16/B2Z-bf16), the ``"warp"`` ones (``HaloWarp`` on 3 channels) or
+  the ``"taylor"`` ones (``halo.taylor_compose_slabs``);
 * the image warp, by :func:`image_path`: on ``"post"`` the block-gather
   warp on each slab's window of the moving image (B3Z/B4Z), or below 64³
   ``grid_sample`` of the whole image, which each shard holds; on ``"pre"``
@@ -21,7 +22,12 @@ with every branch of ``engine.vi.forward_sample`` for the dense ``SVF3D``:
   carry of the ``"warp"`` form), then a ``HaloWarp`` by the noise at radius
   ``max(1, ceil(alpha))``; with ``use_gather`` the ``no_steps`` squarings
   sample the whole field, all-gathered onto each shard, at the slab's
-  points, and the whole image is sampled at ``T + noise``;
+  points, and the whole image is sampled at ``T + noise``; anchored
+  (``"post"`` SG-MCMC with ``anchored``), the residual warp of each slab
+  off the row's anchor (:func:`make_chain_anchor_slabs`: ``W0`` sampled
+  from the whole image, which each shard holds, at the slab's points,
+  ``Jinv`` and ``GW0`` by the sharded gradient), in the ``"blend"`` mode
+  by ``HaloWarp`` at the anchor radius (B5Z/B6Z);
 * the fold and saturation counts, the LCC residuals;
 * the global scalars (GMM NLL, VD sums, reg energy, entropy sums) as
   per-slab partial sums added on the row's first device, where the scalar
@@ -47,21 +53,21 @@ import math
 import torch
 
 from ..engine.mcmc import WelfordState, _reg_terms, _sgld_weight, welford_update
-from ..engine.vi import block_warp_bound, block_warp_engages, key_generator
+from ..engine.vi import anchored_residual, block_warp_bound, block_warp_engages, key_generator
 from ..models.entropy import (entropy_analytic_from_sums, entropy_analytic_sums,
                               entropy_sample_from_sums, entropy_sample_sums)
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
 from ..models.transformation import SVF3D
-from ..ops.grids import _axis_scale_on, det_jacobian, identity_grid
+from ..ops.grids import _axis_scale_on, det_jacobian, identity_grid, inv_jacobian
 from ..ops.resample import grid_sample, grid_sample_each
 from ..ops.stencil import _fwd_diff_axis
 from ..optim.adam_decay import apply_updates
 from .halo import (HaloWarp, SobolevSmoothSlabs, _exchange_halo_d, allgather_slabs, block_halo,
                    block_residual_overflow_slabs, box_filter3d_slabs, fourier_energy_slabs,
                    fwd_diff_d_slabs, lag1_sums_slabs, split_compose_slabs, sum_slabs,
-                   taylor_squaring_slabs, warp_block_gather_slabs)
+                   taylor_compose_slabs, taylor_squaring_slabs, warp_block_gather_slabs)
 from .mesh import Mesh, Sharded, _map, gather, halo_images_spatial, run_in_turns
 
 ROADMAP_ITEM = "ROADMAP A, 'The spatially sharded steps'"
@@ -182,15 +188,16 @@ class _Images:
     reads of the moving image (:func:`image_path`): a window of ``h``
     planes on each side of its slab (the block-gather warp), its slab (the
     cascade, whose ``HaloWarp``\\ s exchange the halos) or the whole image
-    (``grid_sample``)."""
+    (``grid_sample``).  ``anchored``: the anchored residual warp (path
+    ``"anchor"``), whose anchor samples the whole image."""
 
     def __init__(self, bundle, fixed: Sharded, moving: Sharded, row: _Row,
-                 moving_whole: dict):
+                 moving_whole: dict, anchored: bool = False):
         self.fixed = [fixed[i]["im"] for i in row.idx]
         self.mask = [fixed[i]["mask"] for i in row.idx]
         with torch.no_grad():
             self.lcn_fixed = _lcn_slabs(bundle.gmm, self.fixed)
-        self.path = image_path(bundle)
+        self.path = "anchor" if anchored else image_path(bundle)
         self.h = None
         if self.path == "block":
             self.h = block_halo(block_warp_bound(bundle), bundle.block_radius)
@@ -235,6 +242,9 @@ def _integrate_slabs(tr: SVF3D, vs: list, ims: list | None = None) -> tuple:
 
         def dstep(ds):
             return split_compose_slabs(ds, u_h)
+    elif tr.composition_form == "taylor":
+        def dstep(ds):
+            return taylor_compose_slabs(ds, u_phi)
     else:
         def dstep(ds):
             return [u + w for u, w in zip(u_phi, _warp_slabs(ds, u_phi))]
@@ -246,7 +256,7 @@ def _integrate_slabs(tr: SVF3D, vs: list, ims: list | None = None) -> tuple:
     else:
         B = vs[0].shape[0]
         vols = [im.expand((B, 1) + tuple(im.shape)) for im in ims]
-        if tr.composition_form == "split":
+        if tr.composition_form in ("split", "taylor"):
             K = tr.no_image_compositions
             m = N // K
             u_psi = u_phi
@@ -284,11 +294,63 @@ def _gather_slabs(tr: SVF3D, row: _Row, vs: list, dims) -> tuple:
     return [i + d for i, d in zip(ids, disp)], [_to_voxel(d, dims) for d in disp]
 
 
-def forward_slabs(bundle, images: _Images, row: _Row, vs: list, unifs: list | None) -> dict:
+def make_chain_anchor_slabs(bundle, images: _Images, row: _Row, anchor_mode: str):
+    """``anchor(shards) -> list``: ``engine.mcmc.make_chain_anchor`` over one
+    row's shards (its chains' ``v`` slabs), with no gradient: each slab's
+    anchor, ``W0`` sampled from the whole moving image, which each shard
+    holds, at the slab's points of ``T0`` (``grid_sample``, the gather
+    path's global sample), ``Jinv`` and ``GW0`` by the sharded gradient."""
+    tr, dims = bundle.transformation, tuple(bundle.dims)
+
+    def anchor(shards: list) -> list:
+        with torch.no_grad():
+            vs = [s.v for s in shards]
+            if bundle._sobolev_kernel is not None:
+                ks = [bundle.sobolev_kernel_on(dev) for dev in row.devices]
+                vs = list(SobolevSmoothSlabs.apply(row.n, *ks, *vs))
+            d0, _ = _integrate_slabs(tr, vs)
+            w0 = [grid_sample(m, _identity_slab(dims, d.device, z0, row.dl)
+                              + _to_normalised(d, dims))
+                  for m, d, z0 in zip(images.moving, d0, row.z0)]
+            out = [{"W0": w, "d0": d,
+                    "Jinv": torch.clamp(inv_jacobian(_eye3(d) + j), -3.0, 3.0)}
+                   for w, d, j in zip(w0, d0, _gradient_slabs(d0, dims))]
+            if anchor_mode == "taylor":
+                for a, g in zip(out, _gradient_slabs([w.unsqueeze(-4) for w in w0], dims)):
+                    a["GW0"] = g[:, 0]
+        return out
+
+    return anchor
+
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device).reshape(3, 3, 1, 1, 1)
+
+
+def _anchored_warp_slabs(disp: list, unifs: list | None, anchors: list, radius: int) -> tuple:
+    """``engine.vi.forward_sample``'s anchored residual warp of one row's
+    slabs off their anchors: the warped image's slabs and the residual-clamp
+    count (summed on the row's first device)."""
+    R = int(radius)
+    res = [anchored_residual(d, None if unifs is None else unifs[k], a, R)
+           for k, (d, a) in enumerate(zip(disp, anchors))]
+    deltas = [d for d, _ in res]
+    if "GW0" in anchors[0]:
+        warped = [a["W0"] + torch.sum(a["GW0"] * d, dim=-4) for a, d in zip(anchors, deltas)]
+    else:
+        warped = [w[:, 0] for w in _warp_slabs([a["W0"].unsqueeze(-4) for a in anchors],
+                                               deltas, R)]
+    return warped, sum_slabs([n for _, n in res])
+
+
+def forward_slabs(bundle, images: _Images, row: _Row, vs: list, unifs: list | None,
+                  anchor: list | None = None, anchor_radius: int = 2) -> dict:
     """``engine.vi.forward_sample`` over one row's slabs: ``vs`` the
     velocity's slabs ``(B, 3, Dl, H, W)``, ``unifs`` the uniform voxel
-    noise's (None without a noise magnitude).  Field results are lists of
-    slabs; the counts ``(B,)`` are summed on the row's first device."""
+    noise's (None without a noise magnitude), ``anchor`` the row's slabs'
+    anchors (:func:`make_chain_anchor_slabs`) on the ``"anchor"`` path.  Field
+    results are lists of slabs; the counts ``(B,)`` are summed on the row's
+    first device."""
     tr, dims = bundle.transformation, tuple(bundle.dims)
     if bundle._sobolev_kernel is not None:
         ks = [bundle.sobolev_kernel_on(dev) for dev in row.devices]
@@ -314,6 +376,8 @@ def forward_slabs(bundle, images: _Images, row: _Row, vs: list, unifs: list | No
         elif images.path == "grid":
             warped = [grid_sample(m, t + _to_normalised(u, dims))
                       for m, t, u in zip(images.moving, trans, unifs)]
+        elif images.path == "anchor":
+            warped, anchor_sat = _anchored_warp_slabs(disp, unifs, anchor, anchor_radius)
         elif images.path == "block":
             block, radius = int(bundle.block_size), int(bundle.block_radius)
             bound = block_warp_bound(bundle)
@@ -405,18 +469,19 @@ def _chain_noise_slabs(bundle, shards: list, row: _Row) -> tuple:
 
 
 def make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau: float, images: _Images,
-                               row: _Row):
-    """``transition(shards, collect_weight, noise=None) -> (shards,
-    metrics)``: ``engine.mcmc.make_sgld_transition`` (per-chain sets) over
-    one row's shards (``MCMCState``\\ s of the row's chains, each with its
-    D-slab of the fields).  ``noise``: ``(eps, unif)``, lists of the
-    slabs' draws; without it each shard draws its own.  Metrics are on the
-    row's first device."""
+                               row: _Row, anchor_radius: int = 2):
+    """``transition(shards, collect_weight, noise=None, anchor=None) ->
+    (shards, metrics)``: ``engine.mcmc.make_sgld_transition`` (per-chain
+    sets) over one row's shards (``MCMCState``\\ s of the row's chains,
+    each with its D-slab of the fields).  ``noise``: ``(eps, unif)``, lists
+    of the slabs' draws; without it each shard draws its own.  ``anchor``:
+    the row's anchor on the ``"anchor"`` path.  Metrics are on the row's
+    first device."""
     dev0 = row.dev0
     masks = images.mask
     learnable_reg = bundle.reg_loss.learnable and len(bundle.reg_loss.param_names) > 0
 
-    def transition(shards: list, collect_weight: float, noise=None):
+    def transition(shards: list, collect_weight: float, noise=None, anchor=None):
         s0 = shards[0]
         eps, unif = noise if noise is not None else _chain_noise_slabs(bundle, shards, row)
         with torch.enable_grad():
@@ -424,7 +489,7 @@ def make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau: float, images: _Im
                         for s, e in zip(shards, eps)]
             reg_keys = list(s0.reg)
             reg_p = {k: s0.reg[k].detach().requires_grad_(learnable_reg) for k in reg_keys}
-            out = forward_slabs(bundle, images, row, v_noised, unif)
+            out = forward_slabs(bundle, images, row, v_noised, unif, anchor, anchor_radius)
             res = out["residuals"]
             alpha = _vd_alpha(bundle, s0.gmm, res, masks, dev0)
             gmm, opt_gmm_state = _gmm_adam_step(bundle, opt_gmm, s0.gmm, s0.opt_gmm, res,
@@ -458,20 +523,21 @@ def make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau: float, images: _Im
     return transition
 
 
-def _rows(bundle, mesh: Mesh) -> list:
+def _rows(bundle, mesh: Mesh, blend_radius: int = 1) -> list:
     """The rows of the ``'space'`` axis; raises where a slab is too thin for
     the step's stencils: 2 planes (the Taylor squaring, the radius-1 blend
-    warps), and ``2R`` for the ``"pre"`` scheme's noise warp of radius
-    ``R``."""
+    warps), ``2R`` for the ``"pre"`` scheme's noise warp of radius ``R``
+    and for a blend warp of radius ``blend_radius`` (the anchored
+    ``"blend"`` mode's)."""
     depth = int(bundle.dims[0])
     if "space" not in mesh.axis_names:
         raise ValueError(f"a spatially sharded step needs a 'space' axis, got {mesh}")
     n = mesh.shape["space"]
     if depth % n:
         raise ValueError(f"depth {depth} does not divide over {n} shards")
-    need = 2
+    need = max(2, 2 * int(blend_radius))
     if image_path(bundle) == "cascade" and bundle.uniform_noise_alpha is not None:
-        need = 2 * _noise_radius(bundle)
+        need = max(need, 2 * _noise_radius(bundle))
     if depth // n < need:
         raise ValueError(f"{depth} planes over {n} shards leave {depth // n} per slab; the "
                          f"step's stencils need {need} (the noise warp's 2R at alpha "
@@ -487,7 +553,9 @@ def _cut_chain_noise(noise, row: _Row, r: int, n_rows: int) -> tuple:
 
 
 def make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau: float, fixed: Sharded,
-                            moving: Sharded, chunk: int, burn_in: int, thin: int):
+                            moving: Sharded, chunk: int, burn_in: int, thin: int,
+                            anchored: bool = False, anchor_radius: int = 2,
+                            anchor_mode: str = "taylor", anchor_period: int = 1):
     """``engine.mcmc.make_mcmc_chunk`` over the mesh of ``fixed`` (a
     ``('chain', 'space')`` or ``('space',)`` mesh; images from
     ``shard_images_spatial``): ``run(state, noise=None) -> (state,
@@ -496,20 +564,31 @@ def make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau: float, fixed: Sharded
     take turns at every transition (``run_in_turns``).  ``noise``: a
     sequence of ``chunk`` whole ``(eps, unif)`` draws over all chains, on
     any device.  Metrics ``(chunk, C, …)`` come back on the mesh's first
-    device."""
+    device.  ``anchored`` (the caller applies the JAX package's fallbacks):
+    each row re-anchors its chains every ``anchor_period`` transitions from
+    the chunk's start (:func:`make_chain_anchor_slabs`)."""
     _refuse(bundle)
     mesh = fixed.mesh
-    rows = _rows(bundle, mesh)
+    blend = anchored and anchor_mode == "blend"
+    rows = _rows(bundle, mesh, anchor_radius if blend else 1)
     moving_whole = gather(moving)
-    transitions = [make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau,
-                                              _Images(bundle, fixed, moving, row, moving_whole),
-                                              row) for row in rows]
+    images = [_Images(bundle, fixed, moving, row, moving_whole, anchored) for row in rows]
+    transitions = [make_sgld_transition_slabs(bundle, opt_gmm, opt_reg, tau, im, row,
+                                              anchor_radius) for im, row in zip(images, rows)]
+    anchor_fns = [make_chain_anchor_slabs(bundle, im, row, anchor_mode) if anchored else None
+                  for im, row in zip(images, rows)]
 
     def step_fn(r: int, feed):
+        taken, anchor = [0], [None]
+
         def step(shards):
+            if anchor_fns[r] is not None and taken[0] % anchor_period == 0:
+                anchor[0] = anchor_fns[r](shards)
+            taken[0] += 1
             n = shards[0].step + 1
             noise = None if feed is None else _cut_chain_noise(next(feed), rows[r], r, len(rows))
-            shards, metrics = transitions[r](shards, _sgld_weight(n, burn_in, thin), noise)
+            shards, metrics = transitions[r](shards, _sgld_weight(n, burn_in, thin), noise,
+                                             anchor[0])
             return [s._replace(step=n) for s in shards], metrics
 
         return step
@@ -649,5 +728,6 @@ def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, movi
     return step
 
 
-__all__ = ["unported", "image_path", "forward_slabs", "make_sgld_transition_slabs",
+__all__ = ["unported", "image_path", "forward_slabs", "make_chain_anchor_slabs",
+           "make_sgld_transition_slabs",
            "make_mcmc_chunk_sharded", "make_vi_step_sharded"]

@@ -36,9 +36,15 @@ STAGES = {
     # the exact integration: 12 grid_sample squarings; capped chunks keep
     # the host reads of the slower steps frequent
     "gather": ["--use-gather", "--max-device-chunk", "50"],
-    # a stage of the JAX script that the port refuses by rule (Taylor
-    # compositions): each run writes its error row
+    # the composition phase as Taylor stencils at the split's step count
+    # (threshold 1.0 keeps e): unstable end-to-end, kept for the record (the
+    # JAX rows abort on the saturation guard)
     "taylor_comp1": ["--taylor-compositions", "on", "--taylor-threshold", "1.0"],
+    # anchored residual warping in SG-MCMC on "post", in the default
+    # "taylor" mode and in the "blend" mode (the JAX rows' post_anchored_*
+    # stages): a negative result, kept for the record
+    "post_anchored": ["--noise-scheme", "post", "--anchor"],
+    "post_anchored_blend": ["--noise-scheme", "post", "--anchor", "--anchor-mode", "blend"],
     # the split default with the squarings and the compositions in bfloat16
     # (kernels B1/B2-bf16); the JAX script's two names for it (its
     # split_bf16 rows predate its bf16 compositions)

@@ -26,10 +26,13 @@ The report is printed as one JSON line and written to
     python -m ir_sgmcmc_tpu_torch.scripts.quality_eval --dims 128 \\
         --magnitude 6 --vi-iters 384 --burn-in 300 --samples 700
 
-Options the port refuses by rule (``--taylor-compositions on``, anchored
-MCMC) pass their config keys on, and the trainer raises its
-``NotImplementedError``.  ``--compute-dtype bfloat16`` integrates as the JAX
-package does with that setting (kernels B1/B2-bf16 on the card).
+``--taylor-compositions on`` (the pure Taylor compositions) and anchored
+MCMC (``--anchor`` with ``--noise-scheme post``, and its ``--anchor-*``
+keys) run as in the JAX package, which keeps both for the record; the JAX
+script has no ``--anchor`` (its rows of anchored runs predate the default's
+change to off), the port's sets ``trainer.mcmc_anchor``.
+``--compute-dtype bfloat16`` integrates as the JAX package does with that
+setting (kernels B1/B2-bf16 on the card).
 """
 
 from __future__ import annotations
@@ -90,8 +93,8 @@ def _parser() -> argparse.ArgumentParser:
                         "self-composition)")
     p.add_argument("--taylor-compositions", choices=["on", "off", "split"], default=None,
                    help="composition-phase step: 'split' = dimensionally split per-axis "
-                        "lerps, 'off' = radius-1 warps, 'on' = Taylor stencils (not "
-                        "ported: the trainer raises)")
+                        "lerps, 'off' = radius-1 warps, 'on' = Taylor stencils "
+                        "(unstable end-to-end, kept for the record)")
     p.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
                    help="SVF integrator compute dtype of the squarings and the split "
                         "compositions (default float32; bfloat16 halves the split kernels' "
@@ -100,9 +103,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="uniform transformation-noise scheme: 'post' = displacement-only "
                         "cascade and one exact warp at T + noise, 'pre' = the bounded "
                         "blend-warp path (default from the config)")
+    p.add_argument("--anchor", action="store_true",
+                   help="with --noise-scheme post: trainer.mcmc_anchor = true, anchored "
+                        "residual warping in the MCMC loop (a known quality regression)")
     p.add_argument("--no-anchor", action="store_true",
-                   help="trainer.mcmc_anchor = false (anchored MCMC is not ported; the "
-                        "anchor flags pass their keys on)")
+                   help="trainer.mcmc_anchor = false: the per-sample exact warp")
     p.add_argument("--anchor-radius", type=int, default=None)
     p.add_argument("--block-radius", type=int, default=None,
                    help="'post' scheme block-gather warp: in-block residual radius "
@@ -170,6 +175,8 @@ def _config(args, dims, out_dir: str, trainer_seed: int) -> dict:
         t["save_period_MCMC"] = args.save_period
     if args.noise_scheme is not None:
         t.setdefault("uniform_noise", {})["scheme"] = args.noise_scheme
+    if args.anchor:
+        t["mcmc_anchor"] = True
     if args.no_anchor:
         t["mcmc_anchor"] = False
     if args.anchor_radius is not None:

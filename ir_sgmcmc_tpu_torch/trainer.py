@@ -51,17 +51,20 @@ FFD and ``use_gather``.  ``MCMC_params: "shared"`` runs the reference's
 shared GMM/reg set; ``vi_remat`` (``"auto"``: on from a dense field of
 100 MB, about 204³, of one pair) runs VI's antithetic chains in turn with
 recompute.  ``pair_parallel: true`` over several pairs registers them as
-one batch (``engine/pairs.py``; :meth:`Trainer._run_pairs_parallel`).  Not
-ported: ``mcmc_anchor: true`` raises ``NotImplementedError`` (ROADMAP
-rule).  ``spatial_shards`` above 1 cuts the MCMC step along D over a
-``('chain', 'space')`` mesh, and an explicit ``vi_spatial_shards`` above
-1 the VI step over a ``('space',)`` mesh, under the JAX trainer's
-conditions (``parallel/spatial.py``; each slab a whole number of
-block-warp blocks where that warp engages); ``vi_spatial_shards: "auto"``
-runs VI on the first device, where one card beats the sharded step.  The
-sharded steps take every option of the dense ``SVF3D`` (either noise
-scheme, ``"split"`` or ``"warp"`` compositions, ``use_gather``,
-``compute_dtype: "bfloat16"``, each energy).  On one device all of these
+one batch (``engine/pairs.py``; :meth:`Trainer._run_pairs_parallel`), except
+with ``mcmc_anchor: true`` or ``MCMC_params: "shared"``, which register the
+pairs in turn with a warning, as in the JAX trainer.  ``mcmc_anchor: true``
+runs the anchored residual warp in SG-MCMC (``anchor_radius``,
+``anchor_mode``, ``anchor_period``; off by default, a negative result in
+the JAX package) and never escalates the block radius.  ``spatial_shards``
+above 1 cuts the MCMC step along D over a ``('chain', 'space')`` mesh, and
+an explicit ``vi_spatial_shards`` above 1 the VI step over a ``('space',)``
+mesh, under the JAX trainer's conditions (``parallel/spatial.py``; each
+slab a whole number of block-warp blocks where that warp engages);
+``vi_spatial_shards: "auto"`` runs VI on the first device, where one card
+beats the sharded step.  The sharded steps take every option of the dense
+``SVF3D`` (either noise scheme, each composition form, ``use_gather``,
+``compute_dtype: "bfloat16"``, each energy, anchoring).  On one device all of these
 change nothing, as in the JAX trainer.
 There is no kernel fallback: a kernel that fails to build or launch
 raises.
@@ -213,6 +216,7 @@ class Trainer:
         self.log_period_mcmc = int(self.t_cfg.get("log_period_MCMC", 1000))
         self.mcmc_init = self.t_cfg.get("MCMC_init", "VI")
         self.mcmc_param_mode = self.t_cfg.get("MCMC_params", "per_chain")
+        self.mcmc_anchor = bool(self.t_cfg.get("mcmc_anchor", False))
         self.compute_asd = bool(self.t_cfg.get("ASD", True))
         self.ndv_tol = float(self.t_cfg.get("non_diffeomorphic_tolerance", 0.001))
         self.sat_tol = float(self.t_cfg.get("saturation_tolerance", 0.001))
@@ -238,10 +242,6 @@ class Trainer:
         self.writer.add_text("config", json.dumps(config.cfg, indent=2, default=str))
 
     def _refuse_unported(self) -> None:
-        if self.run_mcmc and bool(self.t_cfg.get("mcmc_anchor", False)):
-            raise NotImplementedError(
-                "mcmc_anchor=true (anchored residual warping) is not ported "
-                "(ROADMAP 'Rules of the port', Not ported)")
         # the spatially sharded steps take the dense SVF3D
         for phase, runs, shards in (("MCMC", self.run_mcmc, self._mcmc_spatial_shards()),
                                     ("VI", self.run_vi, self._vi_spatial_shards())):
@@ -307,14 +307,18 @@ class Trainer:
     def run(self):
         """Register every pair in the dataset; returns per-pair summaries."""
         if bool(self.t_cfg.get("pair_parallel", False)) and len(self.dataset) > 1:
-            if self.mcmc_param_mode == "per_chain":
+            unsupported = None
+            if self.mcmc_param_mode != "per_chain":
+                unsupported = "MCMC_params='shared' (sequential GMM updates)"
+            elif self.mcmc_anchor:
+                unsupported = "mcmc_anchor=true"
+            if unsupported is None:
                 summaries = self._run_pairs_parallel()
                 self.writer.close()
                 return summaries
             self.logger.warning(
-                "pair_parallel requested but MCMC_params='shared' (sequential GMM "
-                "updates) is not supported in the pair-stacked chunks — registering "
-                "pairs sequentially")
+                "pair_parallel requested but %s is not supported in the pair-stacked "
+                "chunks — registering pairs sequentially", unsupported)
         summaries = [self._run_pair(i) for i in range(len(self.dataset))]
         self.writer.close()
         return summaries
@@ -828,10 +832,11 @@ class Trainer:
         above ``saturation_tolerance``.
 
         ``sat - sat_resid`` voxels hit the integrator's displacement clamp
-        bound (lever: ``max_disp``); ``sat_resid`` voxels exceed the
-        block-gather warp's in-block residual radius (lever:
-        ``block_warp.radius``), a bound on the field's in-block variation
-        that raising ``max_disp`` does not move."""
+        bound (lever: ``max_disp``); ``sat_resid`` voxels exceed a residual
+        window: in anchored MCMC the anchored-residual radius (lever:
+        ``anchor_radius``), else the block-gather warp's in-block residual
+        radius (lever: ``block_warp.radius``), a bound on the field's
+        in-block variation that raising ``max_disp`` does not move."""
         if sat <= 0:
             return
         no_voxels = float(np.prod(self.bundle.dims))
@@ -843,7 +848,12 @@ class Trainer:
                 f"{bound_n} voxels clamp at the displacement bound "
                 f"(max_disp={max_disp}) — raise "
                 f"transformation_module.args.max_disp")
-        if sat_resid > 0:
+        if sat_resid > 0 and self.mcmc_anchor and phase == "MCMC":
+            causes.append(
+                f"{sat_resid} voxels clamp at the anchored-residual "
+                f"radius ({int(self.t_cfg.get('anchor_radius', 2))}) — "
+                f"raise trainer.anchor_radius or set mcmc_anchor=false")
+        elif sat_resid > 0:
             causes.append(
                 f"{sat_resid} voxels exceed the block-gather warp's "
                 f"in-block residual radius (trainer.block_warp."
@@ -882,13 +892,15 @@ class Trainer:
         """The block radius to resume with after the saturation abort ``e``,
         or None: only an in-block residual overflow of the "post"
         block-gather warp escalates, up to 4, with auto-escalation on and a
-        clean period to resume from."""
+        clean period to resume from; never under anchoring, whose residual
+        window is ``anchor_radius``."""
         b = self.bundle
         auto = bool(self.t_cfg.get("block_warp", {}).get("auto_escalate", True))
         resid_binding = getattr(e, "sat_resid", 0) > self.sat_tol * float(np.prod(b.dims))
         if (auto and resid_binding and have_clean and b.block_radius < 4
                 and b.noise_scheme == "post" and b.block_warp
-                and not getattr(b.transformation, "use_gather", False)):
+                and not getattr(b.transformation, "use_gather", False)
+                and not self.mcmc_anchor):
             return b.block_radius + 1
         return None
 
@@ -1207,7 +1219,13 @@ class Trainer:
                     self.bundle, self.opt_gmm, self.opt_reg, tau, fixed_run, moving_run,
                     chunk=this, burn_in=self.no_iters_burn_in, thin=thin,
                     param_mode=self.mcmc_param_mode,
-                    chain_mesh=None if shards > 1 else self._mcmc_mesh)(mcmc)
+                    chain_mesh=None if shards > 1 else self._mcmc_mesh,
+                    # anchored residual warping: off by default, a negative
+                    # result in the JAX package (its trainer's comment)
+                    anchored=self.mcmc_anchor,
+                    anchor_radius=int(self.t_cfg.get("anchor_radius", 2)),
+                    anchor_mode=str(self.t_cfg.get("anchor_mode", "taylor")),
+                    anchor_period=int(self.t_cfg.get("anchor_period", 25)))(mcmc)
                 n -= this
             return mcmc, ms
 

@@ -11,9 +11,9 @@ against the root ``bench.py``, on the CPU.
   with ``ast``), less the keys that are not ported, plus the port's own,
   in order: the VI line, the non-canonical MCMC line, and the canonical
   line with and without a cached torch-CPU anchor;
-* the refusals: ``--taylor-compositions on`` and ``--anchor`` raise
-  ``NotImplementedError``; without CUDA and without ``--device``, ``main``
-  raises.
+* ``--taylor-compositions on`` and ``--anchor`` (kept for the record, as
+  in ``bench.py``) run and print the non-canonical MCMC line; without CUDA
+  and without ``--device``, ``main`` raises.
 """
 
 import ast
@@ -220,12 +220,35 @@ def test_vi_remat_rule():
     assert not bench.vi_remat((128,) * 3) and bench.vi_remat((256,) * 3)
 
 
-# ---- the refusals ----------------------------------------------------------------
+# ---- the record-keeping flags -------------------------------------------------------
 
-@pytest.mark.parametrize("argv", [["--taylor-compositions", "on"], ["--anchor"]])
-def test_unported_flags_raise(small_bench, argv):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        bench.main(["--device", "cpu", "--dims", "16", *argv])
+@pytest.mark.parametrize("argv", [["--taylor-compositions", "on"],
+                                  ["--anchor", "--anchor-radius", "3"]])
+def test_taylor_and_anchor_flags_run(small_bench, monkeypatch, capsys, argv):
+    """``--taylor-compositions on`` and ``--anchor`` run at 16³ and print
+    ``bench.py``'s non-canonical MCMC line, its keys in its order; the
+    flags reach the model and the chunk (the "taylor" form; an anchored
+    chunk at the given radius)."""
+    from ir_sgmcmc_tpu_torch import engine
+
+    seen = {}
+    real = engine.make_mcmc_chunk
+
+    def spy(bundle, *args, **kw):
+        seen.update(form=bundle.transformation.composition_form, **kw)
+        return real(bundle, *args, **kw)
+
+    monkeypatch.setattr(engine, "make_mcmc_chunk", spy)
+    line = bench.main(["--device", "cpu", "--dims", "16", *argv])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == line
+    keys = [k for k in _root_lines()["mcmc"] if k not in NOT_PORTED]
+    assert list(line) == keys + ADDED["mcmc"]
+    assert math.isfinite(line["value"]) and line["value"] > 0
+    if "--anchor" in argv:
+        assert seen["anchored"] is True and seen["anchor_radius"] == 3
+        assert seen["form"] == "split"
+    else:
+        assert seen["anchored"] is False and seen["form"] == "taylor"
 
 
 def test_no_cuda_without_device_raises(small_bench, monkeypatch):

@@ -62,17 +62,18 @@ def test_svf_plan_matches_jax(kw):
         assert getattr(t, name) == getattr(j, name), name
 
 
-def test_svf_unported_forms_raise():
-    """The "warp" form and squarings above ``taylor_threshold`` are ported
-    (kernels B5-B7), so are ``use_gather``, SVFFD, the B-spline FFD, SVF_2D
-    and the VI step's ``remat``; "taylor" and the anchored residual warp
-    still raise, naming ROADMAP."""
+def test_svf_forms_and_the_anchored_warp_build():
+    """Every composition form builds: "warp" and squarings above
+    ``taylor_threshold`` (kernels B5-B7), "taylor" (plain stencils), and so
+    do ``use_gather``, SVFFD, the B-spline FFD, SVF_2D, the VI step's
+    ``remat`` and the anchored residual warp of the forward chain (held to
+    the JAX package in tests/test_torch_taylor.py and
+    tests/test_torch_anchor.py)."""
     dims = (8, 8, 8)
     assert TSVF3D(dims, taylor_compositions="warp").composition_form == "warp"
     low = TSVF3D(dims, taylor_threshold=0.1)
     assert low.no_squarings > low.no_taylor  # warp squarings
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSVF3D(dims, taylor_compositions="taylor")
+    assert TSVF3D(dims, taylor_compositions="taylor").composition_form == "taylor"
     assert TSVF3D(dims, use_gather=True).use_gather
     assert isinstance(make_transformation("SVF_3D", dims), TSVF3D)
     for kind in ("SVFFD_3D", "Cubic_B_spline_FFD_3D"):
@@ -84,8 +85,12 @@ def test_svf_unported_forms_raise():
                          proportion_prior=tdist.DirichletPrior(4, 0.5),
                          reg_loss=treg.RegLossLogNormal(dims=dims), transformation=TSVF3D(dims))
     assert callable(make_vi_step(bundle, None, None, None, {"mask": None}, {}, remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_sample(bundle, {}, {}, torch.zeros((1, 3) + dims), None, anchor={})
+    zeros = torch.zeros((1, 3) + dims)
+    anchor = {"W0": torch.zeros((1,) + dims), "d0": zeros,
+              "Jinv": torch.eye(3).reshape(1, 3, 3, 1, 1, 1).expand(1, 3, 3, *dims)}
+    im = {"im": torch.zeros(dims), "mask": torch.ones(dims, dtype=torch.bool)}
+    out = forward_sample(bundle, im, im, zeros, zeros, anchor=anchor)
+    assert out["warped"].shape == (1,) + dims and int(out["sat_resid"][0]) == 0
 
 
 def _velocity(rng, dims, peak, batch=2, passes=6):

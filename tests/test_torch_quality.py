@@ -12,7 +12,7 @@
   from known arrays: correlation, RMSE, ratio and verdicts as computed by
   hand here.
 * ``selftest.main()`` without a card prints ``ok: false`` and exits 2;
-  ``scripts.ablate_integrator`` writes a refused stage's error row;
+  ``scripts.ablate_integrator`` runs the ``taylor_comp1`` stage to a report row;
   ``scripts.trace_summary`` groups a Chrome trace's device events.
 """
 
@@ -213,18 +213,20 @@ def test_selftest_without_card_exits_2(monkeypatch, capsys):
         selftest.run_selftest("cpu")
 
 
-def test_ablation_refused_stage_writes_error_row(tmp_path):
-    """A stage the port refuses by rule (Taylor compositions) fails in its
-    subprocess; the ablation script writes its error row, which the JAX package's
-    summariser skips."""
+def test_ablation_taylor_comp1_stage_runs(tmp_path):
+    """The JAX script's ``taylor_comp1`` stage (Taylor compositions at
+    threshold 1.0) runs its ``quality_eval`` subprocess to a report row, not
+    an error row, whether its MCMC phase finishes or a guard aborts it (the
+    JAX package's rows at 128³ abort)."""
     from ir_sgmcmc_tpu_torch.scripts import ablate_integrator
 
     out = tmp_path / "ablation.jsonl"
     ablate_integrator.main(["--out", str(out), "--stages", "taylor_comp1", "--seeds", "0",
-                            "--dims", "8", "--device", "cpu"])
+                            "--dims", "8", "--vi-iters", "4", "--burn-in", "2", "--samples",
+                            "4", "--device", "cpu"])
     (row,) = [json.loads(x) for x in out.read_text().splitlines()]
-    assert row["stage"] == "taylor_comp1" and row["error"] is True
-    assert "NotImplementedError" in row["stderr_tail"] and "taylor" in row["stderr_tail"]
+    assert row["stage"] == "taylor_comp1" and "error" not in row, row
+    assert row["taylor_compositions"] == "on" and row["taylor_threshold"] == 1.0
 
 
 def test_trace_summary_groups_device_events(tmp_path, capsys):

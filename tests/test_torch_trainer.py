@@ -1,7 +1,7 @@
 """The port's trainer, config and CLI end to end on the CPU: a twin of each
 test of ``tests/test_trainer.py`` at the same 12³ settings (the JAX
 trainer's Pallas fallback has none: the port has no kernel fallback), the
-CLI, and the options the port refuses with their ROADMAP items.
+CLI, and the opt-in options (``mcmc_anchor`` among them) run end to end.
 
 Imports nothing of JAX, so it also runs on a host without it.
 """
@@ -380,22 +380,8 @@ def _apply(config, change: dict):
     return config
 
 
-UNPORTED = {
-    "mcmc_anchor": ({"trainer": {"mcmc_anchor": True}}, "Not ported"),
-}
-
-
-@pytest.mark.parametrize("option", sorted(UNPORTED))
-def test_unported_options_raise(tmp_path, option):
-    """Each option the port does not have raises NotImplementedError naming
-    its ROADMAP item, instead of quietly doing something else."""
-    change, item = UNPORTED[option]
-    config = _apply(_demo_cfg(tmp_path), change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}|{item}.*ROADMAP"):
-        _trainer(config)
-
-
 PORTED = {
+    "mcmc_anchor": {"trainer": {"mcmc_anchor": True}},
     "svffd": {"transformation_module": {"type": "SVFFD_3D", "args": {"cps": [2, 2, 2]}}},
     "bspline_ffd": {"transformation_module": {"type": "Cubic_B_spline_FFD_3D",
                                               "args": {"cps": [4, 4, 4]}}},
