@@ -1,0 +1,7 @@
+"""One minus device busy time per step over the untraced wall time per step, in %. (step: one SG-MCMC transition.)"""
+
+from perfbench import layers
+
+
+def read(ctx):
+    return layers.device_idle_share(ctx, "mcmc")

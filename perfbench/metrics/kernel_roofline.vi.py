@@ -1,0 +1,7 @@
+"""The hand-written kernels' least time at their shapes over their device time, in %. (step: one VI iteration.)"""
+
+from perfbench import layers
+
+
+def read(ctx):
+    return layers.kernel_roofline(ctx, "vi")

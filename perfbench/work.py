@@ -1,0 +1,116 @@
+"""The least work of the hand-written kernels and of a whole step, counted
+from shapes.  Frozen here so that a later change to the program cannot
+move the yardstick.
+
+* :func:`kernel_bound_ms`: the port's ``Kernel.bound_ms`` formulas (each
+  input read once, each output written once, the operations of the
+  kernel's formula), per launch at the main operand's shape ``(B, C, D,
+  H, W)``, over the H100 SXM's published peaks.
+* :func:`step_work`: the operations and bytes one SG-MCMC transition or
+  VI iteration needs, from the algorithm's stages and shapes alone, so
+  that it bounds the step whatever kernels implement it.
+"""
+
+from __future__ import annotations
+
+import math
+
+# NVIDIA's data sheet, H100 SXM at its 700 W limit: HBM bandwidth and the
+# float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+_M = 12 / 8 ** 3  # B3/B4's block means: 3 int32 per 8³ voxels
+# kind -> (bytes per voxel, flops per voxel) of the main operand at C channels
+KERNELS = {
+    "B1": (lambda C: 4 * (2 * C + 3), lambda C: 19 * C),
+    "B2": (lambda C: 4 * (3 * C + 6), lambda C: 39 * C),
+    "B1-bf16": (lambda C: 2 * (2 * C + 3), lambda C: 19 * C),
+    "B2-bf16": (lambda C: 2 * (3 * C + 6), lambda C: 39 * C),
+    "B3": (lambda C: 4 * (2 * C + 3) + _M, lambda C: 24 + 15 * C),
+    "B4": (lambda C: 4 * (2 * C + 6) + _M, lambda C: 64 + 16 * C),
+    "B5": (lambda C: 4 * (2 * C + 3), lambda C: 24 + 15 * C),
+    "B6": (lambda C: 4 * (2 * C + 6), lambda C: 64 + 16 * C),
+    "B7": (lambda C: 4 * (2 * C + 3), lambda C: 18 + 16 * C),
+}
+
+
+def kernel_bound_ms(kind: str, shape) -> float:
+    """The least time of one launch of ``kind`` at ``shape``: the larger of
+    its bytes over the HBM bandwidth and its operations over the f32
+    rate."""
+    B, C, D, H, W = shape
+    n = B * D * H * W
+    per_byte, per_flop = KERNELS[kind]
+    return 1e3 * max(n * per_byte(C) / HBM_BYTES_PER_S, n * per_flop(C) / F32_FLOP_PER_S)
+
+
+def kernel_shapes(phase: str, rows: int, dims) -> dict:
+    """The main operand of each hand-written kernel on the ``"post"``
+    paths the cells run: the split compositions on the displacement
+    ``(rows, 3, …)``, the block warp on the image ``(rows, 1, …)``."""
+    field = (rows, 3) + tuple(dims)
+    image = (rows, 1) + tuple(dims)
+    return {"B1": field, "B2": field, "B1-bf16": field, "B2-bf16": field,
+            "B3": image, "B4": image}
+
+
+def step_work(phase: str, cfg: dict, pairs: int, chains: int) -> tuple:
+    """``(flops, bytes)`` that one step of ``pairs`` pairs needs at least.
+
+    Operations per voxel and stage, forward: Sobolev smoothing, three
+    separable passes of ``2s + 1`` taps on 3 channels; the B-spline spread
+    of SVFFD, three separable contractions; each Taylor squaring 30 (per
+    axis a difference, a product and a sum on 3 channels, and the
+    doubling); each split composition 60 (B1's 19 per channel, and the
+    added offset); the trilinear warp 43; the local contrast
+    normalisation of the warped image 22; the mixture's log-density 36;
+    the regulariser's energy 27 per field voxel.  The gradient of that
+    differentiated chain counts twice its forward.  Beside it: virtual
+    decimation 47, the mixture's Adam step 72 per voxel; SG-MCMC the
+    Langevin step 18 per field voxel and the Welford update 21; VI the
+    draw 15 and the entropy 24 per field voxel and sample, and Adam on
+    q(v) 108 per field voxel.
+
+    Bytes: the state read once and written once (SG-MCMC: ``v`` and the
+    preconditioner read, ``v`` written, the Welford mean and M2 read and
+    written; VI: q(v)'s three fields and their two Adam moments read and
+    written) and both images and the mask read once.
+    """
+    dims = tuple(int(n) for n in cfg["data_loader"]["args"]["dims"])
+    n = math.prod(dims)
+    targs = cfg["transformation_module"]["args"]
+    svffd = cfg["transformation_module"]["type"] in ("SVFFD_3D", "SVFFD3D")
+    if svffd:
+        cps = [int(c) for c in targs["cps"]]
+        ctrl = tuple(int(math.ceil((s - 1) / c)) + 3 for s, c in zip(dims, cps))
+    else:
+        ctrl = dims
+    nf = math.prod(ctrl)
+    no_steps, max_disp = int(targs.get("no_steps", 12)), int(targs.get("max_disp", 8))
+    e = max(0, math.ceil(math.log2(max_disp))) if max_disp > 1 else 0
+    sob = cfg.get("Sobolev_grad", {})
+    smooth = 3 * 3 * (2 * int(sob["s"]) + 1) * 2 * nf if sob.get("enabled") else 0
+    spread = 0
+    if svffd:
+        (cd, ch, cw), (d, h, w) = ctrl, dims
+        spread = 2 * 3 * (cd * d * ch * cw + d * ch * h * cw + d * h * cw * w)
+    chain = spread + n * (30 * (no_steps - e) + 60 * (2 ** e - 1) + 43 + 22 + 36) + 27 * nf
+    per_row = smooth + 3 * chain + n * (47 + 72)
+    if phase == "mcmc":
+        rows = pairs * chains
+        flops = rows * (per_row + 18 * nf + 21 * n)
+        moved = rows * (4 * 3 * nf * 3 + 4 * 3 * n * 4 + 9 * n)
+    else:
+        rows = 2 * pairs
+        flops = rows * (per_row + (15 + 24) * nf) + pairs * 108 * nf
+        moved = pairs * (2 * 9 * 4 * 3 * nf + 9 * n)
+    return flops, moved
+
+
+def least_step_s(phase: str, cfg: dict, pairs: int, chains: int) -> tuple:
+    """The least time of one step and what bounds it (``"operations"`` or
+    ``"bytes"``)."""
+    flops, moved = step_work(phase, cfg, pairs, chains)
+    by_ops, by_bytes = flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
