@@ -13,8 +13,9 @@ CUDA card, beside the smoke run (``chip_smoke.py``).
    - ``one period``: the log periods set to the phases' lengths (one VI
      and one MCMC period: no mid-phase evaluation, ASD, samples or
      checkpoint on the writer thread while the steps run).
-   Each prints the phases' wall times, the trainer's host-time spans
-   (``Trainer.timings``) and the wall time of each logged period.
+   Each prints the phases' wall times and the wall time of each logged
+   period (a torch profiler around the run shows the trainer's phases as
+   ``record_function`` spans: ``mcmc/chunks``, ``writer/checkpoint``, …).
 2. Ten SG-MCMC transitions at 128³ x 2 chains (``make_mcmc_chunk``, the
    smoke run's phase-3 problem), alone and while another thread runs one
    job of the trainer's writer thread: ``save_checkpoint`` of the chain
@@ -79,9 +80,6 @@ def trainer_variants(dev) -> None:
                       f"(mcmc_time_s {s['mcmc_time_s']:.3f}), speed tests "
                       f"{s['mcmc_samples_per_sec']:.3f} samples/sec, "
                       f"{s['vi_samples_per_sec']:.3f} VI draws/sec", flush=True)
-                print(f"variant {name!r} round {rnd}: host_s "
-                      f"{json.dumps({k: round(v, 3) for k, v in rec['host_s'].items()})}",
-                      flush=True)
                 print(f"variant {name!r} round {rnd}: periods {handler.lines}", flush=True)
     finally:
         logging.getLogger().removeHandler(handler)

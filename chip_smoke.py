@@ -66,8 +66,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``tests/test_trainer.py::test_trainer_end_to_end``, B1-B5 launched and
    B6/B7 not, and both checkpoints loaded back on the card into the port's
    states; it prints one ``trainer:`` line with the summary, each phase's
-   wall time and launches (GMM warm-up, VI, VI test, MCMC), the trainer's
-   own host-time breakdown (``Trainer.timings``) and the peak memory;
+   wall time and launches (GMM warm-up, VI, VI test, MCMC) and the peak
+   memory;
 8. the SVFFD model of experiment 5 (cps 2, a 67³ control grid, block
    radius 3, "post"): (a) 1 + 10 transitions over 2 chains and GMM warm-up
    + 1 + 10 VI steps at 128³, each with B1 7, B2 7, B3 1, B4 1 (B5-B7 0)
@@ -1316,7 +1316,7 @@ def phase_trainer(dev, extra=(), config="configs/demo/config_synthetic.json",
         "launches": r["launches"],
         "vi_iters_per_sec_in_phase": 20 / phases["VI"]["s"],
         "mcmc_samples_per_sec_in_phase": t.no_chains * 30 / s["mcmc_time_s"],
-        "host_s": t.timings, "peak_bytes": r["peak_bytes"],
+        "peak_bytes": r["peak_bytes"],
     }
     print(f"{tag}: {json.dumps(record, default=float)}", flush=True)
     return record
@@ -1556,7 +1556,7 @@ def phase_pairs_trainer(dev) -> dict:
         "mcmc_aggregate_samples_per_sec": s0["mcmc_aggregate_samples_per_sec"],
         "phase_s": {name: p["s"] for name, p in phases.items()},
         "phase_launches": {name: p["launches"] for name, p in phases.items()},
-        "launches": r["launches"], "host_s": t.timings, "peak_bytes": r["peak_bytes"],
+        "launches": r["launches"], "peak_bytes": r["peak_bytes"],
         "pairs_per_batch": t.pair_groups,
     }
     print(f"{tag}: {json.dumps(record, default=float)}", flush=True)

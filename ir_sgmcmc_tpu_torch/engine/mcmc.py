@@ -34,6 +34,8 @@ from ..ops.grids import inv_jacobian
 from ..ops.resample import grid_sample
 from ..ops.stencil import gradient
 from ..optim.adam_decay import AdamDecayState, apply_updates
+from ..utils.spans import (BOOKKEEPING, INTEGRATE, LIKELIHOOD, MCMC_STEP, REGULARISER, SMOOTH,
+                           UPDATE, WARP, span)
 from .bundle import ModelBundle
 from .vi import forward_sample, gmm_adam_step, key_generator, vd_alpha
 
@@ -208,14 +210,17 @@ def make_chain_anchor(bundle: ModelBundle, moving: dict, anchor_mode: str = "tay
 
     def anchor(v_unsmoothed: torch.Tensor) -> dict:
         with torch.no_grad():
-            v = bundle.smooth(v_unsmoothed)
-            transformation, d0, _ = bundle.transformation.integrate(v)
-            w0 = grid_sample(moving["im"], transformation)
-            eye = torch.eye(3, dtype=d0.dtype, device=d0.device).reshape(3, 3, 1, 1, 1)
-            out = {"W0": w0, "d0": d0,
-                   "Jinv": torch.clamp(inv_jacobian(eye + gradient(d0)), -3.0, 3.0)}
-            if anchor_mode == "taylor":
-                out["GW0"] = gradient(w0.unsqueeze(-4))[:, 0]
+            with span(SMOOTH):
+                v = bundle.smooth(v_unsmoothed)
+            with span(INTEGRATE):
+                transformation, d0, _ = bundle.transformation.integrate(v)
+            with span(WARP):
+                w0 = grid_sample(moving["im"], transformation)
+                eye = torch.eye(3, dtype=d0.dtype, device=d0.device).reshape(3, 3, 1, 1, 1)
+                out = {"W0": w0, "d0": d0,
+                       "Jinv": torch.clamp(inv_jacobian(eye + gradient(d0)), -3.0, 3.0)}
+                if anchor_mode == "taylor":
+                    out["GW0"] = gradient(w0.unsqueeze(-4))[:, 0]
         return out
 
     return anchor
@@ -255,73 +260,82 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
         out = forward_sample(bundle, fixed, moving, v_noised, unif, anchor=anchor,
                              per_row=per_row, anchor_radius=anchor_radius)
         res = out["residuals"]
-        if shared:
-            # one GMM, C sequential detached Adam steps: chain c's data term
-            # sees the GMM after its own step
-            datas, alphas = [], []
-            for c in range(res.shape[0]):
-                a = vd_alpha(bundle, gmm, res[c], mask)
+        with span(LIKELIHOOD):
+            if shared:
+                # one GMM, C sequential detached Adam steps: chain c's data
+                # term sees the GMM after its own step
+                datas, alphas = [], []
+                for c in range(res.shape[0]):
+                    a = vd_alpha(bundle, gmm, res[c], mask)
+                    gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                                       res[c], mask, a)
+                    datas.append(bundle.gmm.masked_nll(gmm, res[c], mask) * a)
+                    alphas.append(a)
+                data_c, alpha = torch.stack(datas), torch.stack(alphas)
+                data_total = data_c.sum() - bundle.gmm_prior_terms(gmm)
+            else:
+                alpha = vd_alpha(bundle, gmm, res, mask)
                 gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
-                                                   res[c], mask, a)
-                datas.append(bundle.gmm.masked_nll(gmm, res[c], mask) * a)
-                alphas.append(a)
-            data_c, alpha = torch.stack(datas), torch.stack(alphas)
-            data_total = data_c.sum() - bundle.gmm_prior_terms(gmm)
-        else:
-            alpha = vd_alpha(bundle, gmm, res, mask)
-            gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
-                                               res, mask, alpha)
-            data_c = bundle.gmm.masked_nll(gmm, res, mask) * alpha
-            data_c = data_c - bundle.gmm_prior_terms(gmm)
-            data_total = data_c
-        reg, log_y, loc_prior, per_set = _reg_terms(bundle, reg_p, out["v"])
-        reg_c = reg if shared else reg - loc_prior - per_set
-        # shared: the hyperpriors enter once per transition
-        reg_total = (reg.sum() - loc_prior.sum() - per_set) if shared else reg_c
-        aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_c,
-               "reg_term": reg_c, "vd_alpha": alpha,
-               "reg_energy": torch.exp(log_y), "ndv": out["ndv"],
-               "sat": out["sat"], "sat_resid": out["sat_resid"],
-               "displacement": out["displacement"]}
-        return data_total + reg_total, aux
+                                                   res, mask, alpha)
+                data_c = bundle.gmm.masked_nll(gmm, res, mask) * alpha
+                data_c = data_c - bundle.gmm_prior_terms(gmm)
+                data_total = data_c
+        with span(REGULARISER):
+            reg, log_y, loc_prior, per_set = _reg_terms(bundle, reg_p, out["v"])
+            reg_c = reg if shared else reg - loc_prior - per_set
+            # shared: the hyperpriors enter once per transition
+            reg_total = (reg.sum() - loc_prior.sum() - per_set) if shared else reg_c
+        with span(BOOKKEEPING):
+            aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_c,
+                   "reg_term": reg_c, "vd_alpha": alpha,
+                   "reg_energy": torch.exp(log_y), "ndv": out["ndv"],
+                   "sat": out["sat"], "sat_resid": out["sat_resid"],
+                   "displacement": out["displacement"]}
+        with span(UPDATE):
+            return data_total + reg_total, aux
 
     learnable_reg = bundle.reg_loss.learnable and len(bundle.reg_loss.param_names) > 0
 
     def transition(state: MCMCState, collect_weight: float, noise=None, anchor=None):
-        if noise is None:
-            noise = _chain_noise(state, bundle.uniform_noise_alpha, bundle.dims)
-        eps, unif = noise
+        with span(UPDATE):
+            if noise is None:
+                noise = _chain_noise(state, bundle.uniform_noise_alpha, bundle.dims)
+            eps, unif = noise
         with torch.enable_grad():
-            v_noised = (state.v + langevin_noise(None, state.sigma, tau, eps)
-                        ).detach().requires_grad_(True)
+            with span(UPDATE):
+                v_noised = (state.v + langevin_noise(None, state.sigma, tau, eps)
+                            ).detach().requires_grad_(True)
             reg_keys = list(state.reg)
             reg_p = {k: state.reg[k].detach().requires_grad_(learnable_reg)
                      for k in reg_keys}
             loss, aux = potential(v_noised, reg_p, state.gmm, state.opt_gmm, unif, anchor)
             wrt = [v_noised] + ([reg_p[k] for k in reg_keys] if learnable_reg else [])
-            grads = torch.autograd.grad(loss.sum(), wrt)
-        g_v = grads[0]
-        v_next = v_noised.detach() - tau * state.sigma ** 2 * g_v
+            with span(UPDATE):
+                grads = torch.autograd.grad(loss.sum(), wrt)
+        with span(UPDATE):
+            g_v = grads[0]
+            v_next = v_noised.detach() - tau * state.sigma ** 2 * g_v
 
-        reg_new, opt_reg_state = state.reg, state.opt_reg
-        if learnable_reg:
-            # shared: one step on the gradient summed over the chains
-            upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[1:])),
-                                                state.opt_reg)
-            reg_new = apply_updates({k: t.detach() for k, t in state.reg.items()}, upd)
+            reg_new, opt_reg_state = state.reg, state.opt_reg
+            if learnable_reg:
+                # shared: one step on the gradient summed over the chains
+                upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[1:])),
+                                                    state.opt_reg)
+                reg_new = apply_updates({k: t.detach() for k, t in state.reg.items()}, upd)
 
-        disp = aux["displacement"].detach()
-        new_state = state._replace(
-            v=v_next, gmm=aux["gmm"], reg=reg_new, opt_gmm=aux["opt_gmm"],
-            opt_reg=opt_reg_state,
-            welford=welford_update(state.welford, disp, collect_weight))
-        metrics = {k: aux[k].detach() for k in (
-            "data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat",
-            "sat_resid")}
-        C = state.v.shape[0]
-        for name, f in (("gmm_scales", GMM.scales), ("gmm_proportions", GMM.proportions)):
-            val = f(aux["gmm"])
-            metrics[name] = val.expand((C,) + tuple(val.shape)) if shared else val
+        with span(BOOKKEEPING):
+            disp = aux["displacement"].detach()
+            new_state = state._replace(
+                v=v_next, gmm=aux["gmm"], reg=reg_new, opt_gmm=aux["opt_gmm"],
+                opt_reg=opt_reg_state,
+                welford=welford_update(state.welford, disp, collect_weight))
+            metrics = {k: aux[k].detach() for k in (
+                "data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat",
+                "sat_resid")}
+            C = state.v.shape[0]
+            for name, f in (("gmm_scales", GMM.scales), ("gmm_proportions", GMM.proportions)):
+                val = f(aux["gmm"])
+                metrics[name] = val.expand((C,) + tuple(val.shape)) if shared else val
         return new_state, metrics
 
     return transition
@@ -457,14 +471,15 @@ def _sgld_step(transition, burn_in: int, thin: int, anchor_fn=None, period: int 
     taken, anchor = [0], [None]
 
     def step(state: MCMCState):
-        if anchor_fn is not None and taken[0] % period == 0:
-            anchor[0] = anchor_fn(state.v)
-        taken[0] += 1
-        n = state.step + 1
-        state, metrics = transition(state, _sgld_weight(n, burn_in, thin),
-                                    noise=None if feed is None else next(feed),
-                                    anchor=anchor[0])
-        return state._replace(step=n), metrics
+        with span(MCMC_STEP):
+            if anchor_fn is not None and taken[0] % period == 0:
+                anchor[0] = anchor_fn(state.v)
+            taken[0] += 1
+            n = state.step + 1
+            state, metrics = transition(state, _sgld_weight(n, burn_in, thin),
+                                        noise=None if feed is None else next(feed),
+                                        anchor=anchor[0])
+            return state._replace(step=n), metrics
 
     return step
 

@@ -43,6 +43,7 @@ import torch
 
 from .._device import resolve_devices
 from ..parallel.mesh import Mesh, Sharded, place, run_in_turns
+from ..utils.spans import BOOKKEEPING, span
 from .mcmc import MCMCState, make_mcmc_chunk
 from .vi import VIState, make_vi_chunk, make_vi_step
 
@@ -153,7 +154,9 @@ def _in_groups(run, group: int | None):
         parts = [run(*(take_pairs(t, slice(i, i + g)) for t in (state, fixed_st, moving_st)))
                  for i in range(0, n_pairs, g)]
         states, metrics = zip(*parts)
-        return _cat(list(states)), {k: torch.cat([m[k] for m in metrics]) for k in metrics[0]}
+        with span(BOOKKEEPING):
+            return _cat(list(states)), {k: torch.cat([m[k] for m in metrics])
+                                        for k in metrics[0]}
 
     return run_all
 
@@ -234,13 +237,16 @@ def make_pair_mcmc_chunk(bundle, opt_gmm, opt_reg, tau: float, fixed_st: dict,
 
     def run(state: MCMCState, fixed: dict, moving: dict):
         n_pairs, no_chains = state.v.shape[:2]
+        with span(BOOKKEEPING):
+            fixed_rows, moving_rows = chain_rows(fixed, no_chains), chain_rows(moving, no_chains)
+            folded = fold_chains(state)
         folded, metrics = make_mcmc_chunk(
-            bundle, opt_gmm, opt_reg, tau, chain_rows(fixed, no_chains),
-            chain_rows(moving, no_chains), chunk, burn_in, thin,
-            per_row=True)(fold_chains(state))
-        return unfold_chains(folded, n_pairs), {
-            k: m.reshape((chunk, n_pairs, no_chains) + tuple(m.shape[2:])).transpose(0, 1)
-            for k, m in metrics.items()}
+            bundle, opt_gmm, opt_reg, tau, fixed_rows, moving_rows, chunk, burn_in, thin,
+            per_row=True)(folded)
+        with span(BOOKKEEPING):
+            return unfold_chains(folded, n_pairs), {
+                k: m.reshape((chunk, n_pairs, no_chains) + tuple(m.shape[2:])).transpose(0, 1)
+                for k, m in metrics.items()}
 
     run_all = _in_groups(run, group)
     return lambda state: run_all(state, fixed_st, moving_st)

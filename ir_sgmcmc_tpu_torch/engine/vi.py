@@ -36,6 +36,8 @@ from ..ops.resample import (block_residual_overflow, grid_sample, grid_sample_ea
                             warp_block_gather, warp_bounded)
 from ..ops.stencil import gradient
 from ..optim.adam_decay import AdamDecayState, apply_updates
+from ..utils.spans import (BOOKKEEPING, INTEGRATE, LIKELIHOOD, REGULARISER, SMOOTH, UPDATE,
+                           VI_STEP, WARP, span)
 from .bundle import ModelBundle
 
 _GOLDEN = 0x9E3779B97F4A7C15
@@ -137,64 +139,80 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
     im = moving["im"]
     if per_row and im.ndim != 4:
         raise ValueError(f"per-row images are (C, D, H, W), got {tuple(im.shape)}")
-    v = bundle.smooth(v_unsmoothed)
-    zero = torch.zeros(v.shape[:-4], dtype=torch.int64, device=v.device)
+    with span(SMOOTH):
+        v = bundle.smooth(v_unsmoothed)
+    with span(BOOKKEEPING):
+        zero = torch.zeros(v.shape[:-4], dtype=torch.int64, device=v.device)
     anchor_sat = zero
 
     def sample(t):
         return grid_sample_each(im[:, None], t)[:, 0] if per_row else grid_sample(im, t)
 
     if anchor is not None and not gather and bundle.noise_scheme == "post":
-        transformation, displacement, _ = tr.integrate(v)
+        with span(INTEGRATE):
+            transformation, displacement, _ = tr.integrate(v)
         R = int(anchor_radius)
-        delta, anchor_sat = anchored_residual(displacement, None if alpha is None else noise,
-                                              anchor, R)
-        if "GW0" in anchor:
-            warped = anchor["W0"] + torch.sum(anchor["GW0"] * delta, dim=-4)
-        else:
-            warped = warp_bounded(anchor["W0"].unsqueeze(-4), delta, R)[:, 0]
+        with span(WARP):
+            delta, anchor_sat = anchored_residual(
+                displacement, None if alpha is None else noise, anchor, R)
+            if "GW0" in anchor:
+                warped = anchor["W0"] + torch.sum(anchor["GW0"] * delta, dim=-4)
+            else:
+                warped = warp_bounded(anchor["W0"].unsqueeze(-4), delta, R)[:, 0]
         clamp_bound = float(tr.displacement_clamp_bound)
     elif gather:
-        transformation, displacement = tr(v)
-        t = transformation
-        if alpha is not None:
-            t = t + voxel_to_normalised(noise)
-        warped = sample(t)
+        with span(INTEGRATE):
+            transformation, displacement = tr(v)
+        with span(WARP):
+            t = transformation
+            if alpha is not None:
+                t = t + voxel_to_normalised(noise)
+            warped = sample(t)
         clamp_bound = math.inf  # no warp of this path clamps
     elif post_noise:
-        transformation, displacement, _ = tr.integrate(v)
+        with span(INTEGRATE):
+            transformation, displacement, _ = tr.integrate(v)
         if block_warp_engages(bundle):
             block = int(bundle.block_size)
-            d_total = displacement + noise
             radius = int(bundle.block_radius)
             bound = block_warp_bound(bundle)
-            n = d_total.shape[0]
-            vol = (im[:, None] if per_row else im.expand((n, 1) + tuple(bundle.dims)))
-            vol = vol.contiguous()
-            warped = warp_block_gather(vol, d_total, bound, radius, block)[:, 0]
-            anchor_sat = block_residual_overflow(d_total.detach(), bound, radius, block)
+            with span(WARP):
+                d_total = displacement + noise
+                n = d_total.shape[0]
+                vol = (im[:, None] if per_row else im.expand((n, 1) + tuple(bundle.dims)))
+                vol = vol.contiguous()
+                warped = warp_block_gather(vol, d_total, bound, radius, block)[:, 0]
+            with span(BOOKKEEPING):
+                anchor_sat = block_residual_overflow(d_total.detach(), bound, radius, block)
         else:
-            warped = sample(transformation + voxel_to_normalised(noise))
+            with span(WARP):
+                warped = sample(transformation + voxel_to_normalised(noise))
         clamp_bound = float(tr.displacement_clamp_bound)
     else:
-        if per_row:  # each row's image rides the cascade as its one channel
-            transformation, displacement, warped = tr.integrate(v, im=im[:, None],
-                                                                per_row=True)
-            warped = warped[:, 0]
-        else:
-            transformation, displacement, warped = tr.integrate(v, im=im)
+        with span(INTEGRATE):
+            if per_row:  # each row's image rides the cascade as its one channel
+                transformation, displacement, warped = tr.integrate(v, im=im[:, None],
+                                                                    per_row=True)
+                warped = warped[:, 0]
+            else:
+                transformation, displacement, warped = tr.integrate(v, im=im)
         if alpha is not None:
             # the radius covers the magnitude: alpha > 1 is not cut to ±1
             radius = max(1, math.ceil(float(alpha)))
-            warped = warp_bounded(warped[:, None], noise, radius)[:, 0]
+            with span(WARP):
+                warped = warp_bounded(warped[:, None], noise, radius)[:, 0]
         clamp_bound = float(tr.image_clamp_bound)
-    ndv = count_folds(transformation.detach())
-    residuals = bundle.gmm.residual_map(fixed["im"], warped)
-    if math.isinf(clamp_bound):
-        sat = zero
-    else:
-        d = displacement.detach()
-        sat = torch.sum(torch.any(torch.abs(d) >= clamp_bound, dim=-4), dim=(-3, -2, -1))
+    with span(BOOKKEEPING):
+        ndv = count_folds(transformation.detach())
+    with span(LIKELIHOOD):
+        residuals = bundle.gmm.residual_map(fixed["im"], warped)
+    with span(BOOKKEEPING):
+        if math.isinf(clamp_bound):
+            sat = zero
+        else:
+            d = displacement.detach()
+            sat = torch.sum(torch.any(torch.abs(d) >= clamp_bound, dim=-4), dim=(-3, -2, -1))
+        sat = sat + anchor_sat
     return {
         "v": v,
         "transformation": transformation,
@@ -202,7 +220,7 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
         "warped": warped,
         "residuals": residuals,
         "ndv": ndv,
-        "sat": sat + anchor_sat,
+        "sat": sat,
         "sat_resid": anchor_sat,
     }
 
@@ -325,8 +343,9 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
 
     fixed_rows, moving_rows = fixed, moving
     if pairs:
-        fixed_rows = {**fixed, "im": rows(fixed["im"])}
-        moving_rows = {**moving, "im": rows(moving["im"])}
+        with span(BOOKKEEPING):
+            fixed_rows = {**fixed, "im": rows(fixed["im"])}
+            moving_rows = {**moving, "im": rows(moving["im"])}
 
     def chain_forward(v, unif, reg_p, sl=slice(None)):
         """Per-chain residuals, reg terms and counters of ``v (n, 3, …)``,
@@ -336,11 +355,13 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
             fixed_sl = {**fixed_rows, "im": fixed_rows["im"][sl]}
             moving_sl = {**moving_rows, "im": moving_rows["im"][sl]}
         out = forward_sample(bundle, fixed_sl, moving_sl, v, unif, per_row=pairs)
-        reg, log_y = reg_loss(reg_p, out["v"])
+        with span(REGULARISER):
+            reg, log_y = reg_loss(reg_p, out["v"])
         return out["residuals"], reg, log_y, out["ndv"], out["sat"], out["sat_resid"]
 
     def forward(v, unif, reg_p):
-        reg_rows = {k: rows(t) for k, t in reg_p.items()}
+        with span(BOOKKEEPING):
+            reg_rows = {k: rows(t) for k, t in reg_p.items()}
         if not remat:
             return chain_forward(v, unif, reg_rows)
         keys = list(reg_rows)
@@ -353,53 +374,69 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
                            *(t[i:i + 1] if pairs else t for t in reg_rows.values()),
                            use_reentrant=False)
                 for i in range(v.shape[0])]
-        return tuple(torch.cat(parts) for parts in zip(*outs))
+        with span(BOOKKEEPING):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
 
     def loss_fn(q_v, reg_p, gmm, opt_gmm_state, eps, x, unif):
         lead = tuple(q_v["mu"].shape[:-4])  # (P,) pair-stacked, else ()
         if pairs:
             x = x.reshape(lead + (1,) * 4)
-        s1, s2 = sample_q_v(None, q_v, antithetic=True, eps=eps, x=x)
-        v = torch.stack([s1, s2])
-        outs = forward(v.reshape((-1,) + tuple(v.shape[-4:])), unif, reg_p)
-        # per sample, then per pair: (2, *lead, …)
-        residuals, regs, log_ys, ndv, sat, sat_resid = (
-            t.reshape((2,) + lead + tuple(t.shape[1:])) for t in outs)
-        ents = entropy_sample(v, q_v["mu"], q_v["log_var"], q_v["u"])
+        with span(UPDATE):
+            s1, s2 = sample_q_v(None, q_v, antithetic=True, eps=eps, x=x)
+            v = torch.stack([s1, s2])
+            v_rows = v.reshape((-1,) + tuple(v.shape[-4:]))
+        outs = forward(v_rows, unif, reg_p)
+        with span(BOOKKEEPING):
+            # per sample, then per pair: (2, *lead, …)
+            residuals, regs, log_ys, ndv, sat, sat_resid = (
+                t.reshape((2,) + lead + tuple(t.shape[1:])) for t in outs)
+        with span(REGULARISER):
+            ents = entropy_sample(v, q_v["mu"], q_v["log_var"], q_v["u"])
 
-        datas, alphas = [], []
-        for i in range(2):
-            res = residuals[i]
-            a = vd_alpha(bundle, gmm, res, mask)
-            gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
-                                               res, mask, a)
-            datas.append(bundle.gmm.masked_nll(gmm, res, mask) * a)
-            alphas.append(a)
+        with span(LIKELIHOOD):
+            datas, alphas = [], []
+            for i in range(2):
+                res = residuals[i]
+                a = vd_alpha(bundle, gmm, res, mask)
+                gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                                   res, mask, a)
+                datas.append(bundle.gmm.masked_nll(gmm, res, mask) * a)
+                alphas.append(a)
+            data_term = 0.5 * (datas[0] + datas[1]) - bundle.gmm_prior_terms(gmm)
 
-        data_term = 0.5 * (datas[0] + datas[1]) - bundle.gmm_prior_terms(gmm)
-        reg_term = 0.5 * (regs[0] + regs[1])
-        if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
-            reg_term = reg_term - 0.5 * (bundle.reg_loc_prior(log_ys[0])
-                                         + bundle.reg_loc_prior(log_ys[1]))
-            reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
-        elif learnable_reg and isinstance(reg_loss, RegLossL2):
-            reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
-        entropy_term = 0.5 * (ents[0] + ents[1]) + entropy_analytic(q_v["log_var"], q_v["u"])
-        loss = data_term + reg_term - entropy_term
-        metrics = {
-            "data_term": data_term, "reg_term": reg_term,
-            "entropy_term": entropy_term, "total_loss": loss,
-            "vd_alpha": alphas[0], "reg_energy": torch.exp(log_ys[0]),
-            "ndv": ndv[0], "sat": sat[0], "sat_resid": sat_resid[0],
-        }
+        with span(REGULARISER):
+            reg_term = 0.5 * (regs[0] + regs[1])
+            if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
+                reg_term = reg_term - 0.5 * (bundle.reg_loc_prior(log_ys[0])
+                                             + bundle.reg_loc_prior(log_ys[1]))
+                reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
+            elif learnable_reg and isinstance(reg_loss, RegLossL2):
+                reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
+            entropy_term = (0.5 * (ents[0] + ents[1])
+                            + entropy_analytic(q_v["log_var"], q_v["u"]))
+        with span(UPDATE):
+            loss = data_term + reg_term - entropy_term
+        with span(BOOKKEEPING):
+            metrics = {
+                "data_term": data_term, "reg_term": reg_term,
+                "entropy_term": entropy_term, "total_loss": loss,
+                "vd_alpha": alphas[0], "reg_energy": torch.exp(log_ys[0]),
+                "ndv": ndv[0], "sat": sat[0], "sat_resid": sat_resid[0],
+            }
         return loss, gmm, opt_gmm_state, metrics
 
     def step(state: VIState, noise=None):
-        if noise is None:
-            noise = _step_draws(bundle, state, pairs)
-        eps, x, unif = noise
+        with span(VI_STEP):
+            return _step(state, noise)
+
+    def _step(state: VIState, noise):
+        with span(UPDATE):
+            if noise is None:
+                noise = _step_draws(bundle, state, pairs)
+            eps, x, unif = noise
         if pairs and unif is not None:  # (P, 2, …) -> the rows s·P + i
-            unif = unif.transpose(0, 1).reshape((-1,) + tuple(unif.shape[2:]))
+            with span(BOOKKEEPING):
+                unif = unif.transpose(0, 1).reshape((-1,) + tuple(unif.shape[2:]))
         with torch.enable_grad():
             q_v = {k: state.q_v[k].detach().requires_grad_(True) for k in q_keys}
             reg_keys = list(state.reg)
@@ -410,25 +447,28 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
             wrt = [q_v[k] for k in q_keys]
             if learnable_reg:
                 wrt += [reg_p[k] for k in reg_keys]
-            grads = torch.autograd.grad(loss.sum(), wrt)
+            with span(UPDATE):
+                grads = torch.autograd.grad(loss.sum(), wrt)
 
-        upd, opt_q_v_state = opt_q_v.update(dict(zip(q_keys, grads[:3])), state.opt_q_v)
-        q_v_new = apply_updates({k: state.q_v[k].detach() for k in q_keys}, upd)
-        reg_new, opt_reg_state = state.reg, state.opt_reg
-        if learnable_reg:
-            upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[3:])),
-                                                state.opt_reg)
-            reg_new = apply_updates({k: t.detach() for k, t in state.reg.items()}, upd)
+        with span(UPDATE):
+            upd, opt_q_v_state = opt_q_v.update(dict(zip(q_keys, grads[:3])), state.opt_q_v)
+            q_v_new = apply_updates({k: state.q_v[k].detach() for k in q_keys}, upd)
+            reg_new, opt_reg_state = state.reg, state.opt_reg
+            if learnable_reg:
+                upd, opt_reg_state = opt_reg.update(dict(zip(reg_keys, grads[3:])),
+                                                    state.opt_reg)
+                reg_new = apply_updates({k: t.detach() for k, t in state.reg.items()}, upd)
 
-        metrics = {k: t.detach() for k, t in metrics.items()}
-        # largest voxel-wise L2-norm change per variational parameter
-        for name in q_keys:
-            old_n = torch.linalg.vector_norm(state.q_v[name], dim=-4)
-            new_n = torch.linalg.vector_norm(q_v_new[name], dim=-4)
-            metrics[f"max_update_{name}"] = torch.amax(torch.abs(new_n - old_n),
-                                                       dim=(-3, -2, -1))
-        metrics["gmm_scales"] = GMM.scales(gmm)
-        metrics["gmm_proportions"] = GMM.proportions(gmm)
+        with span(BOOKKEEPING):
+            metrics = {k: t.detach() for k, t in metrics.items()}
+            # largest voxel-wise L2-norm change per variational parameter
+            for name in q_keys:
+                old_n = torch.linalg.vector_norm(state.q_v[name], dim=-4)
+                new_n = torch.linalg.vector_norm(q_v_new[name], dim=-4)
+                metrics[f"max_update_{name}"] = torch.amax(torch.abs(new_n - old_n),
+                                                           dim=(-3, -2, -1))
+            metrics["gmm_scales"] = GMM.scales(gmm)
+            metrics["gmm_proportions"] = GMM.proportions(gmm)
         new_state = VIState(q_v=q_v_new, gmm=gmm, reg=reg_new, opt_q_v=opt_q_v_state,
                             opt_gmm=opt_gmm_state, opt_reg=opt_reg_state,
                             key=state.key, step=state.step + 1)
@@ -447,7 +487,8 @@ def make_vi_chunk(step_fn, chunk: int):
         for k in range(chunk):
             state, metrics = step_fn(state) if noise is None else step_fn(state, noise[k])
             per_step.append(metrics)
-        return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        with span(BOOKKEEPING):
+            return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
     return run
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_devices
+from ..utils.spans import BOOKKEEPING, span
 
 
 class Mesh:
@@ -180,7 +181,8 @@ def run_in_turns(steps: list, states: list, n: int):
         for i, step in enumerate(steps):
             states[i], metrics = step(states[i])
             per_step[i].append(metrics)
-    return states, [{k: torch.stack([m[k] for m in ms]) for k in ms[0]} for ms in per_step]
+    with span(BOOKKEEPING):
+        return states, [{k: torch.stack([m[k] for m in ms]) for k in ms[0]} for ms in per_step]
 
 def make_mesh(n_devices=None, axes=("chain",), devices=None) -> Mesh:
     """A 1D or 2D mesh over the first devices of ``devices`` (default: every

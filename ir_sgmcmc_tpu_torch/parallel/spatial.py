@@ -64,6 +64,7 @@ from ..ops.grids import _axis_scale_on, det_jacobian, identity_grid, inv_jacobia
 from ..ops.resample import grid_sample, grid_sample_each
 from ..ops.stencil import _fwd_diff_axis
 from ..optim.adam_decay import apply_updates
+from ..utils.spans import MCMC_STEP, VI_STEP, span
 from .halo import (HaloWarp, SobolevSmoothSlabs, _exchange_halo_d, allgather_slabs, block_halo,
                    block_residual_overflow_slabs, box_filter3d_slabs, fourier_energy_slabs,
                    fwd_diff_d_slabs, lag1_sums_slabs, split_compose_slabs, sum_slabs,
@@ -582,14 +583,16 @@ def make_mcmc_chunk_sharded(bundle, opt_gmm, opt_reg, tau: float, fixed: Sharded
         taken, anchor = [0], [None]
 
         def step(shards):
-            if anchor_fns[r] is not None and taken[0] % anchor_period == 0:
-                anchor[0] = anchor_fns[r](shards)
-            taken[0] += 1
-            n = shards[0].step + 1
-            noise = None if feed is None else _cut_chain_noise(next(feed), rows[r], r, len(rows))
-            shards, metrics = transitions[r](shards, _sgld_weight(n, burn_in, thin), noise,
-                                             anchor[0])
-            return [s._replace(step=n) for s in shards], metrics
+            with span(MCMC_STEP):
+                if anchor_fns[r] is not None and taken[0] % anchor_period == 0:
+                    anchor[0] = anchor_fns[r](shards)
+                taken[0] += 1
+                n = shards[0].step + 1
+                noise = (None if feed is None
+                         else _cut_chain_noise(next(feed), rows[r], r, len(rows)))
+                shards, metrics = transitions[r](shards, _sgld_weight(n, burn_in, thin), noise,
+                                                 anchor[0])
+                return [s._replace(step=n) for s in shards], metrics
 
         return step
 
@@ -647,6 +650,10 @@ def make_vi_step_sharded(bundle, opt_q_v, opt_gmm, opt_reg, fixed: Sharded, movi
     q_keys = ("mu", "log_var", "u")
 
     def step(state: Sharded, noise=None):
+        with span(VI_STEP):
+            return _step(state, noise)
+
+    def _step(state: Sharded, noise):
         shards = [state[i] for i in row.idx]
         s0 = shards[0]
         if noise is None:

@@ -68,11 +68,6 @@ beats the sharded step.  The sharded steps take every option of the dense
 change nothing, as in the JAX trainer.
 There is no kernel fallback: a kernel that fails to build or launch
 raises.
-
-``Trainer.timings`` accumulates wall seconds per span of host work (the
-engines' chunks, evaluation, period processing, artifact writes, the
-writer thread's work under ``writer/``), for the account of where a
-phase's time goes.
 """
 
 from __future__ import annotations
@@ -80,7 +75,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
-import threading
 import time
 
 import numpy as np
@@ -104,6 +98,7 @@ from .parallel import spatial
 from .utils import savers
 from .utils.checkpoint import load_checkpoint, peek_meta, save_checkpoint
 from .utils.metrics import MetricTracker, calc_metrics, dice
+from .utils.spans import span
 
 
 class TrainerAbort(RuntimeError):
@@ -232,8 +227,6 @@ class Trainer:
             remat = 3 * 4 * int(np.prod(self.bundle.dims)) >= 100 * 1024 * 1024
         self.vi_remat = bool(remat)
         self._refuse_unported()
-        self.timings: dict = {}
-        self._timings_lock = threading.Lock()  # the writer thread adds to it too
         self.pair_groups: list = []  # pairs per batch, per pair-stacked phase on the card
 
         keys = ["data_term", "reg_term", "entropy_term", "total_loss", "vd_alpha",
@@ -284,24 +277,6 @@ class Trainer:
                 and shards <= n_dev and self._spatial_fits(shards)):
             return shards
         return 1
-
-    # ------------------------------------------------------------- timing
-    def _add_time(self, name: str, seconds: float) -> None:
-        with self._timings_lock:
-            self.timings[name] = self.timings.get(name, 0.0) + seconds
-
-    def _timed(self, name: str, fn):
-        """``fn`` with its wall time added to ``timings[name]`` (for closures
-        run on the writer thread)."""
-
-        def run():
-            t0 = time.perf_counter()
-            try:
-                fn()
-            finally:
-                self._add_time(name, time.perf_counter() - t0)
-
-        return run
 
     # ------------------------------------------------------------------ run
     def run(self):
@@ -525,14 +500,13 @@ class Trainer:
         try:
             while done < self.no_iters_vi:
                 this = min(log_period, self.no_iters_vi - done)
-                t_a = time.perf_counter()
-                while this > 0:
-                    n = min(cap, this)
-                    state_st, ms = chunk(n, group)(state_st)
-                    this -= n
-                    done += n
-                last = _host({k: v[:, -1] for k, v in ms.items()})  # (P, …) per pair
-                self._add_time("pairs/vi_steps", time.perf_counter() - t_a)
+                with span("pairs/vi_steps"):
+                    while this > 0:
+                        n = min(cap, this)
+                        state_st, ms = chunk(n, group)(state_st)
+                        this -= n
+                        done += n
+                    last = _host({k: v[:, -1] for k, v in ms.items()})  # (P, …) per pair
                 self.writer.set_step(done)
                 for i in range(n_pairs):
                     self.writer.prefix = f"pair{i}/" if i else ""
@@ -609,11 +583,10 @@ class Trainer:
             while done < total:
                 this = min(log_period, total - done)
                 try:
-                    t_a = time.perf_counter()
-                    mcmc_st, ms = run_steps(mcmc_st, this)
-                    done += this
-                    last = _host({k: v[:, -1] for k, v in ms.items()})  # (P, C, …)
-                    self._add_time("pairs/mcmc_chunks", time.perf_counter() - t_a)
+                    with span("pairs/mcmc_chunks"):
+                        mcmc_st, ms = run_steps(mcmc_st, this)
+                        done += this
+                        last = _host({k: v[:, -1] for k, v in ms.items()})  # (P, C, …)
                     self.writer.set_step(done)
                     for i in range(n_pairs):
                         self.writer.prefix = f"pair{i}/" if i else ""
@@ -648,31 +621,30 @@ class Trainer:
                          "(%.2f aggregate samples/sec)", done, n_pairs, self.no_chains,
                          mcmc_time, agg)
         results = []
-        t_e = time.perf_counter()
-        for i in range(n_pairs):
-            r = {"mcmc_time_s": mcmc_time, "mcmc_aggregate_samples_per_sec": agg}
-            if escalations:
-                r["block_radius_escalations"] = list(escalations)
-            results.append(r)
-            if aborted is not None:
-                r["mcmc_aborted"] = aborted
-                continue
-            mcmc_i = unstack_tree(mcmc_st, i)
-            with self._pair_view(i, pair_dirs[i]):
-                if float(mcmc_i.welford.count.sum()) > 1:
-                    mean, std = posterior_statistics(mcmc_i)
-                    savers.save_displacement_mean_and_std_dev(
-                        self.save_dirs, self.spacing, mean, std, fixeds[i]["mask"], "MCMC")
-                outs = self._make_eval(fixeds[i], movings[i])(mcmc_i.v)
-                fixed_seg_np = _numpy(fixeds[i]["seg"])
-                dscs = []
-                for c in range(self.no_chains):
-                    out_c = {k: v[c] for k, v in outs.items()}
-                    dscs.append(self._log_seg_metrics(fixed_seg_np, out_c, "MCMC", chain=c))
-                    self._submit_sample(done - self.no_iters_burn_in, out_c, "MCMC", chain=c)
-                r["mcmc_mean_dsc"] = float(np.mean(dscs))
-        savers.flush()
-        self._add_time("pairs/mcmc_artifacts", time.perf_counter() - t_e)
+        with span("pairs/mcmc_artifacts"):
+            for i in range(n_pairs):
+                r = {"mcmc_time_s": mcmc_time, "mcmc_aggregate_samples_per_sec": agg}
+                if escalations:
+                    r["block_radius_escalations"] = list(escalations)
+                results.append(r)
+                if aborted is not None:
+                    r["mcmc_aborted"] = aborted
+                    continue
+                mcmc_i = unstack_tree(mcmc_st, i)
+                with self._pair_view(i, pair_dirs[i]):
+                    if float(mcmc_i.welford.count.sum()) > 1:
+                        mean, std = posterior_statistics(mcmc_i)
+                        savers.save_displacement_mean_and_std_dev(
+                            self.save_dirs, self.spacing, mean, std, fixeds[i]["mask"], "MCMC")
+                    outs = self._make_eval(fixeds[i], movings[i])(mcmc_i.v)
+                    fixed_seg_np = _numpy(fixeds[i]["seg"])
+                    dscs = []
+                    for c in range(self.no_chains):
+                        out_c = {k: v[c] for k, v in outs.items()}
+                        dscs.append(self._log_seg_metrics(fixed_seg_np, out_c, "MCMC", chain=c))
+                        self._submit_sample(done - self.no_iters_burn_in, out_c, "MCMC", chain=c)
+                    r["mcmc_mean_dsc"] = float(np.mean(dscs))
+            savers.flush()
         return results
 
     def _run_pair(self, pair_idx: int) -> dict:
@@ -791,17 +763,19 @@ class Trainer:
             seg_w = out["seg_warped"]
 
             def _asd_work(wb=wb, fixed_np=fixed_np, seg_w=seg_w, tag=tag):
-                asd, _ = calc_metrics(fixed_np, _numpy(seg_w), self.structures, self.spacing)
-                finite = np.isfinite(asd[0])
-                for name, val in zip(self.structures, asd[0]):
-                    wb.add_scalar(f"ASD/{tag}/{name}", float(val))
-                if finite.any():
-                    wb.add_scalar(f"ASD/{tag}/mean", float(asd[0][finite].mean()))
+                with span("writer/asd" if defer_asd else "asd"):
+                    asd, _ = calc_metrics(fixed_np, _numpy(seg_w), self.structures,
+                                          self.spacing)
+                    finite = np.isfinite(asd[0])
+                    for name, val in zip(self.structures, asd[0]):
+                        wb.add_scalar(f"ASD/{tag}/{name}", float(val))
+                    if finite.any():
+                        wb.add_scalar(f"ASD/{tag}/mean", float(asd[0][finite].mean()))
 
             if defer_asd:
-                savers.submit(self._timed("writer/asd", _asd_work))
+                savers.submit(_asd_work)
             else:
-                self._timed("asd", _asd_work)()
+                _asd_work()
         return float(dsc.mean())
 
     def _maybe_checkpoint(self, path, state, meta, force: bool = False) -> None:
@@ -812,8 +786,12 @@ class Trainer:
         if not force and now - self._last_ckpt_t < self.ckpt_period_s:
             return
         state = _whole(state)
-        savers.submit(self._timed("writer/checkpoint",
-                                  lambda: save_checkpoint(path, state, meta)))
+
+        def write():
+            with span("writer/checkpoint"):
+                save_checkpoint(path, state, meta)
+
+        savers.submit(write)
         self._last_ckpt_t = time.perf_counter()
 
     def _submit_sample(self, sample_no, out, model: str, chain=None) -> None:
@@ -823,8 +801,13 @@ class Trainer:
         disp16 = out["displacement"].to(torch.float16)
         ldj16 = out["log_det_J"].to(torch.float16)
         sd = self.save_dirs
-        savers.submit(self._timed("writer/samples", lambda: savers.save_sample(
-            sd, self.spacing, sample_no, im16, disp16, ldj16, model, chain_no=chain)))
+
+        def write():
+            with span("writer/samples"):
+                savers.save_sample(sd, self.spacing, sample_no, im16, disp16, ldj16, model,
+                                   chain_no=chain)
+
+        savers.submit(write)
 
     def _check_saturation(self, sat: int, sat_resid: int, step: int,
                           phase: str) -> None:
@@ -985,47 +968,46 @@ class Trainer:
             while done < self.no_iters_vi:
                 this = min(log_period, self.no_iters_vi - done)
                 t0 = time.perf_counter()
-                state, ms = run_steps(state, this)
-                done += this
-                last = _host(_last(ms))
+                with span("vi/steps"):
+                    state, ms = run_steps(state, this)
+                    done += this
+                    last = _host(_last(ms))
                 t1 = time.perf_counter()
-                self._add_time("vi/steps", t1 - t0)
 
-                self.writer.set_step(done)
-                for k in ("data_term", "reg_term", "entropy_term", "total_loss",
-                          "vd_alpha", "reg_energy", "ndv", "sat"):
-                    self.tracker.update(k, float(last[k]))
-                self._check_guards(last, done, "VI")
-                for i, (s, p) in enumerate(zip(np.atleast_1d(last["gmm_scales"]),
-                                               np.atleast_1d(last["gmm_proportions"]))):
-                    self.writer.add_scalar(f"GMM/scale_{i}", float(s))
-                    self.writer.add_scalar(f"GMM/proportion_{i}", float(p))
-                for name in ("mu", "log_var", "u"):
-                    self.writer.add_scalar(f"VI/max_update_{name}",
-                                           float(last[f"max_update_{name}"]))
+                with span("vi/eval+log"):
+                    self.writer.set_step(done)
+                    for k in ("data_term", "reg_term", "entropy_term", "total_loss",
+                              "vd_alpha", "reg_energy", "ndv", "sat"):
+                        self.tracker.update(k, float(last[k]))
+                    self._check_guards(last, done, "VI")
+                    for i, (s, p) in enumerate(zip(np.atleast_1d(last["gmm_scales"]),
+                                                   np.atleast_1d(last["gmm_proportions"]))):
+                        self.writer.add_scalar(f"GMM/scale_{i}", float(s))
+                        self.writer.add_scalar(f"GMM/proportion_{i}", float(p))
+                    for name in ("mu", "log_var", "u"):
+                        self.writer.add_scalar(f"VI/max_update_{name}",
+                                               float(last[f"max_update_{name}"]))
 
-                whole = _whole(state)
-                out = _first(eval_fn(whole.q_v["mu"][None]))
-                mean_dsc = self._log_seg_metrics(fixed_seg_np, out, "VI", defer_asd=True)
-                if self.writer.has_figures:
-                    self._submit_vi_figures(out, whole, last, fixed, moving)
-                self.logger.info(
-                    "VI %d/%d loss %.1f data %.1f reg %.1f entropy %.1f dice %.4f ndv %d",
-                    done, self.no_iters_vi, float(last["total_loss"]),
-                    float(last["data_term"]), float(last["reg_term"]),
-                    float(last["entropy_term"]), mean_dsc, int(last["ndv"]),
-                )
-                self._maybe_checkpoint(self.save_dirs["models"] / "vi_latest.npz", state,
-                                       self._ckpt_meta("VI", done),
-                                       force=done >= self.no_iters_vi)
-                self._add_time("vi/eval+log", time.perf_counter() - t1)
+                    whole = _whole(state)
+                    out = _first(eval_fn(whole.q_v["mu"][None]))
+                    mean_dsc = self._log_seg_metrics(fixed_seg_np, out, "VI", defer_asd=True)
+                    if self.writer.has_figures:
+                        self._submit_vi_figures(out, whole, last, fixed, moving)
+                    self.logger.info(
+                        "VI %d/%d loss %.1f data %.1f reg %.1f entropy %.1f dice %.4f ndv %d",
+                        done, self.no_iters_vi, float(last["total_loss"]),
+                        float(last["data_term"]), float(last["reg_term"]),
+                        float(last["entropy_term"]), mean_dsc, int(last["ndv"]),
+                    )
+                    self._maybe_checkpoint(self.save_dirs["models"] / "vi_latest.npz", state,
+                                           self._ckpt_meta("VI", done),
+                                           force=done >= self.no_iters_vi)
                 self.logger.debug("VI period %d: steps %.2fs eval+log %.2fs", done,
                                   t1 - t0, time.perf_counter() - t1)
         finally:
             # queued checkpoint/artifact writes land even on a guard abort
-            t0 = time.perf_counter()
-            savers.flush()
-            self._add_time("vi/flush", time.perf_counter() - t0)
+            with span("vi/flush"):
+                savers.flush()
         return _whole(state)
 
     def _submit_vi_figures(self, out, state: VIState, last: dict, fixed, moving) -> None:
@@ -1069,74 +1051,71 @@ class Trainer:
         salt ``101 + j`` (device 0's stream is the one-device run's)."""
         if self.no_samples_vi_test <= 0:
             return {}
-        t_start = time.perf_counter()
-        bundle = self.bundle
-        eval_fn = self._make_eval(fixed, moving)
-        fixed_seg_np = _numpy(fixed["seg"])
+        with span("vi_test/draws"):
+            bundle = self.bundle
+            eval_fn = self._make_eval(fixed, moving)
+            fixed_seg_np = _numpy(fixed["seg"])
 
-        gen = key_generator(state.key, state.step, self.device, salt=101)
-        draws = [(gen, state.q_v, eval_fn)]  # (generator, q(v), eval) per device
-        if self.distribute and self.no_samples_vi_test >= len(self.devices):
-            self._draw_mesh = make_mesh(len(self.devices), axes=("draw",), devices=self.devices)
-            copies = replicate((state.q_v, fixed, moving), self._draw_mesh)
-            draws += [(key_generator(state.key, state.step, dev, salt=101 + j), q_v,
-                       self._make_eval(f, m))
-                      for j, (dev, (q_v, f, m)) in enumerate(
-                          zip(self._draw_mesh.device_list, copies)) if j > 0]
-            self.logger.info("VI test: %d draws per round over %d devices", len(draws),
-                             len(self.devices))
-        welford = welford_init(1, (3,) + tuple(bundle.dims), self.device)
-        dscs = []
-        save_every = max(1, self.no_samples_vi_test // 10)
-        i = 0
-        while i < self.no_samples_vi_test:
-            outs = [ev(sample_q_v(g, q_v)[None])
-                    for g, q_v, ev in draws[:self.no_samples_vi_test - i]]
-            for out in map(_first, outs):
-                welford = welford_update(welford, out["displacement"][None].to(self.device), 1.0)
-                self.writer.set_step(i)
-                dscs.append(self._log_seg_metrics(fixed_seg_np, out, "VI_test"))
-                if i % save_every == 0:
-                    self._submit_sample(i, out, "VI")
-                i += 1
-        t_draws = time.perf_counter()
-        self._add_time("vi_test/draws", t_draws - t_start)
+            gen = key_generator(state.key, state.step, self.device, salt=101)
+            draws = [(gen, state.q_v, eval_fn)]  # (generator, q(v), eval) per device
+            if self.distribute and self.no_samples_vi_test >= len(self.devices):
+                self._draw_mesh = make_mesh(len(self.devices), axes=("draw",), devices=self.devices)
+                copies = replicate((state.q_v, fixed, moving), self._draw_mesh)
+                draws += [(key_generator(state.key, state.step, dev, salt=101 + j), q_v,
+                           self._make_eval(f, m))
+                          for j, (dev, (q_v, f, m)) in enumerate(
+                              zip(self._draw_mesh.device_list, copies)) if j > 0]
+                self.logger.info("VI test: %d draws per round over %d devices", len(draws),
+                                 len(self.devices))
+            welford = welford_init(1, (3,) + tuple(bundle.dims), self.device)
+            dscs = []
+            save_every = max(1, self.no_samples_vi_test // 10)
+            i = 0
+            while i < self.no_samples_vi_test:
+                outs = [ev(sample_q_v(g, q_v)[None])
+                        for g, q_v, ev in draws[:self.no_samples_vi_test - i]]
+                for out in map(_first, outs):
+                    welford = welford_update(welford, out["displacement"][None].to(self.device),
+                                             1.0)
+                    self.writer.set_step(i)
+                    dscs.append(self._log_seg_metrics(fixed_seg_np, out, "VI_test"))
+                    if i % save_every == 0:
+                        self._submit_sample(i, out, "VI")
+                    i += 1
 
         # posterior mean transform (mu directly)
-        out_mu = _first(eval_fn(state.q_v["mu"][None]))
-        savers.save_variational_posterior_mean(
-            self.save_dirs, self.spacing, out_mu["im_warped"], out_mu["displacement"])
-        mean, std = welford_finalize(welford)
-        savers.save_displacement_mean_and_std_dev(
-            self.save_dirs, self.spacing, mean[0], std[0], fixed["mask"], "VI")
-        if self.writer.has_figures:
-            from .utils import figures
+        with span("vi_test/posterior"):
+            out_mu = _first(eval_fn(state.q_v["mu"][None]))
+            savers.save_variational_posterior_mean(
+                self.save_dirs, self.spacing, out_mu["im_warped"], out_mu["displacement"])
+            mean, std = welford_finalize(welford)
+            savers.save_displacement_mean_and_std_dev(
+                self.save_dirs, self.spacing, mean[0], std[0], fixed["mask"], "VI")
+            if self.writer.has_figures:
+                from .utils import figures
 
-            self.writer.add_figure("VI_test/posterior",
-                                   figures.mean_std_grid(_numpy(mean[0]), _numpy(std[0])))
-        t_post = time.perf_counter()
-        self._add_time("vi_test/posterior", t_post - t_draws)
+                self.writer.add_figure("VI_test/posterior",
+                                       figures.mean_std_grid(_numpy(mean[0]), _numpy(std[0])))
 
         # sampling speed test: sample -> smooth -> integrate -> warp im + seg
-        def draw():
-            v = bundle.smooth(sample_q_v(gen, state.q_v)[None])
-            transformation, _, im_w = self._transform(v, moving["im"])
-            seg_w = warp(moving["seg"], transformation, method="nearest")
-            return torch.mean(im_w), torch.sum(seg_w)
+        with span("vi_test/speed_test"):
+            def draw():
+                v = bundle.smooth(sample_q_v(gen, state.q_v)[None])
+                transformation, _, im_w = self._transform(v, moving["im"])
+                seg_w = warp(moving["seg"], transformation, method="nearest")
+                return torch.mean(im_w), torch.sum(seg_w)
 
-        with torch.no_grad():
-            float(draw()[0])  # warm-up draw and host sync
-            t0 = time.perf_counter()
-            outs = [draw()[0] for _ in range(self.speed_test_iters)]
-            float(torch.stack(outs).sum())
-            dt = time.perf_counter() - t0
-        sps = self.speed_test_iters / dt
-        self.logger.info("VI sampling speed: %.2f samples/sec", sps)
-        self._add_time("vi_test/speed_test", time.perf_counter() - t_post)
+            with torch.no_grad():
+                float(draw()[0])  # warm-up draw and host sync
+                t0 = time.perf_counter()
+                outs = [draw()[0] for _ in range(self.speed_test_iters)]
+                float(torch.stack(outs).sum())
+                dt = time.perf_counter() - t0
+            sps = self.speed_test_iters / dt
+            self.logger.info("VI sampling speed: %.2f samples/sec", sps)
 
-        t0 = time.perf_counter()
-        savers.flush()
-        self._add_time("vi_test/flush", time.perf_counter() - t0)
+        with span("vi_test/flush"):
+            savers.flush()
         return {
             "vi_test_mean_dsc": float(np.mean(dscs)) if dscs else float("nan"),
             "vi_samples_per_sec": sps,
@@ -1241,45 +1220,45 @@ class Trainer:
             """Host-side work for one completed log period, called after the
             next chunk has been dispatched: the guards fire one period after
             the chunk that tripped them."""
-            t_p0 = time.perf_counter()
-            last = fetch.get()
-            t_p1 = time.perf_counter()
-            self.writer.set_step(done_at)
-            self._write_chain_scalars(last)
-            # the saturation guard, and the fold guard on the worst chain
-            self._check_guards(last, done_at, "MCMC")
+            with span("mcmc/process"):
+                t_p0 = time.perf_counter()
+                last = fetch.get()
+                t_p1 = time.perf_counter()
+                self.writer.set_step(done_at)
+                self._write_chain_scalars(last)
+                # the saturation guard, and the fold guard on the worst chain
+                self._check_guards(last, done_at, "MCMC")
 
-            if done_at >= total:
-                # final-period quality at the same trajectory point every
-                # run reaches (the speed test advances the chains further)
-                summary["mcmc_mean_dsc"] = float(last["dsc"].mean())
-            t_p2 = time.perf_counter()
-            post_burn_in = done_at > self.no_iters_burn_in
-            save_now = (post_burn_in and
-                        ((done_at - self.no_iters_burn_in) % self.save_period_mcmc
-                         < log_period or done_at >= total))
-            for c in range(self.no_chains):
-                out_c = {k: v[c] for k, v in outs.items()}
-                out_c["dsc"] = last["dsc"][c]
-                self._log_seg_metrics(fixed_seg_np, out_c, "MCMC", chain=c, defer_asd=True)
-                if save_now:
-                    self._submit_sample(done_at - self.no_iters_burn_in, out_c, "MCMC", chain=c)
-                    if self.writer.has_figures:
-                        self._submit_sample_figure(out_c, c)
-            t_p3 = time.perf_counter()
-            self.logger.debug(
-                "MCMC process %d: fetch-last %.2fs scalars+guards %.2fs "
-                "chains %.2fs", done_at, t_p1 - t_p0, t_p2 - t_p1, t_p3 - t_p2)
-            self.logger.info(
-                "MCMC %d/%d data %s reg %s ndv %s",
-                done_at, total,
-                np.array2string(last["data_term"], precision=1),
-                np.array2string(last["reg_term"], precision=1),
-                last["ndv"],
-            )
-            self._maybe_checkpoint(self.save_dirs["models"] / "mcmc_latest.npz", state,
-                                   self._ckpt_meta("MCMC", done_at), force=done_at >= total)
-            self._add_time("mcmc/process", time.perf_counter() - t_p0)
+                if done_at >= total:
+                    # final-period quality at the same trajectory point every
+                    # run reaches (the speed test advances the chains further)
+                    summary["mcmc_mean_dsc"] = float(last["dsc"].mean())
+                t_p2 = time.perf_counter()
+                post_burn_in = done_at > self.no_iters_burn_in
+                save_now = (post_burn_in and
+                            ((done_at - self.no_iters_burn_in) % self.save_period_mcmc
+                             < log_period or done_at >= total))
+                for c in range(self.no_chains):
+                    out_c = {k: v[c] for k, v in outs.items()}
+                    out_c["dsc"] = last["dsc"][c]
+                    self._log_seg_metrics(fixed_seg_np, out_c, "MCMC", chain=c, defer_asd=True)
+                    if save_now:
+                        self._submit_sample(done_at - self.no_iters_burn_in, out_c, "MCMC", chain=c)
+                        if self.writer.has_figures:
+                            self._submit_sample_figure(out_c, c)
+                t_p3 = time.perf_counter()
+                self.logger.debug(
+                    "MCMC process %d: fetch-last %.2fs scalars+guards %.2fs "
+                    "chains %.2fs", done_at, t_p1 - t_p0, t_p2 - t_p1, t_p3 - t_p2)
+                self.logger.info(
+                    "MCMC %d/%d data %s reg %s ndv %s",
+                    done_at, total,
+                    np.array2string(last["data_term"], precision=1),
+                    np.array2string(last["reg_term"], precision=1),
+                    last["ndv"],
+                )
+                self._maybe_checkpoint(self.save_dirs["models"] / "mcmc_latest.npz", state,
+                                       self._ckpt_meta("MCMC", done_at), force=done_at >= total)
 
         pending = None
         last_good = None  # state of the newest period that passed the guards
@@ -1294,14 +1273,14 @@ class Trainer:
                     while done < total:
                         this = min(log_period, total - done)
                         t_a = time.perf_counter()
-                        mcmc, ms = run_steps(mcmc, this)
-                        done += this
+                        with span("mcmc/chunks"):
+                            mcmc, ms = run_steps(mcmc, this)
+                            done += this
                         t_b = time.perf_counter()
-                        ev = eval_fn(chains_v(mcmc))
-                        nxt = (done, _Fetch({**_last(ms), "dsc": ev["dsc"]}), ev, mcmc)
+                        with span("mcmc/eval"):
+                            ev = eval_fn(chains_v(mcmc))
+                            nxt = (done, _Fetch({**_last(ms), "dsc": ev["dsc"]}), ev, mcmc)
                         t_c = time.perf_counter()
-                        self._add_time("mcmc/chunks", t_b - t_a)
-                        self._add_time("mcmc/eval", t_c - t_b)
                         if pending is not None:
                             process(*pending)
                             last_good = pending[3]
@@ -1343,33 +1322,30 @@ class Trainer:
                 skip_posterior = True
         finally:
             summary["mcmc_time_s"] = time.perf_counter() - t0
-            t_f = time.perf_counter()
-            whole = _whole(mcmc)
-            if not skip_posterior and float(whole.welford.count.sum()) > 1:
-                mean, std = posterior_statistics(whole)
-                savers.save_displacement_mean_and_std_dev(
-                    self.save_dirs, self.spacing, mean, std, fixed["mask"], "MCMC")
-            t_g = time.perf_counter()
-            savers.flush()  # all queued sample dumps + checkpoints on disk
-            self._add_time("mcmc/posterior", t_g - t_f)
-            self._add_time("mcmc/flush", time.perf_counter() - t_g)
+            with span("mcmc/posterior"):
+                whole = _whole(mcmc)
+                if not skip_posterior and float(whole.welford.count.sum()) > 1:
+                    mean, std = posterior_statistics(whole)
+                    savers.save_displacement_mean_and_std_dev(
+                        self.save_dirs, self.spacing, mean, std, fixed["mask"], "MCMC")
+            with span("mcmc/flush"):
+                savers.flush()  # all queued sample dumps + checkpoints on disk
 
         if "mcmc_aborted" not in summary:
             # the speed test times transitions alone, after one warm-up
             # transition; the chains are past burn-in, so it runs the same
             # sampling path
-            t_s = time.perf_counter()
-            iters = self.speed_test_iters
-            mcmc, _ = run_steps(mcmc, 1)
-            float(torch.sum(chains_v(mcmc)))
-            t1 = time.perf_counter()
-            mcmc, _ = run_steps(mcmc, iters)
-            float(torch.sum(chains_v(mcmc)))
-            dt = time.perf_counter() - t1
-            sps = self.no_chains * iters / dt
-            self.logger.info("MCMC sampling speed: %.2f samples/sec", sps)
-            summary["mcmc_samples_per_sec"] = sps
-            self._add_time("mcmc/speed_test", time.perf_counter() - t_s)
+            with span("mcmc/speed_test"):
+                iters = self.speed_test_iters
+                mcmc, _ = run_steps(mcmc, 1)
+                float(torch.sum(chains_v(mcmc)))
+                t1 = time.perf_counter()
+                mcmc, _ = run_steps(mcmc, iters)
+                float(torch.sum(chains_v(mcmc)))
+                dt = time.perf_counter() - t1
+                sps = self.no_chains * iters / dt
+                self.logger.info("MCMC sampling speed: %.2f samples/sec", sps)
+                summary["mcmc_samples_per_sec"] = sps
         return summary
 
     def _submit_sample_figure(self, out_c, chain: int) -> None:
