@@ -10,7 +10,7 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. the card's name and power limit; build the CUDA kernels from
    ``ir_sgmcmc_tpu_torch/csrc`` (nvcc, sm_90a) and report the build time;
-2. each kernel B1-B7 against its plain PyTorch version on the card, at the
+2. each kernel B1-B7 and T1/T2 against its plain PyTorch version on the card, at the
    main paths' shapes (B1/B2 also at two ragged shapes, one with ``u``
    saturated in a z-slab; B3/B4 also at two ragged shapes with block means
    saturated at ±bound next to the borders, at R 1 and 2, and at the
@@ -41,11 +41,14 @@ Phases, each of which raises on failure (exit code != 0):
    B3Z/B4Z held to ``grid_sample`` on the window and its grid gradient;
    and the bf16 z-halo modes of B1/B2 (B1Z-bf16/B2Z-bf16) at the same
    split shapes in bf16, to one bf16 ulp, timed at d_h ``(2, 3, 66, 128,
-   128)``;
+   128)``; and the Taylor squaring's kernels T1 (bitwise) and T2 against
+   the plain forward and VJP at the selftest's ``TAYLOR_SHAPES``, timed at
+   ``(2, 3, 128³)`` and ``(8, 3, 128³)`` (no library call computes it);
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
-   counters must move by exactly B1 7, B2 7, B3 1, B4 1 per transition;
+   counters must move by exactly T1 9, T2 9, B1 7, B2 7, B3 1, B4 1 per
+   transition;
    then 5 more transitions under ``torch.profiler``, printed as device
    kernel time by kind (the hand-written kernels by name: B3 as
    ``fwd_window_kernel<2, false>``);
@@ -54,7 +57,7 @@ Phases, each of which raises on failure (exit code != 0):
 5. the VI path: ``bench.py --phase vi``'s problem at 128³ on the "pre"
    noise scheme, GMM warm-up, 1 warm-up and 10 timed VI steps through
    ``make_vi_step`` -> ``make_vi_chunk``; the counters must move by
-   exactly B1 7, B5 9, B6 8, B7 8 (and B2-B4 0) per step; then 5 more
+   exactly T1 9, T2 9, B1 7, B5 9, B6 8, B7 8 (and B2-B4 0) per step; then 5 more
    steps under ``torch.profiler``, printed as in phase 3;
 6. one VI step at 64³ with fixed draws on the card and on the CPU must
    agree;
@@ -70,7 +73,7 @@ Phases, each of which raises on failure (exit code != 0):
    memory;
 8. the SVFFD model of experiment 5 (cps 2, a 67³ control grid, block
    radius 3, "post"): (a) 1 + 10 transitions over 2 chains and GMM warm-up
-   + 1 + 10 VI steps at 128³, each with B1 7, B2 7, B3 1, B4 1 (B5-B7 0)
+   + 1 + 10 VI steps at 128³, each with T1 9, T2 9, B1 7, B2 7, B3 1, B4 1 (B5-B7 0)
    launches per step asserted, a profile of 5 more transitions, and the
    block-residual overflow of the same states at radius 2; (b) a 64³
    transition and a 64³ VI step at cps 2 and 4, card against CPU, and a
@@ -81,7 +84,7 @@ Phases, each of which raises on failure (exit code != 0):
 9. pair-parallel registration (``engine/pairs.py``): (a) 1 + 10
    pair-stacked transitions at 128³, 4 pairs x 2 chains, and GMM warm-up
    + 1 + 10 pair-stacked VI steps on "post" (beside one pair's), each with
-   B1 7, B2 7, B3 1, B4 1 launches per step asserted, the aggregate rate
+   T1 9, T2 9, B1 7, B2 7, B3 1, B4 1 launches per step asserted, the aggregate rate
    beside phase 3's single pair, the peak memory and a profile of 5 more
    steps; (b) at 64³ with 2 pairs, each pair's rows of a pair-stacked
    transition and VI step against its own run on the card, as one batch
@@ -414,15 +417,49 @@ def _split_rows(gen, dtype) -> list:
     return [_row(k, st.SPLIT_SHAPES[0][0], errs[k], *tol[k], *times[k]) for k in (fwd, bwd)]
 
 
+def _taylor_rows(gen) -> list:
+    """T1 and T2 against the plain forward and VJP of ``TaylorSquaringStep``
+    on the selftest's ``TAYLOR_SHAPES`` (T1 to the bit), timed at the main
+    paths' ``(2, 3, 128³)`` (2 chains) and ``(8, 3, 128³)`` (4 pairs x 2
+    chains).  Returns the rows of the first; both are printed."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import taylor_square as ts
+    from ir_sgmcmc_tpu_torch.ops.stencil import _taylor_squaring_impl, _taylor_squaring_vjp_impl
+
+    errs = {ts.T1: 0.0, ts.T2: 0.0}
+    tol = {k: st.TOL[k.symbol] for k in (ts.T1, ts.T2)}
+    timed = {}
+    for shape in st.TAYLOR_SHAPES:
+        d, g = st.taylor_operands(gen, shape)
+        errs[ts.T1] = max(errs[ts.T1], _err(ts.taylor_square_fwd_cuda(d),
+                                            _taylor_squaring_impl(d), *tol[ts.T1], f"T1 {shape}"))
+        errs[ts.T2] = max(errs[ts.T2], _err(ts.taylor_square_bwd_cuda(d, g),
+                                            _taylor_squaring_vjp_impl(d, g), *tol[ts.T2],
+                                            f"T2 {shape}"))
+        if shape[2:] == DIMS:
+            timed[shape] = {ts.T1: (_time_ms(lambda: ts.taylor_square_fwd_cuda(d)),
+                                    _time_ms(lambda: _taylor_squaring_impl(d))),
+                            ts.T2: (_time_ms(lambda: ts.taylor_square_bwd_cuda(d, g)),
+                                    _time_ms(lambda: _taylor_squaring_vjp_impl(d, g)))}
+        del d, g
+    rows = {shape: [_row(k, shape, errs[k], *tol[k], *times[k]) for k in (ts.T1, ts.T2)]
+            for shape, times in timed.items()}
+    for shape, rs in rows.items():
+        if shape != (CHAINS, 3) + DIMS:
+            _print_rows(rs)
+    return rows[(CHAINS, 3) + DIMS]
+
+
 def phase_kernels(dev) -> list:
     """B1-B4 against their plain versions at the main path's shapes and at
-    ragged ones; B3/B4 against their library calls."""
+    ragged ones; B3/B4 against their library calls; T1/T2 against the plain
+    Taylor squaring."""
     from ir_sgmcmc_tpu_torch import selftest as st
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     tol = {k: st.TOL[k.symbol] for k in (bw.B3, bw.B4)}
-    rows = _split_rows(gen, torch.float32)
+    rows = _split_rows(gen, torch.float32) + _taylor_rows(gen)
 
     errs = {bw.B3: 0.0, bw.B4: 0.0}
     for shape, bound, radius in st.BLOCK_SHAPES:
@@ -709,9 +746,10 @@ def phase_spatial_kernels(dev) -> list:
 
 
 # launches per transition, and per VI step on "post", of the dense and SVFFD
-# models alike: the integration's 7 split compositions forward and backward
-# and one block-gather warp
-POST_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
+# models alike: the integration's 9 Taylor squarings and 7 split compositions
+# forward and backward and one block-gather warp
+POST_PER_STEP = {"taylor_square_fwd": 9, "taylor_square_bwd": 9,
+                 "split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
                   "block_warp_dgrad": 1, "warp_bounded_fwd": 0, "warp_bounded_dgrad": 0,
                   "warp_bounded_tblend": 0, "split_warp_fwd_bf16": 0,
                   "split_warp_bwd_bf16": 0, "warp_bounded_fwd_zhalo": 0,
@@ -891,7 +929,8 @@ def _vi_problem(dims, device, scheme="pre", cps=None, compute_dtype=None, **svf)
     return bundle, fixed, moving, (opt_q_v, opt_gmm, opt_reg), state
 
 
-VI_PER_STEP = {"split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
+VI_PER_STEP = {"taylor_square_fwd": 9, "taylor_square_bwd": 9,
+               "split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
                "block_warp_dgrad": 0, "warp_bounded_fwd": 9, "warp_bounded_dgrad": 8,
                "warp_bounded_tblend": 8, "split_warp_fwd_bf16": 0, "split_warp_bwd_bf16": 0,
                "warp_bounded_fwd_zhalo": 0, "warp_bounded_dgrad_zhalo": 0,
@@ -949,7 +988,7 @@ def phase_svffd(dev) -> dict:
     """The SVFFD model of experiment 5 at 128³ (cps 2: a 67³ control grid;
     block radius 3) on "post": 1 warm-up and TIMED transitions over 2
     chains, GMM warm-up then 1 warm-up and TIMED VI steps, each with the
-    launch counts asserted (B1 7, B2 7, B3 1, B4 1, B5-B7 0 per step), a
+    launch counts asserted (T1 9, T2 9, B1 7, B2 7, B3 1, B4 1, B5-B7 0 per step), a
     profile of 5 more transitions, and the block-residual overflow of the
     same states at radius 2.  Returns the launch counts of both timed runs."""
     from ir_sgmcmc_tpu_torch.engine import (gmm_warmup, make_mcmc_chunk, make_vi_chunk,
@@ -1355,7 +1394,7 @@ def phase_pairs(dev, single_rate: float) -> dict:
     """9(a): 1 warm-up and TIMED pair-stacked transitions at 128³, PAIRS
     pairs x 2 chains ("post"), then the pair-stacked VI step on "post"
     (GMM warm-up per pair, 1 warm-up and TIMED steps) beside a single
-    pair's VI steps on the same problem; each with B1 7, B2 7, B3 1, B4 1
+    pair's VI steps on the same problem; each with T1 9, T2 9, B1 7, B2 7, B3 1, B4 1
     launches per step asserted, the aggregate rate, the peak memory and a
     profile of 5 more steps.  Returns the launch counts of both pair runs."""
     from ir_sgmcmc_tpu_torch.engine import gmm_warmup, make_vi_chunk, make_vi_step
@@ -1674,9 +1713,11 @@ def phase_quality(dev, args, tag: str) -> dict:
 # ---- phase 11: the bf16 integrator -----------------------------------------------
 
 # launches per transition, and per VI step on "post", with compute_dtype bf16:
-# the 7 split compositions forward and backward in their bf16 modes
+# the 7 split compositions forward and backward in their bf16 modes (the
+# bf16 Taylor squarings are plain stencils)
 BF16_PER_STEP = dict(POST_PER_STEP, split_warp_fwd=0, split_warp_bwd=0,
-                     split_warp_fwd_bf16=7, split_warp_bwd_bf16=7)
+                     split_warp_fwd_bf16=7, split_warp_bwd_bf16=7, taylor_square_fwd=0,
+                     taylor_square_bwd=0)
 BF16_U = 2.0 ** -8  # the unit roundoff of bf16
 
 
@@ -2110,9 +2151,11 @@ def phase_multi_card(n_cards: int, single: dict) -> dict:
 # ---- phase 13: the spatially sharded steps -------------------------------------------
 
 SPATIAL_SHARDS = 2
-# launches per step of the sharded "post" step on each shard: its slab's 7
-# split compositions forward and backward and one block-gather warp
-SPATIAL_PER_SHARD = {"split_warp_fwd_zhalo": 7, "split_warp_bwd_zhalo": 7,
+# launches per step of the sharded "post" step on each shard: its slab's 9
+# Taylor squarings (T1/T2 on the slab closed by its neighbour's first plane)
+# and 7 split compositions forward and backward and one block-gather warp
+SPATIAL_PER_SHARD = {"taylor_square_fwd": 9, "taylor_square_bwd": 9,
+                     "split_warp_fwd_zhalo": 7, "split_warp_bwd_zhalo": 7,
                      "block_warp_fwd_zhalo": 1, "block_warp_dgrad_zhalo": 1}
 # the sharded steps' tolerance against the unsharded ones on the card: the
 # same per-voxel arithmetic, global sums added in another order
@@ -2274,11 +2317,14 @@ def phase_spatial(devices, tag: str = "spatial") -> dict:
 # backward B6Z 8, B7Z 8; the compositions feed only the counts, so no
 # B2Z), "warp" composes by 3-channel halo warps (B5Z-B7Z 7) before the
 # block-gather warp, use_gather runs grid_sample only, bf16 the bf16
-# z-halo modes of B1/B2, the Fourier energy phase 13(a)'s kernels
+# z-halo modes of B1/B2, the Fourier energy phase 13(a)'s kernels; every
+# f32 option but use_gather squares by T1/T2 9 times, forward and backward
 SPATIAL_OPTIONS = {
-    "pre": {"split_warp_fwd_zhalo": 7, "warp_bounded_fwd_zhalo": 9,
-            "warp_bounded_dgrad_zhalo": 8, "warp_bounded_tblend_zpad": 8},
-    "warp": {"warp_bounded_fwd_zhalo": 7, "warp_bounded_dgrad_zhalo": 7,
+    "pre": {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "split_warp_fwd_zhalo": 7,
+            "warp_bounded_fwd_zhalo": 9, "warp_bounded_dgrad_zhalo": 8,
+            "warp_bounded_tblend_zpad": 8},
+    "warp": {"taylor_square_fwd": 9, "taylor_square_bwd": 9,
+             "warp_bounded_fwd_zhalo": 7, "warp_bounded_dgrad_zhalo": 7,
              "warp_bounded_tblend_zpad": 7, "block_warp_fwd_zhalo": 1,
              "block_warp_dgrad_zhalo": 1},
     "use_gather": {},
@@ -2287,7 +2333,9 @@ SPATIAL_OPTIONS = {
     "fourier": SPATIAL_PER_SHARD,
 }
 # each z-halo (z-pad) mode's default mode: what the unsharded step launches
-_DEFAULT_MODE = {"split_warp_fwd_zhalo": "split_warp_fwd", "split_warp_bwd_zhalo": "split_warp_bwd",
+# (T1/T2 square a slab as they square the volume)
+_DEFAULT_MODE = {"taylor_square_fwd": "taylor_square_fwd", "taylor_square_bwd": "taylor_square_bwd",
+                 "split_warp_fwd_zhalo": "split_warp_fwd", "split_warp_bwd_zhalo": "split_warp_bwd",
                  "block_warp_fwd_zhalo": "block_warp_fwd",
                  "block_warp_dgrad_zhalo": "block_warp_dgrad",
                  "warp_bounded_fwd_zhalo": "warp_bounded_fwd",
@@ -2490,11 +2538,12 @@ BIG = (256, 256, 256)
 # integrates and warps by grid_sample alone; remat (VI at 256³) runs the
 # two antithetic chains in turn and recomputes each one's forward in the
 # backward (B1 2 x 2 x 7, B2 2 x 7, B3 2 x 2, B4 2)
-OFF_PER_STEP = {"warp_bounded_fwd": 7, "warp_bounded_dgrad": 7, "warp_bounded_tblend": 7,
-                "block_warp_fwd": 1, "block_warp_dgrad": 1}
+OFF_PER_STEP = {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "warp_bounded_fwd": 7,
+                "warp_bounded_dgrad": 7, "warp_bounded_tblend": 7, "block_warp_fwd": 1,
+                "block_warp_dgrad": 1}
 GATHER_PER_STEP = {}
-REMAT_PER_STEP = {"split_warp_fwd": 28, "split_warp_bwd": 14, "block_warp_fwd": 4,
-                  "block_warp_dgrad": 2}
+REMAT_PER_STEP = {"taylor_square_fwd": 36, "taylor_square_bwd": 18, "split_warp_fwd": 28,
+                  "split_warp_bwd": 14, "block_warp_fwd": 4, "block_warp_dgrad": 2}
 # the canonical line's keys in their order: bench.py's but its Pallas
 # fallback and VI error tags, then the port's; vs_baseline (after
 # noise_scheme) and baseline_* (after vi_compile_warm_s) come only with a
@@ -2656,22 +2705,27 @@ def phase_bench_kernels(dev) -> list:
 
 # ---- phase 15: anchored residual warping and the Taylor-form compositions -------------
 
-# launches per transition of anchored SG-MCMC on "post": the integration's 7
-# split compositions forward and backward, no block-gather warp (the
-# anchored image replaces it), and in the "blend" mode one bounded warp of
-# W0 at the anchor radius and its displacement gradient (W0 carries no
-# gradient: no B7); each re-anchoring integrates forward once more (B1 7)
+# launches per transition of anchored SG-MCMC on "post": the integration's 9
+# Taylor squarings and 7 split compositions forward and backward, no
+# block-gather warp (the anchored image replaces it), and in the "blend"
+# mode one bounded warp of W0 at the anchor radius and its displacement
+# gradient (W0 carries no gradient: no B7); each re-anchoring integrates
+# forward once more (T1 9, B1 7)
 ANCHOR_PER_STEP = {
-    "taylor": {"split_warp_fwd": 7, "split_warp_bwd": 7},
-    "blend": {"split_warp_fwd": 7, "split_warp_bwd": 7, "warp_bounded_fwd": 1,
-              "warp_bounded_dgrad": 1}}
-ANCHOR_PER_ANCHOR = {"split_warp_fwd": 7}
-# the "taylor" compositions compose by plain stencils: on "post" one
-# block-gather warp per transition (B3 1, B4 1), on "pre" the image's
-# grouped cascade, K = 8 radius-1 warps at e = 4, and the noise warp (B5 9;
-# their backward B6 8, B7 8), as VI_PER_STEP's but no B1
-TAYLOR_POST = {"block_warp_fwd": 1, "block_warp_dgrad": 1}
-TAYLOR_PRE = {"warp_bounded_fwd": 9, "warp_bounded_dgrad": 8, "warp_bounded_tblend": 8}
+    "taylor": {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "split_warp_fwd": 7,
+               "split_warp_bwd": 7},
+    "blend": {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "split_warp_fwd": 7,
+              "split_warp_bwd": 7, "warp_bounded_fwd": 1, "warp_bounded_dgrad": 1}}
+ANCHOR_PER_ANCHOR = {"taylor_square_fwd": 9, "split_warp_fwd": 7}
+# the "taylor" compositions compose by plain stencils after 8 Taylor
+# squarings (e 4; T1 8, T2 8): on "post" one block-gather warp per
+# transition (B3 1, B4 1), on "pre" the image's grouped cascade, K = 8
+# radius-1 warps at e = 4, and the noise warp (B5 9; their backward B6 8,
+# B7 8), as VI_PER_STEP's but no B1
+TAYLOR_POST = {"taylor_square_fwd": 8, "taylor_square_bwd": 8, "block_warp_fwd": 1,
+               "block_warp_dgrad": 1}
+TAYLOR_PRE = {"taylor_square_fwd": 8, "taylor_square_bwd": 8, "warp_bounded_fwd": 9,
+              "warp_bounded_dgrad": 8, "warp_bounded_tblend": 8}
 
 
 def _expected(per_step: dict, steps: int, anchors: int = 0, per_anchor=None,

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "warp_bounded_tblend_zpad": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_fwd_zhalo": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "warp_bounded_dgrad_zhalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "taylor_square_fwd": [_P, _P, _I, _I, _I, _I, _P],
+    "taylor_square_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

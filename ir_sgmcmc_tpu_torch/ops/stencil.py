@@ -124,28 +124,41 @@ def _taylor_squaring_impl(d: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _taylor_squaring_vjp_impl(d: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The Jacobian-free VJP of :func:`_taylor_squaring_impl` (see
+    :class:`TaylorSquaringStep`)."""
+    gd = 2.0 * g
+    for c, axis in _AXES:
+        diff = _fwd_diff_axis(d, axis)
+        gd[..., c, :, :, :] += torch.sum(g * diff, dim=-4)
+        gd = gd + _fwd_diff_axis_t(g * d[..., c:c + 1, :, :, :], axis)
+    return gd
+
+
 class TaylorSquaringStep(torch.autograd.Function):
     """``d' = 2d + (d·∇)d`` with the Jacobian-free backward of the JAX
     ``taylor_squaring_step``: only ``d`` is saved, and the backward rebuilds
     the three directional differences
 
         ḡ = 2g + Σ_a [ e_a Σ_i g_i (D_a d)_i  +  D_aᵀ(g · d_a) ].
+
+    Float32 CUDA tensors run kernels T1/T2 (``kernels/taylor_square.py``);
+    CPU tensors and bfloat16 ones run the plain stencils above.
     """
 
     @staticmethod
     def forward(ctx, d):
+        from ..kernels import taylor_square
+
         ctx.save_for_backward(d)
-        return _taylor_squaring_impl(d)
+        return taylor_square.taylor_square(d)
 
     @staticmethod
     def backward(ctx, g):
+        from ..kernels import taylor_square
+
         (d,) = ctx.saved_tensors
-        gd = 2.0 * g
-        for c, axis in _AXES:
-            diff = _fwd_diff_axis(d, axis)
-            gd[..., c, :, :, :] += torch.sum(g * diff, dim=-4)
-            gd = gd + _fwd_diff_axis_t(g * d[..., c:c + 1, :, :, :], axis)
-        return gd
+        return taylor_square.taylor_square_vjp(d, g)
 
 
 def taylor_squaring_step(d: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ version on the same inputs on the card, at the tolerances of ``TOL``:
   window kernels, B5-B7 at R 1-3, the z-halo modes of B5/B6 and the
   z-pad mode of B7 at R 1, 2, 4, the z-halo modes of B1/B2
   (``SPLIT_ZHALO_SHAPES``) and of B3/B4 (``BLOCK_ZHALO_SHAPES``, window
-  and per-voxel kernels);
+  and per-voxel kernels), and the Taylor squaring T1/T2
+  (``TAYLOR_SHAPES``: T1 to the bit);
 * the per-voxel kernels the window and ring kernels leave to other
   shapes: B3/B4 at block 4 and at R 4, B5-B7 at R 4.
 
@@ -68,6 +69,10 @@ TOL.update({"split_warp_fwd_zhalo": TOL["split_warp_fwd"],
             "split_warp_bwd_zhalo_bf16": TOL["split_warp_bwd_bf16"],
             "block_warp_fwd_zhalo": TOL["block_warp_fwd"],
             "block_warp_dgrad_zhalo": TOL["block_warp_dgrad"]})
+# T1 rounds each operation as the plain forward does, in its order: equal to
+# the bit.  T2 sums the plain VJP's terms in its order too, but the plain
+# version's channel sum is torch's reduction, whose order is torch's.
+TOL.update({"taylor_square_fwd": (0.0, 0.0), "taylor_square_bwd": (1e-5, 1e-6)})
 
 # (shape, slab, offset) of B1/B2: the main path's, a tiny one, one that
 # straddles the tiles and 16-plane z-chunks with u saturated in a z-slab,
@@ -111,6 +116,20 @@ SPLIT_ZHALO_SHAPES = ((CHAINS, 3, MAIN[0] // 2) + MAIN[1:], (2, 3, 17, 24, 130))
 # 4-channel one at R 1 (window kernels), and R 4 (per-voxel kernels)
 BLOCK_ZHALO_SHAPES = (((CHAINS, 1, MAIN[0] // 2) + MAIN[1:], 9, 2, 8, 12),
                       ((1, 4, 16, 24, 136), 6, 1, 8, 8), ((2, 1, 16, 16, 48), 9, 4, 8, 14))
+
+
+# fields of the Taylor squaring T1/T2: the main paths' 2 chains and 8 chain
+# rows (4 pairs x 2 chains), unbatched, ragged across the kernels' 32 x 8
+# tiles and 32-plane chunks, each of D, H, W at 2, and two leading axes
+TAYLOR_SHAPES = ((CHAINS, 3) + MAIN, (8, 3) + MAIN, (3, 7, 9, 10), (2, 3, 40, 35, 70),
+                 (1, 3, 2, 17, 33), (1, 3, 33, 2, 65), (1, 3, 66, 3, 2), (2, 2, 3, 8, 8, 8))
+
+
+def taylor_operands(gen, shape):
+    """d, g for T1/T2: a displacement of a few tenths of a voxel, as the
+    squarings see it, and a unit cotangent."""
+    d = torch.randn(shape, generator=gen, device=gen.device) * 0.7
+    return d, torch.randn(shape, generator=gen, device=gen.device)
 
 
 def split_operands(gen, shape, slab=None, dtype=torch.float32, offset=0):
@@ -318,7 +337,9 @@ def run_selftest(dev=None, log: bool = True) -> dict:
     ``{"ok", "checks"}``.  The kernels' launch counters move."""
     from .kernels import block_warp as bw
     from .kernels import split_warp as sw
+    from .kernels import taylor_square as ts
     from .kernels import warp_bounded as wb
+    from .ops.stencil import _taylor_squaring_impl, _taylor_squaring_vjp_impl
 
     dev = torch.device("cuda", 0) if dev is None else torch.device(dev)
     if dev.type != "cuda":
@@ -386,6 +407,14 @@ def run_selftest(dev=None, log: bool = True) -> dict:
         check(f"block_warp_dgrad_zhalo{tag}",
               bw.block_warp_dgrad_zhalo_cuda(vol_h, r, m, g, R, h, block),
               bw.block_warp_dgrad_plain(vol_h, r, m, g, block, h), TOL["block_warp_dgrad_zhalo"])
+
+    for shape in TAYLOR_SHAPES:
+        d, g = taylor_operands(gen, shape)
+        tag = f"{tuple(shape)}"
+        check(f"taylor_square_fwd{tag}", ts.taylor_square_fwd_cuda(d), _taylor_squaring_impl(d),
+              TOL["taylor_square_fwd"])
+        check(f"taylor_square_bwd{tag}", ts.taylor_square_bwd_cuda(d, g),
+              _taylor_squaring_vjp_impl(d, g), TOL["taylor_square_bwd"])
     torch.cuda.synchronize(dev)
     return {"ok": bool(check.ok), "checks": {k: float(f"{v:.3e}") for k, v in check.errs.items()}}
 

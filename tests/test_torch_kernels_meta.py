@@ -44,6 +44,9 @@ MAIN_PATH = {
     # the bf16 z-halo modes of B1 and B2 at the same slab: half of f32's
     "split_warp_fwd_zhalo_bf16": ((2, 3, 64, 128, 128), 38),
     "split_warp_bwd_zhalo_bf16": ((2, 3, 64, 128, 128), 63),
+    # the Taylor squaring forward (d in, d' out) and backward (d, g in, ḡ out)
+    "taylor_square_fwd": ((2, 3) + N128, 101),
+    "taylor_square_bwd": ((2, 3) + N128, 151),
 }
 
 
