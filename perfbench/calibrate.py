@@ -1,7 +1,8 @@
 """Readings of the comparison's numbers, from which ``limits/`` are set.
 
     python3 perfbench/calibrate.py --workload <name> --seeds 1 2 3 ... \\
-        [--variant sound|control|tf32|half|tile|tile4|dgrad_tile|dgrad_tile4] [--out FILE]
+        [--variant sound|control|tf32|unchanged|half|half_sample|tile|tile4|dgrad_tile|
+                   dgrad_tile4] [--out FILE]
 
 Runs the cell's set-up and first steps (the window's own call), a short
 window, and the comparison, for each seed in turn in one process, and
@@ -10,9 +11,11 @@ worst.  ``sound`` is the program as configured; ``control`` the program
 with its own bfloat16 integrator (``compute_dtype: "bfloat16"``), the
 nearest precision below the configured float32; ``tf32`` the program
 with TF32 switched on for its matmuls and convolutions (the configured
-float32 states it off); the others the planted faults of ``drive.FAULTS``
-(the half batch; one 8³ or 4³ tile of the residuals, or of the block
-warp's gradient by the displacement alone).  The benchmark's own runs
+float32 states it off); ``unchanged`` the program with each call's new
+state thrown away; the others the planted faults of ``drive.FAULTS`` (the
+half batch, by the residuals or by VI's antithetic samples; one 8³ or 4³
+tile of the residuals, or of the block warp's gradient by the displacement
+alone).  The benchmark's own runs
 never run these.
 """
 
@@ -32,8 +35,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
-    p.add_argument("--variant", choices=("sound", "control", "tf32") + tuple(drive.FAULTS),
-                   default="sound")
+    p.add_argument("--variant", default="sound",
+                   choices=("sound", "control", "tf32", "unchanged") + tuple(drive.FAULTS))
     p.add_argument("--seconds", type=float, default=1.0)
     p.add_argument("--out", default=None, help="also append the lines to this file")
     args = p.parse_args(argv)
@@ -45,8 +48,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     spec = run.load_cell(args.workload)
     for seed in args.seeds:
-        out = run.run_cell(spec, seed, args.seconds, False, device,
-                           fault=args.variant if args.variant in drive.FAULTS else None,
+        fault = None if args.variant in ("sound", "control", "tf32") else args.variant
+        out = run.run_cell(spec, seed, args.seconds, False, device, fault=fault,
                            compute_dtype="bfloat16" if args.variant == "control" else None,
                            tf32=args.variant == "tf32")
         line = json.dumps({"workload": args.workload, "variant": args.variant, "seed": seed,

@@ -9,6 +9,7 @@ comparison, and the per-step loss from the metrics each call returns.
 from __future__ import annotations
 
 import copy
+import math
 from contextlib import contextmanager
 
 import torch
@@ -55,11 +56,26 @@ def configured(config: dict, traffic: dict, dims=None, compute_dtype=None) -> di
     return cfg
 
 
+def vi_remat(cfg: dict) -> bool:
+    """Whether VI runs its antithetic rows in turn under recompute: the
+    configuration's ``trainer.vi_remat``, where ``"auto"`` (the default) is
+    the trainer's rule, a dense float32 field of at least 100 MiB.  A copy
+    of ``Trainer``'s rule (a test holds it equal)."""
+    remat = cfg["trainer"].get("vi_remat", "auto")
+    if remat == "auto":
+        remat = 3 * 4 * math.prod(int(n) for n in cfg["data_loader"]["args"]["dims"]) \
+            >= 100 * 1024 * 1024
+    return bool(remat)
+
+
 @contextmanager
 def half_batch_fault():
     """A planted fault: the forward chain hands the second half of its
     batch the first half's residuals, as if half of the batch were left
-    out and the rest stood in for it."""
+    out and the rest stood in for it.  Where the rows run one at a time
+    (VI under remat) each call's batch is one row and the fault changes
+    nothing; those cells are calibrated on :func:`half_sample_fault`
+    instead."""
     from ir_sgmcmc_tpu_torch.engine import mcmc, vi
 
     real = vi.forward_sample
@@ -77,6 +93,27 @@ def half_batch_fault():
         yield
     finally:
         vi.forward_sample = mcmc.forward_sample = real
+
+
+@contextmanager
+def half_sample_fault():
+    """A planted fault of VI: the antithetic pair's second sample is the
+    first, as if the second half of the batch were left out and the mean
+    taken over the rest.  It acts on the samples before the forward chain,
+    so it also holds where the rows run one at a time (remat)."""
+    from ir_sgmcmc_tpu_torch.engine import vi
+
+    real = vi.sample_q_v
+
+    def faulty(*args, antithetic=False, **kwargs):
+        out = real(*args, antithetic=antithetic, **kwargs)
+        return (out[0], out[0]) if antithetic else out
+
+    vi.sample_q_v = faulty
+    try:
+        yield
+    finally:
+        vi.sample_q_v = real
 
 
 @contextmanager
@@ -140,13 +177,15 @@ def dgrad_tile_fault(size: int = 8):
         vi.warp_block_gather = real
 
 
-FAULTS = {"half": half_batch_fault, "tile": tile_fault, "tile4": lambda: tile_fault(4),
-          "dgrad_tile": dgrad_tile_fault, "dgrad_tile4": lambda: dgrad_tile_fault(4)}
+FAULTS = {"half": half_batch_fault, "half_sample": half_sample_fault, "tile": tile_fault,
+          "tile4": lambda: tile_fault(4), "dgrad_tile": dgrad_tile_fault,
+          "dgrad_tile4": lambda: dgrad_tile_fault(4)}
 
 
 class Program:
     """One cell's program objects: ``state`` and ``call()``, one call of the
-    entry the window drives (``steps_per_call`` steps)."""
+    entry the window drives (``steps_per_call`` steps).  VI is built with
+    the trainer's remat (:func:`vi_remat`); ``remat`` says which."""
 
     def __init__(self, cfg: dict, traffic: dict, inputs: Inputs, device, fault=None):
         from ir_sgmcmc_tpu_torch.config import Config
@@ -159,6 +198,7 @@ class Program:
         self.phase = traffic["phase"]
         self.n_pairs = len(inputs.pairs)
         self.fault = fault
+        self.remat = self.phase == "vi" and vi_remat(cfg)
         chunk = int(traffic["steps_per_call"])
         fixeds = [f for f, _ in inputs.pairs]
         movings = [m for _, m in inputs.pairs]
@@ -213,11 +253,13 @@ class Program:
         self._warmup_args = (states, fixeds, movings)
         if self.n_pairs == 1:
             self._run = make_vi_chunk(make_vi_step(b, self.opt_q_v, self.opt_gmm, self.opt_reg,
-                                                   fixeds[0], movings[0]), chunk)
+                                                   fixeds[0], movings[0], remat=self.remat),
+                                      chunk)
             self._lead = 0
         else:
             self._run = make_pair_vi_chunk(b, self.opt_q_v, self.opt_gmm, self.opt_reg,
-                                           stack_trees(fixeds), stack_trees(movings), chunk)
+                                           stack_trees(fixeds), stack_trees(movings), chunk,
+                                           remat=self.remat)
             self._lead = 1
         self.state = states[0] if self.n_pairs == 1 else stack_trees(states)
 

@@ -133,7 +133,8 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
     stage(f"inputs: {len(inputs.pairs)} phantom pair(s) at {model_dims}")
     program = drive.Program(cfg, traffic, inputs, device, fault=fault)
     sync()
-    stage("bundle: the program's model, optimisers, state and entry")
+    stage("bundle: the program's model, optimisers, state and entry"
+          + (f" (VI remat {'on' if program.remat else 'off'})" if program.phase == "vi" else ""))
     record = check.Record()
     record.leaves0 = program.leaves()
     if program.phase == "vi":
@@ -191,7 +192,7 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
         rec = trace.record(program.call, int(traffic["trace_steps"]), device)
         stage(f"trace: {rec.steps} calls, {len(rec.device)} device events")
         pairs, chains = int(traffic["pairs"]), int(traffic.get("chains", 1))
-        rows = pairs * chains if program.phase == "mcmc" else 2 * pairs
+        rows = work.rows_per_launch(program.phase, pairs, chains, program.remat)
         least = work.least_step_s(program.phase, cfg, pairs, chains)
         stage(f"step_mfu: the step's least time {least[0] * 1e3:.4f} ms, bound by {least[1]}")
         ctx = SimpleNamespace(phase=program.phase, trace=rec, steps=rec.steps * steps_per_call,

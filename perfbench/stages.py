@@ -10,11 +10,16 @@ The charging rule, for each kernel, memcpy and memset of the traced steps:
 2. a launch inside an ``autograd::engine::evaluate_function`` event on its
    own thread belongs to the stage of the forward op that carries the
    event's ``Sequence number``: every stage holds its own backward.  This
-   is checked first, since the backward runs inside the ``update`` span;
+   is checked first, since the backward runs inside the ``update`` span.
+   A stage span that opened inside that event, on the same thread, wins
+   over it: the node is recomputing checkpointed forward code (VI under
+   remat), which opens its stage spans again; such launches are also
+   counted apart as ``recompute``;
 3. otherwise the launch belongs to the innermost stage span around it on
-   its own thread or, on a thread without stage spans (the autograd
-   engine's), to the innermost one around its time on any thread: the
-   ``grad`` call's seed and accumulation kernels fall in ``update``;
+   its own thread or, where its own thread has none around it (the
+   autograd engine's), to the innermost one around its time on any
+   thread: the ``grad`` call's seed and accumulation kernels fall in
+   ``update``;
 4. anything else is unstaged.
 
 The ``Trace`` that ``run.py`` hands the readers keeps no correlation ids,
@@ -69,7 +74,8 @@ def _innermost(intervals, times) -> list:
 
 class _Spans:
     """Stage spans per thread, asked for the stage around times on one
-    thread, with any thread's spans for a thread that has none."""
+    thread, with any thread's spans where that thread has none around a
+    time."""
 
     def __init__(self, events):
         self.by_tid = defaultdict(list)
@@ -83,11 +89,11 @@ class _Spans:
                 self.host.append((stage, e.get("tid"), e["ts"], e["dur"]))
 
     def at(self, tid, times) -> list:
-        tids = [tid] if tid in self.by_tid else list(self.by_tid)
-        found = [_innermost(self.by_tid[t], times) for t in tids]
+        own = _innermost(self.by_tid[tid], times) if tid in self.by_tid else [None] * len(times)
+        found = [_innermost(ivs, times) for ivs in self.by_tid.values()]
         out = []
-        for hits in zip(*found) if found else [()] * len(times):
-            live = [h for h in hits if h is not None]
+        for mine, hits in zip(own, zip(*found) if found else [()] * len(times)):
+            live = [mine] if mine is not None else [h for h in hits if h is not None]
             out.append(max(live, key=lambda h: h[0])[2] if live else None)
         return out
 
@@ -95,10 +101,12 @@ class _Spans:
 def charge(events) -> dict:
     """The device events of a Chrome trace (``export_chrome_trace``'s
     ``traceEvents``) charged to the stages: ``{"stages": {stage: [us,
-    events]}, "unstaged": [us, events], "total_us": …, "idle_s": {stage:
-    s}}``, ``idle_s`` the device's idle gaps by the innermost stage span
-    around each gap's middle (``trace.Trace.idle_gaps`` over the stage
-    spans alone; ``_no_host_event_`` outside them)."""
+    events]}, "unstaged": [us, events], "recompute": [us, events],
+    "total_us": …, "idle_s": {stage: s}}``, ``recompute`` the part of the
+    stages launched by a recompute inside a backward node, ``idle_s`` the
+    device's idle gaps by the innermost stage span around each gap's middle
+    (``trace.Trace.idle_gaps`` over the stage spans alone;
+    ``_no_host_event_`` outside them)."""
     events = [e for e in events if e.get("ph") == "X" and "dur" in e]
     spans = _Spans(events)
     host = defaultdict(list)  # tid -> host events
@@ -123,7 +131,8 @@ def charge(events) -> dict:
         evaluates[tid] = ev_iv
         seq_ops = [e for e in evs if _seq(e) is not None and not e["name"].startswith(EVALUATE)]
         times = [e["ts"] for e in seq_ops]
-        for e, ev, stage in zip(seq_ops, _innermost(ev_iv, times), spans.at(tid, times)):
+        for e, ev, stage in zip(seq_ops, _recomputing(_innermost(ev_iv, times), spans, tid, times),
+                                spans.at(tid, times)):
             if ev is None or _seq(ev[2]) != _seq(e):
                 ops.append((e["ts"], _seq(e), ev, stage))
     forward = defaultdict(list)  # sequence number -> [(time, stage)]
@@ -141,6 +150,7 @@ def charge(events) -> dict:
         forward[seq].append((t, (linked(ev[2]) if ev is not None else None) or stage))
 
     stage_of = [None] * len(device)
+    recomputed = [False] * len(device)
     by_tid = defaultdict(list)  # tid -> [(device index, launch time)]
     for k, e in enumerate(device):
         launch = launches.get((e.get("args") or {}).get("correlation"))
@@ -148,19 +158,33 @@ def charge(events) -> dict:
             by_tid[launch.get("tid")].append((k, launch["ts"]))
     for tid, hits in by_tid.items():
         times = [t for _, t in hits]
-        inside = _innermost(evaluates.get(tid, []), times)
+        found = _innermost(evaluates.get(tid, []), times)
+        inside = _recomputing(found, spans, tid, times)
         around = spans.at(tid, times)
-        for (k, _), ev, stage in zip(hits, inside, around):
+        for (k, _), raw, ev, stage in zip(hits, found, inside, around):
             stage_of[k] = (linked(ev[2]) if ev is not None else None) or stage
+            recomputed[k] = raw is not None and ev is None
 
     timeline = trace.Trace([(e["name"], e["ts"], e["dur"]) for e in device], spans.host, 1, 0.0)
     out = {"stages": {s: [0.0, 0] for s in STAGES}, "unstaged": [0.0, 0],
-           "total_us": sum(e["dur"] for e in device), "idle_s": dict(timeline.idle_gaps())}
-    for e, stage in zip(device, stage_of):
-        acc = out["stages"][stage] if stage is not None else out["unstaged"]
-        acc[0] += e["dur"]
-        acc[1] += 1
+           "recompute": [0.0, 0], "total_us": sum(e["dur"] for e in device),
+           "idle_s": dict(timeline.idle_gaps())}
+    for e, stage, again in zip(device, stage_of, recomputed):
+        for acc in ([out["stages"][stage] if stage is not None else out["unstaged"]]
+                    + ([out["recompute"]] if again else [])):
+            acc[0] += e["dur"]
+            acc[1] += 1
     return out
+
+
+def _recomputing(evaluates, spans, tid, times) -> list:
+    """The innermost ``evaluate_function`` events around ``times`` on
+    thread ``tid``, with None where a stage span of that thread opened
+    inside the event: there the node recomputes checkpointed forward code,
+    and the span, not the node, holds the time."""
+    own = _innermost(spans.by_tid.get(tid, []), times)
+    return [None if ev is not None and sp is not None and sp[0] >= ev[0] else ev
+            for ev, sp in zip(evaluates, own)]
 
 
 def record(call, steps: int, device) -> list:
@@ -223,7 +247,8 @@ def of_run(ctx):
 def _report(charged) -> None:
     """Each stage's device ms, events and idle ms per step, on stderr."""
     n = charged["steps"]
-    rows = list(charged["stages"].items()) + [("unstaged", charged["unstaged"])]
+    rows = list(charged["stages"].items()) + [("unstaged", charged["unstaged"]),
+                                              ("recompute", charged["recompute"])]
     total = charged["total_us"] or 1.0
     for name, (us, count) in rows:
         idle = charged["idle_s"].get("_no_host_event_" if name == "unstaged" else name, 0.0)

@@ -8,7 +8,8 @@ import pytest
 
 from perfbench import run
 
-CELLS = ["exp3_svf128.mcmc_pairs4", "exp5_svffd2_128.mcmc_pairs4", "exp3_svf128.vi_pairs4"]
+CELLS = ["exp3_svf128.mcmc_pairs4", "exp5_svffd2_128.mcmc_pairs4", "exp3_svf128.vi_pairs4",
+         "exp3_svf256.mcmc_pair1", "exp3_svf256.vi_pair1"]
 
 
 @pytest.mark.cuda
@@ -27,3 +28,31 @@ def test_tf32_is_not_correct(cuda):
     for seed in (3400000001, 3400000002, 3400000003):
         out = run.run_cell(spec, seed, 0.5, False, cuda, tf32=True)
         assert out["correct"] is False, out["checked"]
+
+
+@pytest.mark.cuda
+def test_remat_vi_launches_as_the_trainer_does(cuda):
+    """At 256³ VI runs its two rows in turn under recompute: per step T1,
+    B1 and B3 run twice for each row (its forward and its recompute), the
+    backward kernels T2, B2 and B4 once."""
+    from collections import Counter
+
+    from perfbench import drive, reference, trace
+
+    spec = run.load_cell("exp3_svf256.vi_pair1")
+    cfg = drive.configured(spec.config, spec.traffic)
+    dims = tuple(cfg["data_loader"]["args"]["dims"])
+    inputs = drive.Inputs(3400000021, spec.traffic, dims, reference.Model(cfg, cuda).field_dims,
+                          cuda)
+    program = drive.Program(cfg, spec.traffic, inputs, cuda)
+    assert program.remat
+    program.gmm_warmup()
+    for _ in range(2):
+        program.call()
+    rec = trace.record(program.call, 2, cuda)
+    names = [name for name, _, _ in rec.device]
+    count = Counter(trace.kind_of(n) for n in names)
+    count.update(T1=sum("taylor_sq_fwd" in n for n in names),
+                 T2=sum("taylor_sq_bwd" in n for n in names))
+    per_step = {k: count[k] / rec.steps for k in ("T1", "T2", "B1", "B2", "B3", "B4")}
+    assert per_step == {"T1": 36, "T2": 18, "B1": 28, "B2": 14, "B3": 4, "B4": 2}

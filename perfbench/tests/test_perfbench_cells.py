@@ -20,7 +20,8 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 def test_cell_files_found_by_name(workload):
     spec = run.load_cell(workload)
     assert spec.traffic["phase"] in ("mcmc", "vi")
-    assert spec.config["data_loader"]["args"]["dims"] == [128, 128, 128]
+    # whole blocks of the block warp along every axis
+    assert all(n % 8 == 0 for n in spec.config["data_loader"]["args"]["dims"])
     assert set(spec.limits) >= {"loss_gap", "grad_gap", "change_gap"}
     assert spec.per_layer and all(spec.readers[m["name"]].exists() for m in spec.per_layer)
     for m in spec.per_layer:
@@ -106,3 +107,71 @@ def test_the_traffic_sets_the_noise_scheme(workload):
     assert pre["trainer"]["uniform_noise"]["scheme"] == "pre"
     with pytest.raises(ValueError, match="post"):
         reference.Model(pre, torch.device("cpu"))
+
+
+def _published(entry) -> dict:
+    """The reference's published configuration the entry's ``source``
+    names, from the repository's copy of the reference's ``configs/``."""
+    return json.loads((ROOT / entry["source"].split("/blob/master/", 1)[1]).read_text())
+
+
+@pytest.mark.parametrize("entry", BENCH["configs"], ids=[c["name"] for c in BENCH["configs"]])
+def test_a_changed_volume_says_why(entry):
+    """A configuration whose ``dims`` differ from its source's lists the
+    loader among the keys it changed and says why under ``assumed``."""
+    config = json.loads((ROOT / entry["file"]).read_text())
+    dims = config["data_loader"]["args"]["dims"]
+    assert config["reduced"] == entry["reduced"]
+    if dims == _published(entry)["data_loader"]["args"]["dims"]:
+        assert "data_loader" not in entry["reduced"]
+        return
+    assert "data_loader" in entry["reduced"]
+    said = " ".join(str(v) for v in config["assumed"].values())
+    assert (f"{dims[0]}^3" if len(set(dims)) == 1 else "x".join(map(str, dims))) in said
+
+
+def test_exp3_at_256_is_exp3_at_128_but_the_volume():
+    small = json.loads((ROOT / "perfbench/configs/exp3_svf128.json").read_text())
+    large = json.loads((ROOT / "perfbench/configs/exp3_svf256.json").read_text())
+    assert large["data_loader"]["args"].pop("dims") == [256, 256, 256]
+    assert small["data_loader"]["args"].pop("dims") == [128, 128, 128]
+    assert large["assumed"].pop("data") != small["assumed"].pop("data")
+    assert large.pop("reduced") == small.pop("reduced") + ["data_loader"]
+    assert large == small
+
+
+@pytest.mark.parametrize("dims, remat", [
+    ((128, 128, 128), "auto"), ((205, 205, 205), "auto"), ((206, 206, 206), "auto"),
+    ((256, 256, 256), "auto"), ((208, 256, 256), "auto"), ((256, 256, 256), False),
+    ((128, 128, 128), True)])
+def test_the_remat_rule_is_the_trainers(tmp_path, monkeypatch, dims, remat):
+    """``drive.vi_remat`` decides as ``Trainer`` does: the trainer is built
+    at 12³ with its model's ``dims`` read as ``dims``."""
+    from ir_sgmcmc_tpu_torch.config import Config
+    from ir_sgmcmc_tpu_torch.trainer import Trainer
+
+    from perfbench import drive
+
+    cfg = json.loads((ROOT / "configs/demo/config_synthetic.json").read_text())
+    cfg["data_loader"]["args"]["dims"] = [12, 12, 12]
+    cfg["transformation_module"]["args"] = {"no_steps": 6, "max_disp": 4}
+    cfg["trainer"].update(save_dir=str(tmp_path), tensorboard=False)
+    if remat != "auto":
+        cfg["trainer"]["vi_remat"] = remat
+    config = Config(cfg, run_id="remat")
+    build = config.build_bundle
+
+    class Seen:
+        def __init__(self, bundle):
+            self._bundle = bundle
+
+        def __getattr__(self, name):
+            return dims if name == "dims" else getattr(self._bundle, name)
+
+    monkeypatch.setattr(config, "build_bundle", lambda: Seen(build()))
+    trainer = Trainer(config, device="cpu")
+    harness = json.loads(json.dumps(cfg))
+    harness["data_loader"]["args"]["dims"] = list(dims)
+    assert drive.vi_remat(harness) is trainer.vi_remat
+    if remat == "auto":
+        assert trainer.vi_remat is (dims[0] >= 206)

@@ -51,6 +51,55 @@ def test_a_broken_step_is_not_correct(workload, fault):
     assert any(c["value"] > c["limit"] for c in out["checked"].values())
 
 
+def _remat_run(monkeypatch, fault=None):
+    """The 256³ VI cell at 64³ with ``trainer.vi_remat`` on: the rows run
+    in turn under recompute, as the cell runs them at its own size.  64³ is
+    the least size at which the ``"post"`` warp is the block warp (8 blocks
+    along every axis), the cell's warp and the one ``dgrad_tile`` breaks."""
+    import ir_sgmcmc_tpu_torch.engine as engine
+
+    seen = []
+    real = engine.make_vi_step
+
+    def make_vi_step(*args, **kwargs):
+        seen.append(kwargs.get("remat"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "make_vi_step", make_vi_step)
+    spec = run.load_cell("exp3_svf256.vi_pair1")
+    spec.config["trainer"]["vi_remat"] = True
+    out = run.run_cell(spec, SEED, 0.1, False, torch.device("cpu"), dims=(64, 64, 64),
+                       fault=fault)
+    assert seen == [True]
+    return out
+
+
+@pytest.mark.parametrize("fault", [None, "half_sample", "tile", "dgrad_tile"])
+def test_remat_vi_is_correct_and_a_broken_step_is_not(monkeypatch, fault):
+    out = _remat_run(monkeypatch, fault)
+    assert out["correct"] is (fault is None), out["checked"]
+
+
+def test_the_half_batch_fault_leaves_one_row_as_it_is(monkeypatch):
+    """Under remat every forward call takes one row, and the half-batch
+    fault then changes nothing: a cell whose rows run in turn cannot be
+    calibrated on it."""
+    from ir_sgmcmc_tpu_torch.engine import mcmc, vi
+
+    from perfbench import drive
+
+    def forward(*args, **kwargs):
+        return {"residuals": args[0]}
+
+    monkeypatch.setattr(vi, "forward_sample", forward)
+    monkeypatch.setattr(mcmc, "forward_sample", forward)
+    one, two = torch.randn(1, 4, 8, 8, 8), torch.randn(2, 4, 8, 8, 8)
+    with drive.half_batch_fault():
+        assert torch.equal(vi.forward_sample(one)["residuals"], one)
+        assert not torch.equal(vi.forward_sample(two)["residuals"], two)
+    assert vi.forward_sample is forward
+
+
 def test_the_trim_never_hides_a_non_finite_element():
     import math
 
@@ -115,6 +164,21 @@ def test_frozen_kernel_bounds(kind, shape, bytes_, flops):
 
     port = {"B1": split_warp.B1, "B2": split_warp.B2, "B3": block_warp.B3, "B4": block_warp.B4}
     assert port[kind].bound_ms(shape)[0] == pytest.approx(want, rel=1e-12)
+
+
+def test_kernel_shapes_take_the_rows_of_one_launch():
+    """One row per launch where VI runs its rows in turn (remat); else every
+    row of the forward chain, as the 128³ cells' shapes have always been."""
+    dims = (256, 256, 256)
+    assert work.rows_per_launch("vi", 1, 1, remat=True) == 1
+    assert work.rows_per_launch("vi", 4, 1, remat=True) == 1
+    assert work.rows_per_launch("vi", 4, 1, remat=False) == 8
+    assert work.rows_per_launch("mcmc", 4, 2, remat=False) == 8
+    assert work.rows_per_launch("mcmc", 1, 2, remat=False) == 2
+    shapes = work.kernel_shapes("vi", work.rows_per_launch("vi", 1, 1, remat=True), dims)
+    assert shapes["B1"] == shapes["B2"] == (1, 3) + dims
+    assert shapes["B3"] == shapes["B4"] == (1, 1) + dims
+    assert work.kernel_shapes("vi", 8, (128,) * 3)["B1"] == (8, 3, 128, 128, 128)
 
 
 def test_frozen_step_work():

@@ -69,6 +69,41 @@ def test_the_charging_rule():
     assert out["idle_s"] == {"_no_host_event_": pytest.approx(34e-6)}
 
 
+def test_a_recompute_is_charged_to_its_own_spans():
+    """Under remat a backward node recomputes checkpointed forward code,
+    which opens its stage spans again on the autograd thread: its launches
+    go to those spans (and to ``recompute``), the node's own launches to
+    its forward op's stage, and the autograd thread's launches outside any
+    node and span to the span around them on the main thread."""
+    host = [
+        _x("ir.vi_step", "user_annotation", MAIN, 0.0, 1000.0),
+        _x("ir.warp", "user_annotation", MAIN, 10.0, 100.0),
+        _x("aten::grid_sampler_3d", "cpu_op", MAIN, 20.0, 50.0, **{"Sequence number": 7}),
+        _x("cudaLaunchKernel", "cuda_runtime", MAIN, 30.0, 5.0, correlation=1),
+        _x("ir.update", "user_annotation", MAIN, 200.0, 700.0),
+        _x("autograd::engine::evaluate_function: GridSampler3DBackward0", "cpu_op", AUTOGRAD,
+           300.0, 100.0, **{"Sequence number": 7}),
+        _x("ir.integrate", "user_annotation", AUTOGRAD, 305.0, 40.0),
+        _x("aten::mul", "cpu_op", AUTOGRAD, 310.0, 20.0, **{"Sequence number": 30}),
+        _x("cudaLaunchKernel", "cuda_runtime", AUTOGRAD, 315.0, 5.0, correlation=2),
+        _x("cudaLaunchKernel", "cuda_runtime", AUTOGRAD, 360.0, 5.0, correlation=3),
+        _x("cudaLaunchKernel", "cuda_runtime", AUTOGRAD, 500.0, 5.0, correlation=4),
+    ]
+    device = [
+        _x("void grid_sampler_3d_kernel", "kernel", "stream 7", 1000.0, 10.0, correlation=1),
+        _x("void mul_kernel", "kernel", "stream 7", 1020.0, 7.0, correlation=2),
+        _x("void grid_sampler_3d_backward_kernel", "kernel", "stream 7", 1030.0, 20.0,
+           correlation=3),
+        _x("void add_kernel", "kernel", "stream 7", 1060.0, 4.0, correlation=4),
+    ]
+    out = stages.charge(host + device)
+    got = {s: tuple(v) for s, v in out["stages"].items() if v[1]}
+    assert got == {"warp": (30.0, 2), "integrate": (7.0, 1), "update": (4.0, 1)}
+    assert tuple(out["recompute"]) == (7.0, 1) and tuple(out["unstaged"]) == (0.0, 0)
+    # without spans on the autograd thread nothing counts as a recompute
+    assert tuple(stages.charge(_fixture())["recompute"]) == (0.0, 0)
+
+
 def test_a_program_without_spans_reads_none():
     out = stages.charge(_fixture(spans=False))
     assert all(count == 0 for _, count in out["stages"].values())
@@ -123,7 +158,8 @@ def test_every_stage_has_its_reader():
         assert read(ctx) == (pytest.approx(want) if want else None)
 
 
-CELLS = ["exp3_svf128.mcmc_pairs4", "exp5_svffd2_128.mcmc_pairs4", "exp3_svf128.vi_pairs4"]
+CELLS = ["exp3_svf128.mcmc_pairs4", "exp5_svffd2_128.mcmc_pairs4", "exp3_svf128.vi_pairs4",
+         "exp3_svf256.mcmc_pair1", "exp3_svf256.vi_pair1"]
 
 
 @pytest.mark.cuda

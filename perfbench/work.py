@@ -45,9 +45,19 @@ def kernel_bound_ms(kind: str, shape) -> float:
     return 1e3 * max(n * per_byte(C) / HBM_BYTES_PER_S, n * per_flop(C) / F32_FLOP_PER_S)
 
 
+def rows_per_launch(phase: str, pairs: int, chains: int, remat: bool) -> int:
+    """The rows of the forward chain that one kernel launch takes: every
+    chain of every pair (SG-MCMC), both antithetic samples of every pair
+    (VI), or one row where VI runs its rows in turn under remat."""
+    if phase == "mcmc":
+        return pairs * chains
+    return 1 if remat else 2 * pairs
+
+
 def kernel_shapes(phase: str, rows: int, dims) -> dict:
     """The main operand of each hand-written kernel on the ``"post"``
-    paths the cells run: the split compositions on the displacement
+    paths the cells run, at ``rows`` rows per launch
+    (:func:`rows_per_launch`): the split compositions on the displacement
     ``(rows, 3, …)``, the block warp on the image ``(rows, 1, …)``."""
     field = (rows, 3) + tuple(dims)
     image = (rows, 1) + tuple(dims)
