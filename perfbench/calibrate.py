@@ -2,7 +2,7 @@
 
     python3 perfbench/calibrate.py --workload <name> --seeds 1 2 3 ... \\
         [--variant sound|control|tf32|unchanged|half|half_sample|tile|tile4|dgrad_tile|
-                   dgrad_tile4] [--out FILE]
+                   dgrad_tile4|seam] [--out FILE]
 
 Runs the cell's set-up and first steps (the window's own call), a short
 window, and the comparison, for each seed in turn in one process, and
@@ -15,8 +15,9 @@ float32 states it off); ``unchanged`` the program with each call's new
 state thrown away; the others the planted faults of ``drive.FAULTS`` (the
 half batch, by the residuals or by VI's antithetic samples; one 8³ or 4³
 tile of the residuals, or of the block warp's gradient by the displacement
-alone).  The benchmark's own runs
-never run these.
+alone; on a step cut over several cards, one slab's halo from the wrong
+neighbour, ``seam``).  A sharded cell runs on its cards.  The benchmark's
+own runs never run these.
 """
 
 from __future__ import annotations
@@ -45,11 +46,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("calibrate: no CUDA card", file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
     spec = run.load_cell(args.workload)
+    if torch.cuda.device_count() < spec.shards:
+        print(f"calibrate: {args.workload} needs {spec.shards} cards", file=sys.stderr)
+        return 2
+    devices = [torch.device("cuda", i) for i in range(spec.shards)]
     for seed in args.seeds:
         fault = None if args.variant in ("sound", "control", "tf32") else args.variant
-        out = run.run_cell(spec, seed, args.seconds, False, device, fault=fault,
+        out = run.run_cell(spec, seed, args.seconds, False, devices, fault=fault,
                            compute_dtype="bfloat16" if args.variant == "control" else None,
                            tf32=args.variant == "tf32")
         line = json.dumps({"workload": args.workload, "variant": args.variant, "seed": seed,

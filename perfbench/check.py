@@ -40,6 +40,13 @@ norms of a leaf, the program's and the reference's alike:
   leaf's.
 
 A leaf is one row's tensor: ``v[3]`` is chain 3's field.
+
+A step cut over several devices has its rows run by the reference in turn,
+row ``r`` on the ``r``-th of the cell's cards (cyclically), each leaf
+compared on the card that holds the reference's; the program's copies come
+from the host.  On any card the reference runs under recompute
+(``reference.Model``'s ``recompute``) where its plain step's estimated peak
+for one row (:func:`recompute_on`) would not leave room on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +60,10 @@ from . import reference as ref
 NUMBERS = ("loss_gap", "grad_gap", "change_gap")
 TRIM = 1e-4  # share of a leaf's elements taken as kink crossings
 ROUNDOFF = 1e-3  # gradient, relative to its leaf's (or the median leaf's), left to round-off
+# The plain reference's peak per voxel of one warped sample: 22.0 GiB for a
+# chain of experiment 3 at 256³ on the H100 (PERF.md §6); a VI row warps two.
+PLAIN_BYTES_PER_VOXEL = 22.0 * 2 ** 30 / 256 ** 3
+ROOM = 0.75  # the share of a card's memory the plain reference may take
 
 
 class Record:
@@ -87,15 +98,17 @@ def _kept(p: torch.Tensor, r: torch.Tensor, mask=None, trim: float = TRIM) -> tu
 def _worst(prog: dict, refs: dict, keep=None, masks=None, trim: float = TRIM) -> tuple:
     """The largest ``|‖p‖ - ‖r‖| / max(‖r‖, median ‖r‖)`` over the leaves
     of ``keep`` (default: all), each leaf without the elements
-    :func:`_kept` leaves out, and its leaf."""
+    :func:`_kept` leaves out, and its leaf; each on the reference leaf's
+    device."""
     masks = masks or {}
     norms = {k: _norm(r) for k, r in refs.items()}
     median = sorted(norms.values())[len(norms) // 2]
     worst, where = 0.0, None
     for k in (keep if keep is not None else refs):
-        if not bool(torch.isfinite(prog[k]).all()):
+        pk = prog[k].to(refs[k].device)
+        if not bool(torch.isfinite(pk).all()):
             return math.inf, k
-        p, r = _kept(prog[k], refs[k], masks.get(k), trim)
+        p, r = _kept(pk, refs[k], masks.get(k), trim)
         gap = abs(_norm(p) - _norm(r)) / max(_norm(r), median, 1e-30)
         if not math.isfinite(gap):
             return math.inf, k
@@ -104,29 +117,56 @@ def _worst(prog: dict, refs: dict, keep=None, masks=None, trim: float = TRIM) ->
     return worst, where
 
 
-def reference_run(phase: str, cfg: dict, traffic: dict, inputs, device) -> tuple:
-    """The reference's steps for every row, in turn (one dict per row),
-    and its model."""
-    model = ref.Model(cfg, device)
+def card_bytes(device) -> int | None:
+    """The memory of ``device`` where it is a card, else None."""
+    device = torch.device(device)
+    return torch.cuda.get_device_properties(device).total_memory if device.type == "cuda" else None
+
+
+def recompute_on(phase: str, cfg: dict, device) -> bool:
+    """Whether the reference runs under recompute on ``device``: where its
+    plain step's estimated peak for one row (``PLAIN_BYTES_PER_VOXEL`` per
+    voxel and warped sample) is over ``ROOM`` of the card's memory; never
+    off a card."""
+    total = card_bytes(device)
+    if total is None:
+        return False
+    samples = 2 if phase == "vi" else 1
+    voxels = math.prod(int(n) for n in cfg["data_loader"]["args"]["dims"])
+    return samples * voxels * PLAIN_BYTES_PER_VOXEL > ROOM * total
+
+
+def reference_run(phase: str, cfg: dict, traffic: dict, inputs, devices) -> tuple:
+    """The reference's steps for every row, in turn (one dict per row), and
+    its model.  ``devices``: the run's device, or the shards' devices of a
+    step cut over several (row ``r`` runs on the ``r``-th distinct one,
+    cyclically)."""
+    devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
+    cards = list(dict.fromkeys(devices))
+    models = {d: ref.Model(cfg, d, recompute=recompute_on(phase, cfg, d)) for d in cards}
     steps = int(traffic["check_steps"])
     out = []
-    for i, (fixed, moving) in enumerate(inputs.pairs):
-        if phase == "mcmc":
-            for c in range(inputs.v0.shape[1]):
-                out.append(ref.mcmc_chain(model, fixed, moving, inputs.v0[i, c],
+    for i, pair in enumerate(inputs.pairs):
+        rows = inputs.v0.shape[1] if phase == "mcmc" else 1
+        for c in range(rows):
+            dev = cards[len(out) % len(cards)]
+            fixed, moving = ({k: t.to(dev) for k, t in im.items()} for im in pair)
+            if phase == "mcmc":
+                out.append(ref.mcmc_chain(models[dev], fixed, moving, inputs.v0[i, c].to(dev),
                                           inputs.keys[i, c].tolist(), steps))
-        else:
-            out.append(ref.vi_pair(model, fixed, moving, inputs.keys[i].tolist(), steps,
-                                   int(traffic["gmm_warmup_steps"])))
-    return out, model
+            else:
+                out.append(ref.vi_pair(models[dev], fixed, moving, inputs.keys[i].tolist(),
+                                       steps, int(traffic["gmm_warmup_steps"])))
+            del fixed, moving
+    return out, models[cards[0]]
 
 
-def numbers(phase: str, cfg: dict, traffic: dict, inputs, record: Record, device) -> dict:
+def numbers(phase: str, cfg: dict, traffic: dict, inputs, record: Record, devices) -> dict:
     """The three numbers of the comparison, and where each is worst."""
-    refs, model = reference_run(phase, cfg, traffic, inputs, device)
+    refs, model = reference_run(phase, cfg, traffic, inputs, devices)
     rows = len(refs)
     prog_losses = torch.stack([l.reshape(-1) for l in record.losses]).double().cpu()
-    ref_losses = torch.stack([r["losses"] for r in refs], dim=1).double().cpu()
+    ref_losses = torch.stack([r["losses"].cpu() for r in refs], dim=1).double()
     loss_gaps = (prog_losses - ref_losses).abs() / ref_losses.abs().clamp_min(1e-30)
 
     g_prog, g_ref, d_prog, d_ref = {}, {}, {}, {}
@@ -136,15 +176,17 @@ def numbers(phase: str, cfg: dict, traffic: dict, inputs, record: Record, device
     if phase == "mcmc":
         for r in range(rows):
             i, c = divmod(r, inputs.v0.shape[1])
-            eps = ref.mcmc_noise(model, inputs.keys[i, c].tolist(), 0, device)
-            v0, v1 = record.leaves0["v"][r], record.leaves1["v"][r]
+            dev = refs[r]["first"]["v"].device
+            eps = ref.mcmc_noise(model, inputs.keys[i, c].tolist(), 0, dev)
+            v0, v1 = record.leaves0["v"][r].to(dev), record.leaves1["v"][r].to(dev)
             g_prog[f"v[{r}]"] = (v0 + math.sqrt(2.0 * model.tau) * eps - v1) / model.tau
     for r, res in enumerate(refs):
         for k, g in res["first"].items():
             g_ref[f"{k}[{r}]"] = g
         for k, t in res["leaves"].items():
-            d_ref[f"{k}[{r}]"] = t - record.leaves0[k][r]
-            d_prog[f"{k}[{r}]"] = record.leaves_end[k][r] - record.leaves0[k][r]
+            start = record.leaves0[k][r].to(t.device)
+            d_ref[f"{k}[{r}]"] = t - start
+            d_prog[f"{k}[{r}]"] = record.leaves_end[k][r].to(t.device) - start
     grad_gap, grad_at = _worst(g_prog, g_ref)
     norms = {k: _norm(g) for k, g in g_ref.items()}
     median = sorted(norms.values())[len(norms) // 2]

@@ -23,6 +23,15 @@ two-tap lerp per axis, x then y then z, offsets clipped to ±1), with ``e
 = ceil(log2 max_disp)``; the image warp is the exact trilinear warp at
 ``T + U(-alpha, alpha)`` taken around each 8³ block's rounded mean
 displacement, its residual clipped to ±R (``trainer.block_warp.radius``).
+
+With ``recompute`` (a volume that the plain step does not fit on one card
+at once) each stage of the forward chain, every Taylor squaring and
+composition, the image warp, the local normalisation, the likelihood and
+the regulariser's energy, runs under ``torch.utils.checkpoint``
+(non-reentrant, so the autograd graph, and every number it gives, is the
+plain one's): only each stage's inputs are kept, and its inner tensors are
+worked out again in the backward pass.  Every draw is taken before the
+stages, from the step's generator, so a recompute draws nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 B1_ADAM = 0.9  # Adam's first-moment decay (the optimiser the configs name)
 B2_ADAM = 0.999
@@ -99,10 +109,12 @@ def spread_matrix(n_dense: int, cps: int) -> np.ndarray:
 
 
 class Model:
-    """The constants of one configuration file (the reference's JSON)."""
+    """The constants of one configuration file (the reference's JSON);
+    ``recompute``: the stages run under recompute."""
 
-    def __init__(self, cfg: dict, device):
+    def __init__(self, cfg: dict, device, recompute: bool = False):
         self.device = device
+        self.recompute = bool(recompute)
         loader = cfg["data_loader"]["args"]
         self.dims = tuple(int(n) for n in loader["dims"])
         self.sigma_v_init, self.u_v_init = float(loader["sigma_v_init"]), float(loader["u_v_init"])
@@ -168,6 +180,12 @@ class Model:
         self.lr_q = {"mu": oq["lr_mu"], "log_var": oq["lr_log_var"], "u": oq["lr_u"]}
         self.decay_q = float(oq.get("lr_decay", 0.0))
 
+    def stage(self, fn, *args):
+        """``fn(*args)``, under recompute where the model runs so."""
+        if not self.recompute:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
     # -- parameters at their start
     def gmm_init(self) -> dict:
         z = torch.zeros((self.K,), device=self.device)
@@ -228,22 +246,32 @@ class Model:
             out = torch.einsum("...dhw,hH->...dHw", out, mh)
             return torch.einsum("...dhw,wW->...dhW", out, mw)
 
+    _AXES = ((0, -1), (1, -2), (2, -3))
+
+    def square(self, d):
+        """One second-order Taylor squaring."""
+        return 2.0 * d + sum(self.fwd_diff(d, ax) * d[:, c:c + 1] for c, ax in self._AXES)
+
+    def compose(self, d, u, uc):
+        """One composition ``u + d∘(id + u)`` by dimensional splitting at the
+        clipped offsets ``uc``."""
+        out = d
+        for c, ax in self._AXES:
+            w = uc[:, c:c + 1]
+            out = out + torch.where(w >= 0, w * (self.shift(out, 1, ax) - out),
+                                    -w * (self.shift(out, -1, ax) - out))
+        return u + out
+
     def integrate(self, vel):
         """Displacement ``(B, 3, D, H, W)`` in voxels of the velocity."""
-        axes = ((0, -1), (1, -2), (2, -3))
         d = vel / float(2 ** self.no_steps)
         for _ in range(self.no_squarings):
-            d = 2.0 * d + sum(self.fwd_diff(d, ax) * d[:, c:c + 1] for c, ax in axes)
+            d = self.stage(self.square, d)
         u = d
         # offsets clipped to ±1, their gradient passed where |u| < 1 only
         uc = torch.where(u.abs() < 1.0, u, torch.clamp(u, -1.0, 1.0).detach())
         for _ in range(2 ** self.e - 1):
-            out = d
-            for c, ax in axes:
-                w = uc[:, c:c + 1]
-                out = out + torch.where(w >= 0, w * (self.shift(out, 1, ax) - out),
-                                        -w * (self.shift(out, -1, ax) - out))
-            d = u + out
+            d = self.stage(self.compose, d, u, uc)
         return d
 
     def block_warp(self, vol, d):
@@ -342,7 +370,7 @@ class Model:
     def reg_terms(self, reg, v_smooth):
         """The regulariser's loss with its hyperpriors (a chain's or a
         sample's), and ``log y``."""
-        y = self.reg_energy(v_smooth)
+        y = self.stage(self.reg_energy, v_smooth)
         log_y = torch.log(y)
         if self.reg_kind == "RegLoss_L2":
             lw = math.log(self.w_reg)
@@ -388,8 +416,9 @@ class Model:
     def forward(self, fixed, moving, v, unif):
         vs = self.smooth(v)
         disp = self.integrate(self.dense_velocity(vs))
-        warped = self.block_warp(moving["im"].expand((v.shape[0],) + self.dims), disp + unif)
-        return vs, disp, self.residual(fixed["im"], warped)
+        warped = self.stage(self.block_warp, moving["im"].expand((v.shape[0],) + self.dims),
+                            disp + unif)
+        return vs, disp, self.stage(self.residual, fixed["im"], warped)
 
 
 # ---- the steps ---------------------------------------------------------------------
@@ -421,7 +450,7 @@ def mcmc_chain(model: Model, fixed: dict, moving: dict, v0: torch.Tensor, words,
             res = res[0]
             alpha = model.vd_alpha(gmm, res, mask)
             gmm = model.gmm_step(gmm, m_gmm, res, mask, alpha)
-            data = model.nll(gmm, res, mask) * alpha - model.gmm_prior(gmm)
+            data = model.stage(model.nll, gmm, res, mask) * alpha - model.gmm_prior(gmm)
             reg_loss, log_y, scale_prior = model.reg_terms(reg_p, vs[0])
             if model.learnable:
                 reg_loss = reg_loss - model.loc_prior(log_y) - scale_prior
@@ -503,7 +532,7 @@ def vi_pair(model: Model, fixed: dict, moving: dict, words, steps: int,
             for i in range(2):
                 a = model.vd_alpha(gmm, res[i], mask)
                 gmm = model.gmm_step(gmm, m_gmm, res[i], mask, a)
-                datas.append(model.nll(gmm, res[i], mask) * a)
+                datas.append(model.stage(model.nll, gmm, res[i], mask) * a)
             data = 0.5 * (datas[0] + datas[1]) - model.gmm_prior(gmm)
             regs = [model.reg_terms(reg_p, vs[i]) for i in range(2)]
             reg_term = 0.5 * (regs[0][0] + regs[1][0])

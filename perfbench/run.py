@@ -19,6 +19,13 @@ calls, and last compares the first steps with the plain reference
 result's JSON object.  Without a CUDA card, with fewer cards than the cell
 asks for, or if JAX or the JAX package was loaded, it exits non-zero and
 prints no result.
+
+A cell whose configuration cuts its step along D over ``s`` cards
+(``drive.spatial_shards``) asks for ``s`` chips and runs on ``cuda:0 …
+cuda:s-1``: after each call the first card's stream waits for every other
+card before it records the call's mark, the window's closing synchronise
+covers every card, the memory peak is the fullest card's, and the
+reference runs its rows in turn on the cell's cards.
 """
 
 from __future__ import annotations
@@ -54,7 +61,13 @@ def forbidden_modules() -> list:
 
 
 def load_cell(workload: str, bench_path: Path = ROOT / "BENCHMARK.json") -> SimpleNamespace:
-    """The cell's entry and its files, found by name."""
+    """The cell's entry and its files, found by name; refuses a cell whose
+    chips are not the devices its configuration cuts the step over, and a
+    sharded cell of more than one pair."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    from perfbench import drive
+
     bench = json.loads(bench_path.read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -67,15 +80,22 @@ def load_cell(workload: str, bench_path: Path = ROOT / "BENCHMARK.json") -> Simp
     def applies(metric) -> bool:
         return workload in metric.get("workloads", [workload])
 
+    config = json.loads((bench_path.parent / config_entry["file"]).read_text())
+    traffic = json.loads((base / "traffic" / f"{cell['traffic']}.json").read_text())
+    shards = drive.spatial_shards(drive.configured(config, traffic), traffic["phase"])
+    if int(cell["chips"]) != shards:
+        raise SystemExit(f"{workload} asks for {cell['chips']} chip(s); its configuration cuts "
+                         f"{traffic['phase']} over {shards}")
+    if shards > 1 and int(traffic["pairs"]) != 1:
+        raise SystemExit(f"{workload}: a spatially sharded step takes one image pair, the "
+                         f"traffic has {traffic['pairs']}")
     e2e = [m for m in bench["end_to_end"] if applies(m)]
     reported = {m["name"] for m in e2e}
     # a metric without a list of cells is reported wherever the metric it moves is
     per_layer = [m for m in bench["per_layer"]
                  if (workload in m["workloads"] if "workloads" in m else m["moves"] in reported)]
     return SimpleNamespace(
-        bench=bench, cell=cell, name=workload,
-        config=json.loads((bench_path.parent / config_entry["file"]).read_text()),
-        traffic=json.loads((base / "traffic" / f"{cell['traffic']}.json").read_text()),
+        bench=bench, cell=cell, name=workload, config=config, traffic=traffic, shards=shards,
         limits=json.loads(limits_path.read_text()) if limits_path.exists() else {},
         end_to_end=e2e, per_layer=per_layer,
         readers={m["name"]: base / "metrics" / f"{m['name']}.py" for m in per_layer})
@@ -97,23 +117,44 @@ def _quantile(values, q: float) -> float:
     return s[lo] + (s[hi] - s[lo]) * (pos - lo)
 
 
-def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, device,
+def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, devices,
              dims=None, fault=None, compute_dtype=None, tf32=False) -> dict:
     """One run of the cell; returns the result object (``device`` as
-    ``torch.device``).  The configurations state float32 with TF32 off, and
-    the run holds the program to it.  ``dims``, ``fault``, ``compute_dtype``
-    and ``tf32`` are for the harness's own tests and the calibration of the
-    limits."""
+    ``torch.device``).  ``devices``: the cell's device, or a list of one
+    for each shard of its step, the main one first (a list may repeat a
+    device: virtual shards).  The configurations state float32 with TF32
+    off, and the run holds the program to it.  ``dims``, ``fault``, ``compute_dtype`` and ``tf32`` are
+    for the harness's own tests and the calibration of the limits."""
     import torch
 
     from perfbench import check, drive, trace, work
 
+    devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
+    device = devices[0]
     cuda = device.type == "cuda"
+    cards = list(dict.fromkeys(devices))  # each device once, the first first
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = bool(tf32)
 
     def sync():
         if cuda:
-            torch.cuda.synchronize(device)
+            for card in cards:
+                torch.cuda.synchronize(card)
+
+    def peaks(what: str) -> int:
+        """The fullest card's memory peak; each card's on stderr."""
+        if not cuda:
+            return 0
+        each = [torch.cuda.max_memory_allocated(card) for card in cards]
+        stage(f"{what}: memory peak per card (GiB) "
+              + ", ".join(f"{c}: {b / 2 ** 30:.3f}" for c, b in zip(cards, each)))
+        return max(each)
+
+    def join():
+        """The first card's stream waits for the work queued on the others."""
+        for card in cards[1:]:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(card))
+            torch.cuda.current_stream(cards[0]).wait_event(done)
 
     traffic = spec.traffic
     cfg = drive.configured(spec.config, traffic, dims, compute_dtype)
@@ -127,14 +168,17 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
     from perfbench import reference
 
     model_dims = tuple(cfg["data_loader"]["args"]["dims"])
-    field_dims = reference.Model(cfg, device).field_dims
-    inputs = drive.Inputs(seed, traffic, model_dims, field_dims, device)
+    ref_model = reference.Model(cfg, device)
+    inputs = drive.Inputs(seed, traffic, model_dims, ref_model.field_dims, device)
     sync()
     stage(f"inputs: {len(inputs.pairs)} phantom pair(s) at {model_dims}")
-    program = drive.Program(cfg, traffic, inputs, device, fault=fault)
+    program = drive.Program(cfg, traffic, inputs, devices, fault=fault)
+    if program.mesh is not None and inputs.v0 is not None:
+        inputs.v0 = inputs.v0.cpu()  # placed: the reference's copy waits on the host
     sync()
     stage("bundle: the program's model, optimisers, state and entry"
-          + (f" (VI remat {'on' if program.remat else 'off'})" if program.phase == "vi" else ""))
+          + (f" (VI remat {'on' if program.remat else 'off'})" if program.phase == "vi" else "")
+          + (f" over {program.mesh}" if program.mesh is not None else ""))
     record = check.Record()
     record.leaves0 = program.leaves()
     if program.phase == "vi":
@@ -149,12 +193,13 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
         stage(f"warm step {k + 1}")
     record.leaves_end = program.leaves()
     setup_s = time.monotonic() - T0
-    setup_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    setup_peak = peaks("set-up")
 
     # the window: the entry called back to back, every call between two events
     steps_per_call = int(traffic["steps_per_call"])
     if cuda:
-        torch.cuda.reset_peak_memory_stats(device)
+        for card in cards:
+            torch.cuda.reset_peak_memory_stats(card)
         marks = [torch.cuda.Event(enable_timing=True)]
         marks[0].record()
     calls = 0
@@ -163,11 +208,12 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
         program.call()
         calls += 1
         if cuda:
+            join()
             marks.append(torch.cuda.Event(enable_timing=True))
             marks[-1].record()
     sync()
     wall = time.perf_counter() - t0
-    window_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    window_peak = peaks("window")
     per_call_ms = ([a.elapsed_time(b) for a, b in zip(marks, marks[1:])] if cuda else
                    [1e3 * wall / calls] * calls)
     steps = calls * steps_per_call
@@ -185,20 +231,25 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
     }
     result_device = {"platform": "gpu" if cuda else "cpu",
                      "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-                     "count": 1, "memory_peak_bytes": max(setup_peak, window_peak)}
+                     "count": len(cards), "memory_peak_bytes": max(setup_peak, window_peak)}
     out = {"correct": False, "attempted": steps * rows_per_step, "failed": failed, "metrics": {}}
 
     if traced:
-        rec = trace.record(program.call, int(traffic["trace_steps"]), device)
+        rec = trace.record(program.call, int(traffic["trace_steps"]), cards)
         stage(f"trace: {rec.steps} calls, {len(rec.device)} device events")
+        for card, n in sorted(rec.events_per_card().items()):
+            stage(f"trace: card {card}: {n / (rec.steps * steps_per_call):.1f} events/step, "
+                  f"busy {rec.busy_s(card):.6f}s of {rec.window_s:.6f}s")
         pairs, chains = int(traffic["pairs"]), int(traffic.get("chains", 1))
         rows = work.rows_per_launch(program.phase, pairs, chains, program.remat)
-        least = work.least_step_s(program.phase, cfg, pairs, chains)
+        shards = len(devices)
+        least = work.least_step_s(program.phase, cfg, pairs, chains, len(cards))
         stage(f"step_mfu: the step's least time {least[0] * 1e3:.4f} ms, bound by {least[1]}")
         ctx = SimpleNamespace(phase=program.phase, trace=rec, steps=rec.steps * steps_per_call,
                               untraced_step_s=wall / steps, window_peak_bytes=window_peak,
-                              shapes=work.kernel_shapes(program.phase, rows, model_dims),
-                              least_step_s=least)
+                              shapes=work.kernel_shapes(program.phase, rows, model_dims, shards),
+                              least_step_s=least, shards=shards,
+                              window=ref_model.block_bound + ref_model.block_radius + 1)
         for m in spec.per_layer:
             value = load_reader(spec.readers[m["name"]])(ctx)
             if value is not None:
@@ -214,11 +265,14 @@ def run_cell(spec: SimpleNamespace, seed: int, seconds: float, traced: bool, dev
     # the comparison, after the peak is read and the program's state freed
     del program
     if cuda:
-        torch.cuda.empty_cache()
+        torch.cuda.empty_cache()  # every card's
+        for card in cards:
+            torch.cuda.reset_peak_memory_stats(card)
     t_check = time.monotonic()
-    found = check.numbers(spec.traffic["phase"], cfg, traffic, inputs, record, device)
+    found = check.numbers(spec.traffic["phase"], cfg, traffic, inputs, record, devices)
     sync()
     stage(f"check: the reference in {time.monotonic() - t_check:.3f}s; worst at {found['_where']}")
+    peaks("check: the reference")
     out["where"] = found["_where"]
     out["correct"], out["checked"] = check.judge(found, spec.limits)
     return out
@@ -234,7 +288,6 @@ def main(argv=None) -> int:
 
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
     os.environ["TORCH_EXTENSIONS_DIR"] = str(CACHE / "torch_extensions")
-    sys.path.insert(0, str(ROOT))
     spec = load_cell(args.workload)
     import torch
 
@@ -246,9 +299,9 @@ def main(argv=None) -> int:
         print(f"perfbench: {args.workload} needs {spec.cell['chips']} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    out = run_cell(spec, args.seed, args.seconds, bool(args.trace), device)
+    devices = [torch.device("cuda", i) for i in range(spec.shards)]
+    torch.cuda.set_device(devices[0])
+    out = run_cell(spec, args.seed, args.seconds, bool(args.trace), devices)
     loaded = forbidden_modules()
     if loaded:
         print(f"perfbench: forbidden modules loaded: {loaded}", file=sys.stderr)

@@ -98,7 +98,7 @@ class _Spans:
         return out
 
 
-def charge(events) -> dict:
+def charge(events, cards=None) -> dict:
     """The device events of a Chrome trace (``export_chrome_trace``'s
     ``traceEvents``) charged to the stages: ``{"stages": {stage: [us,
     events]}, "unstaged": [us, events], "recompute": [us, events],
@@ -106,7 +106,9 @@ def charge(events) -> dict:
     stages launched by a recompute inside a backward node, ``idle_s`` the
     device's idle gaps by the innermost stage span around each gap's middle
     (``trace.Trace.idle_gaps`` over the stage spans alone;
-    ``_no_host_event_`` outside them)."""
+    ``_no_host_event_`` outside them).  Over several cards, every time is
+    the mean over the cards: the device time of a stage summed over them,
+    and each card's idle gaps, divided by their count."""
     events = [e for e in events if e.get("ph") == "X" and "dur" in e]
     spans = _Spans(events)
     host = defaultdict(list)  # tid -> host events
@@ -165,14 +167,20 @@ def charge(events) -> dict:
             stage_of[k] = (linked(ev[2]) if ev is not None else None) or stage
             recomputed[k] = raw is not None and ev is None
 
-    timeline = trace.Trace([(e["name"], e["ts"], e["dur"]) for e in device], spans.host, 1, 0.0)
+    timeline = trace.Trace([(e["name"], e["ts"], e["dur"], trace.event_card(e)) for e in device],
+                           spans.host, 1, 0.0, cards=cards or [0])
+    n = len(timeline.cards)
+    idle = defaultdict(float)
+    for card in timeline.cards:
+        for name, s in timeline.idle_gaps(card).items():
+            idle[name] += s
     out = {"stages": {s: [0.0, 0] for s in STAGES}, "unstaged": [0.0, 0],
-           "recompute": [0.0, 0], "total_us": sum(e["dur"] for e in device),
-           "idle_s": dict(timeline.idle_gaps())}
+           "recompute": [0.0, 0], "total_us": sum(e["dur"] for e in device) / n,
+           "idle_s": {name: s / n for name, s in idle.items()} if n > 1 else dict(idle)}
     for e, stage, again in zip(device, stage_of, recomputed):
         for acc in ([out["stages"][stage] if stage is not None else out["unstaged"]]
                     + ([out["recompute"]] if again else [])):
-            acc[0] += e["dur"]
+            acc[0] += e["dur"] / n
             acc[1] += 1
     return out
 
@@ -187,17 +195,21 @@ def _recomputing(evaluates, spans, tid, times) -> list:
             for ev, sp in zip(evaluates, own)]
 
 
-def record(call, steps: int, device) -> list:
-    """The Chrome trace's events of ``steps`` profiled calls, after one
-    profiled warm-up call that is not kept (``trace.record``'s schedule)."""
+def record(call, steps: int, devices) -> list:
+    """The Chrome trace's events of ``steps`` profiled calls on ``devices``
+    (one, or a list of the run's cards), after one profiled warm-up call
+    that is not kept (``trace.record``'s schedule)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
+    cuda = devices[0].type == "cuda"
 
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda"
-                                           else [])
+    def sync():
+        if cuda:
+            for d in devices:
+                torch.cuda.synchronize(d)
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     sched = schedule(wait=0, warmup=1, active=steps, repeat=1)
     with profile(activities=activities, schedule=sched) as prof:
         call()
@@ -219,12 +231,13 @@ def record(call, steps: int, device) -> list:
 
 
 def _run_entry():
-    """``(program, device)`` of the ``run.run_cell`` call that is reading
+    """``(program, cards)`` of the ``run.run_cell`` call that is reading
     its metrics, or None outside one."""
     frame = sys._getframe(1)
     while frame is not None:
         if frame.f_code.co_name == "run_cell" and "program" in frame.f_locals:
-            return frame.f_locals["program"], frame.f_locals["device"]
+            local = frame.f_locals
+            return local["program"], local.get("cards", [local["device"]])
         frame = frame.f_back
     return None
 
@@ -237,8 +250,9 @@ def of_run(ctx):
         entry = _run_entry() if ctx.trace is not None else None
         ctx.stages = None
         if entry is not None:
-            program, device = entry
-            ctx.stages = dict(charge(record(program.call, ctx.trace.steps, device)),
+            program, cards = entry
+            ctx.stages = dict(charge(record(program.call, ctx.trace.steps, cards),
+                                     [c.index or 0 for c in cards]),
                               steps=ctx.steps)
             _report(ctx.stages)
     return ctx.stages

@@ -56,3 +56,24 @@ def test_remat_vi_launches_as_the_trainer_does(cuda):
                  T2=sum("taylor_sq_bwd" in n for n in names))
     per_step = {k: count[k] / rec.steps for k in ("T1", "T2", "B1", "B2", "B3", "B4")}
     assert per_step == {"T1": 36, "T2": 18, "B1": 28, "B2": 14, "B3": 4, "B4": 2}
+
+
+@pytest.mark.cuda
+def test_sharded_program_on_two_cards(cuda):
+    """Experiment 3 at 128³ with its SG-MCMC cut along D over two cards
+    (``distribute``, ``spatial_shards`` 2): the sound run is correct and
+    counts both cards, the ``seam`` fault is not correct.  Skips with fewer
+    than 2 cards."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards")
+    spec = run.load_cell("exp3_svf128.mcmc_pairs4")
+    spec.config["trainer"].update(distribute=True, spatial_shards=2)
+    spec.traffic["pairs"] = 1
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    out = run.run_cell(spec, 3400000031, 0.5, False, devices)
+    assert out["correct"] is True, out["checked"]
+    assert out["device"]["count"] == 2
+    seam = run.run_cell(spec, 3400000031, 0.5, False, devices, fault="seam")
+    assert seam["correct"] is False, seam["checked"]

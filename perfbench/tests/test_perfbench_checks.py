@@ -166,6 +166,36 @@ def test_frozen_kernel_bounds(kind, shape, bytes_, flops):
     assert port[kind].bound_ms(shape)[0] == pytest.approx(want, rel=1e-12)
 
 
+@pytest.mark.parametrize("kind, radius", [("B1Z", 1), ("B2Z", 1), ("B3Z", 12), ("B4Z", 12)])
+@pytest.mark.parametrize("shape", [(2, 3, 128, 512, 512), (2, 1, 128, 512, 512),
+                                   (2, 3, 16, 64, 64), (1, 1, 64, 256, 256)])
+def test_frozen_zhalo_kernel_bounds(kind, radius, shape):
+    """The z-halo modes' copies agree with the port's ``Kernel.bound_ms`` at
+    a card's slab (experiment 3 at 512³ over 4 cards, and smaller), halo
+    planes included."""
+    from ir_sgmcmc_tpu_torch.kernels import block_warp, split_warp
+
+    port = {"B1Z": split_warp.B1Z, "B2Z": split_warp.B2Z, "B3Z": block_warp.B3Z,
+            "B4Z": block_warp.B4Z}
+    want = port[kind].bound_ms(shape, radius)[0]
+    assert work.kernel_bound_ms(kind, shape, radius) == pytest.approx(want, rel=1e-12)
+    assert work.kernel_bound_ms(kind, shape, radius) > work.kernel_bound_ms(kind, shape)
+    trace_kind = kind[:2]
+    assert work.launch_bound_ms(trace_kind, shape, 4, 12) == pytest.approx(want, rel=1e-12)
+    assert work.launch_bound_ms(trace_kind, shape) == work.kernel_bound_ms(trace_kind, shape)
+
+
+def test_a_sharded_step_takes_each_cards_slab():
+    dims = (512, 512, 512)
+    shapes = work.kernel_shapes("mcmc", 2, dims, shards=4)
+    assert shapes["B1"] == shapes["B2"] == (2, 3, 128, 512, 512)
+    assert shapes["B3"] == shapes["B4"] == (2, 1, 128, 512, 512)
+    assert work.kernel_shapes("mcmc", 2, dims) == work.kernel_shapes("mcmc", 2, dims, shards=1)
+    spec = run.load_cell("exp3_svf256.mcmc_pair1")
+    one, four = (work.least_step_s("mcmc", spec.config, 1, 2, shards=s) for s in (1, 4))
+    assert four == (pytest.approx(one[0] / 4, rel=1e-12), one[1])
+
+
 def test_kernel_shapes_take_the_rows_of_one_launch():
     """One row per launch where VI runs its rows in turn (remat); else every
     row of the forward chain, as the 128³ cells' shapes have always been."""
@@ -211,6 +241,42 @@ def test_trace_reduction():
     b = trace.breakdown(t)
     assert b["device_ops"][0][0].startswith("void split_fwd_kernel")
     assert [g[0] for g in b["idle_gaps"]] == ["cudaLaunchKernel"]
+
+
+def test_one_card_reads_as_without_the_card():
+    """Events that carry their card, on one card, read as before."""
+    t = _trace()
+    carded = trace.Trace([e + (3,) for e in t.device], t.host, steps=1, window_s=50e-6,
+                         cards=[3])
+    assert carded.device == t.device and carded.busy_s() == t.busy_s()
+    assert carded.idle_gaps() == t.idle_gaps()
+    assert trace.breakdown(carded) == trace.breakdown(t)
+
+
+def test_trace_reduction_per_card():
+    """Busy time per card and its mean; idle gaps and the breakdown name the
+    card."""
+    device = [("void split_fwd_kernel<float, false>", 0.0, 10.0, 0),
+              ("reduce_kernel<128, 4>", 30.0, 10.0, 0),
+              ("void split_fwd_kernel<float, false>", 5.0, 30.0, 1)]
+    host = [("cudaLaunchKernel", 1, 20.0, 5.0)]
+    t = trace.Trace(device, host, steps=1, window_s=50e-6, cards=[0, 1])
+    assert t.busy_s(0) == pytest.approx(20e-6) and t.busy_s(1) == pytest.approx(30e-6)
+    assert t.busy_s() == pytest.approx(25e-6)
+    assert t.events_per_card() == {0: 2, 1: 1}
+    assert t.idle_gaps("each") == {"cuda:0 cudaLaunchKernel": pytest.approx(20e-6)}
+    b = trace.breakdown(t)
+    assert b["device_ops"][0] == ["cuda:1 void split_fwd_kernel<float, false>",
+                                  pytest.approx(30e-6)]
+    assert [g[0] for g in b["idle_gaps"]] == ["cuda:0 cudaLaunchKernel"]
+    ctx = SimpleNamespace(phase="mcmc", trace=t, steps=1, untraced_step_s=50e-6,
+                          window_peak_bytes=2 ** 30, shapes={"B1": (1, 3, 2, 2, 2)},
+                          least_step_s=(1e-6, "operations"), shards=2, window=12)
+    assert layers.launches_per_step(ctx, "mcmc") == 3
+    assert layers.plain_ops_ms_per_step(ctx, "mcmc") == pytest.approx(5e-3)
+    assert layers.device_idle_share(ctx, "mcmc") == pytest.approx(50.0)
+    assert layers.kernel_roofline(ctx, "mcmc") == pytest.approx(
+        100 * 2 * work.kernel_bound_ms("B1Z", (1, 3, 2, 2, 2), 1) / 40e-3)
 
 
 def test_readers():

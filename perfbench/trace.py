@@ -4,6 +4,12 @@ and the result's ``breakdown`` need.
 The grouping of device events by kind is a copy of the ``KINDS`` table of
 the port's ``scripts/trace_summary.py``: the pattern in the kernel's name
 and its kind, the first match winning.
+
+Every device event keeps the index of the card it ran on.  Busy time and
+idle gaps are each card's own, and the trace's busy time is their mean over
+the cards the run used; with more than one card the breakdown names the
+card of each entry.  On one card every number is as it was without the
+index.
 """
 
 from __future__ import annotations
@@ -35,25 +41,44 @@ def kind_of(name: str) -> str:
 
 class Trace:
     """Device events ``(name, start_us, dur_us)`` of ``steps`` steps, the
-    host events beside them, and the traced window's length."""
+    card of each (``card``, in the same order; ``cards``, every card the
+    run used), the host events beside them, and the traced window's length.
+    A device event may carry its card as a fourth item; without it, card
+    0."""
 
-    def __init__(self, device_events, host_events, steps: int, window_s: float):
-        self.device = sorted(device_events, key=lambda e: e[1])
+    def __init__(self, device_events, host_events, steps: int, window_s: float, cards=None):
+        events = sorted(device_events, key=lambda e: e[1])
+        self.device = [tuple(e[:3]) for e in events]
+        self.card = [int(e[3]) if len(e) > 3 else 0 for e in events]
+        self.cards = sorted(set(cards) if cards is not None else set(self.card) or {0})
+        if len(self.cards) == 1:  # one card: every event is that card's
+            self.card = self.cards * len(events)
         self.host = host_events
         self.steps = steps
         self.window_s = window_s
 
-    def busy_intervals(self) -> list:
+    def events_per_card(self) -> dict:
+        return {c: self.card.count(c) for c in self.cards}
+
+    def busy_intervals(self, card=None) -> list:
+        """The merged busy intervals of ``card`` (default: the first card)."""
+        card = self.cards[0] if card is None else card
         merged = []
-        for _, t, d in self.device:
+        for (_, t, d), c in zip(self.device, self.card):
+            if c != card:
+                continue
             if merged and t <= merged[-1][1]:
                 merged[-1][1] = max(merged[-1][1], t + d)
             else:
                 merged.append([t, t + d])
         return merged
 
-    def busy_s(self) -> float:
-        return sum(b - a for a, b in self.busy_intervals()) * 1e-6
+    def busy_s(self, card=None) -> float:
+        """Seconds in which an operation ran on ``card``; without one, the
+        mean over the cards."""
+        if card is not None or len(self.cards) == 1:
+            return sum(b - a for a, b in self.busy_intervals(card)) * 1e-6
+        return sum(self.busy_s(c) for c in self.cards) / len(self.cards)
 
     def by_name(self) -> dict:
         out = defaultdict(lambda: [0.0, 0])
@@ -62,11 +87,16 @@ class Trace:
             out[name][1] += 1
         return out
 
-    def idle_gaps(self) -> dict:
+    def idle_gaps(self, card=None) -> dict:
         """Seconds of device idle between device events, by the innermost
         host operation running at the middle of each gap (over every host
-        thread, the one that began last)."""
-        merged = self.busy_intervals()
+        thread, the one that began last); on one card, ``card`` (default:
+        the first), or with ``card="each"`` every card's, named ``cuda:<card>
+        <operation>``."""
+        if card == "each":
+            return {f"cuda:{c} {name}": s for c in self.cards
+                    for name, s in self.idle_gaps(c).items()}
+        merged = self.busy_intervals(card)
         gaps = sorted(((a + b) / 2.0, b - a) for (_, a), (b, _) in zip(merged, merged[1:])
                       if b > a)
         by_thread = defaultdict(list)
@@ -93,20 +123,35 @@ class Trace:
         return out
 
 
-def record(call, steps: int, device) -> Trace:
+def _sync(devices) -> None:
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+def event_card(e: dict) -> int:
+    """The card of a device event of the Chrome trace: its ``device``
+    argument, else its process id (the profiler's device lane)."""
+    args = e.get("args") or {}
+    card = args.get("device", e.get("pid"))
+    return card if isinstance(card, int) else 0
+
+
+def record(call, steps: int, devices) -> Trace:
     """Profile ``steps`` calls (after one profiled warm-up call that is not
-    kept) and reduce the Chrome trace."""
+    kept) on ``devices`` (one, or a list of the run's cards) and reduce the
+    Chrome trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    devices = list(devices) if isinstance(devices, (list, tuple)) else [devices]
     sched = schedule(wait=0, warmup=1, active=steps, repeat=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=sched) as prof:
         call()
-        torch.cuda.synchronize(device)
+        _sync(devices)
         prof.step()
         t0 = time.perf_counter()
         for _ in range(steps):
             call()
-        torch.cuda.synchronize(device)
+        _sync(devices)
         window_s = time.perf_counter() - t0
         prof.step()
     fd, path = tempfile.mkstemp(suffix=".json")
@@ -124,13 +169,24 @@ def record(call, steps: int, device) -> Trace:
             continue
         cat = e.get("cat")
         if cat in DEVICE_CATS:
-            device_events.append((e["name"], float(e["ts"]), float(e["dur"])))
+            device_events.append((e["name"], float(e["ts"]), float(e["dur"]), event_card(e)))
         elif cat in HOST_CATS and not e["name"].startswith("ProfilerStep"):
             host_events.append((e["name"], e.get("tid"), float(e["ts"]), float(e["dur"])))
-    return Trace(device_events, host_events, steps, window_s)
+    return Trace(device_events, host_events, steps, window_s,
+                 cards=[d.index or 0 for d in devices])
 
 
 def breakdown(trace: Trace, top: int = 10) -> dict:
-    ops = sorted(((n, s) for n, (s, _) in trace.by_name().items()), key=lambda x: -x[1])[:top]
-    gaps = sorted(trace.idle_gaps().items(), key=lambda x: -x[1])[:top]
+    """The device operations that took most time and the longest idle
+    gaps; with more than one card, each named ``cuda:<card> …``."""
+    if len(trace.cards) == 1:
+        by_name = {n: s for n, (s, _) in trace.by_name().items()}
+        idle = trace.idle_gaps()
+    else:
+        by_name = defaultdict(float)
+        for (name, _, d), c in zip(trace.device, trace.card):
+            by_name[f"cuda:{c} {name}"] += d * 1e-6
+        idle = trace.idle_gaps("each")
+    ops = sorted(by_name.items(), key=lambda x: -x[1])[:top]
+    gaps = sorted(idle.items(), key=lambda x: -x[1])[:top]
     return {"device_ops": [[n[:96], s] for n, s in ops], "idle_gaps": [[n[:96], s] for n, s in gaps]}

@@ -5,7 +5,9 @@ move the yardstick.
 * :func:`kernel_bound_ms`: the port's ``Kernel.bound_ms`` formulas (each
   input read once, each output written once, the operations of the
   kernel's formula), per launch at the main operand's shape ``(B, C, D,
-  H, W)``, over the H100 SXM's published peaks.
+  H, W)``, over the H100 SXM's published peaks; the z-halo modes B1Z-B4Z
+  of the spatially sharded step add their halo planes' bytes
+  (``kernels/_lib.py``'s ``Kernel.bytes``).
 * :func:`step_work`: the operations and bytes one SG-MCMC transition or
   VI iteration needs, from the algorithm's stages and shapes alone, so
   that it bounds the step whatever kernels implement it.
@@ -33,16 +35,40 @@ KERNELS = {
     "B6": (lambda C: 4 * (2 * C + 6), lambda C: 64 + 16 * C),
     "B7": (lambda C: 4 * (2 * C + 3), lambda C: 18 + 16 * C),
 }
+# the z-halo modes: the same work per output voxel (kernels/split_warp.py,
+# kernels/block_warp.py), and per voxel of each of the 2 x radius halo
+# planes these bytes: B1Z reads d and u there, B2Z reads them and writes
+# both gradients, B3Z/B4Z read the volume's window
+KERNELS.update({"B1Z": KERNELS["B1"], "B2Z": KERNELS["B2"], "B3Z": KERNELS["B3"],
+                "B4Z": KERNELS["B4"]})
+HALO_BYTES = {"B1Z": lambda C: 4 * (C + 3), "B2Z": lambda C: 8 * (C + 3),
+              "B3Z": lambda C: 4 * C, "B4Z": lambda C: 4 * C}
+# the kind a trace names (the z-halo kernels share their names) -> the
+# z-halo mode a sharded step launches, and its halo planes per side (None:
+# the block warp's window, ``launch_bound_ms``'s ``window``)
+ZHALO = {"B1": ("B1Z", 1), "B2": ("B2Z", 1), "B3": ("B3Z", None), "B4": ("B4Z", None)}
 
 
-def kernel_bound_ms(kind: str, shape) -> float:
-    """The least time of one launch of ``kind`` at ``shape``: the larger of
-    its bytes over the HBM bandwidth and its operations over the f32
-    rate."""
+def kernel_bound_ms(kind: str, shape, radius: int = 0) -> float:
+    """The least time of one launch of ``kind`` at ``shape`` (a z-halo
+    mode: and ``radius`` halo planes on each side): the larger of its bytes
+    over the HBM bandwidth and its operations over the f32 rate."""
     B, C, D, H, W = shape
     n = B * D * H * W
     per_byte, per_flop = KERNELS[kind]
-    return 1e3 * max(n * per_byte(C) / HBM_BYTES_PER_S, n * per_flop(C) / F32_FLOP_PER_S)
+    halo = B * 2 * int(radius) * H * W * HALO_BYTES[kind](C) if kind in HALO_BYTES else 0
+    return 1e3 * max((n * per_byte(C) + halo) / HBM_BYTES_PER_S, n * per_flop(C) / F32_FLOP_PER_S)
+
+
+def launch_bound_ms(kind: str, shape, shards: int = 1, window: int = 0) -> float:
+    """The least time of one launch of the kind a trace names at ``shape``:
+    on a step cut over ``shards > 1`` cards, of its z-halo mode
+    (:data:`ZHALO`; the block warp's reads ``window`` planes on each
+    side)."""
+    if shards > 1 and kind in ZHALO:
+        zkind, planes = ZHALO[kind]
+        return kernel_bound_ms(zkind, shape, window if planes is None else planes)
+    return kernel_bound_ms(kind, shape)
 
 
 def rows_per_launch(phase: str, pairs: int, chains: int, remat: bool) -> int:
@@ -54,13 +80,16 @@ def rows_per_launch(phase: str, pairs: int, chains: int, remat: bool) -> int:
     return 1 if remat else 2 * pairs
 
 
-def kernel_shapes(phase: str, rows: int, dims) -> dict:
+def kernel_shapes(phase: str, rows: int, dims, shards: int = 1) -> dict:
     """The main operand of each hand-written kernel on the ``"post"``
     paths the cells run, at ``rows`` rows per launch
     (:func:`rows_per_launch`): the split compositions on the displacement
-    ``(rows, 3, …)``, the block warp on the image ``(rows, 1, …)``."""
-    field = (rows, 3) + tuple(dims)
-    image = (rows, 1) + tuple(dims)
+    ``(rows, 3, …)``, the block warp on the image ``(rows, 1, …)``; on a
+    step cut along D over ``shards`` cards, each card's slab of ``D /
+    shards`` planes (its halo planes are :func:`launch_bound_ms`'s)."""
+    dims = (int(dims[0]) // shards,) + tuple(dims[1:])
+    field = (rows, 3) + dims
+    image = (rows, 1) + dims
     return {"B1": field, "B2": field, "B1-bf16": field, "B2-bf16": field,
             "B3": image, "B4": image}
 
@@ -118,9 +147,11 @@ def step_work(phase: str, cfg: dict, pairs: int, chains: int) -> tuple:
     return flops, moved
 
 
-def least_step_s(phase: str, cfg: dict, pairs: int, chains: int) -> tuple:
+def least_step_s(phase: str, cfg: dict, pairs: int, chains: int, shards: int = 1) -> tuple:
     """The least time of one step and what bounds it (``"operations"`` or
-    ``"bytes"``)."""
+    ``"bytes"``): over one card's peaks, or with the step cut over
+    ``shards`` cards (virtual shards of one card count once), its work
+    divided over their peaks."""
     flops, moved = step_work(phase, cfg, pairs, chains)
-    by_ops, by_bytes = flops / F32_FLOP_PER_S, moved / HBM_BYTES_PER_S
+    by_ops, by_bytes = flops / (shards * F32_FLOP_PER_S), moved / (shards * HBM_BYTES_PER_S)
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
