@@ -44,11 +44,15 @@ Phases, each of which raises on failure (exit code != 0):
    128)``; and the Taylor squaring's kernels T1 (bitwise) and T2 against
    the plain forward and VJP at the selftest's ``TAYLOR_SHAPES``, timed at
    ``(2, 3, 128³)`` and ``(8, 3, 128³)`` (no library call computes it);
+   and the residual map's kernels L1 (bitwise) and L2 against the plain
+   forward and autograd's VJP through it at the selftest's ``LCN_SHAPES``,
+   timed at ``(8, 128³)`` (a fixed image per row) and ``(2, 256³)`` (one
+   shared fixed image; no library call computes it);
 3. the SG-MCMC path: one SGLD transition over 2 chains at 128³ (the
    ``bench.py`` configuration, "post" noise), 1 warm-up and 10 timed
    transitions through ``init_chains`` -> ``make_mcmc_chunk``; the launch
-   counters must move by exactly T1 9, T2 9, B1 7, B2 7, B3 1, B4 1 per
-   transition;
+   counters must move by exactly T1 9, T2 9, B1 7, B2 7, B3 1, B4 1, L1 1,
+   L2 1 per transition;
    then 5 more transitions under ``torch.profiler``, printed as device
    kernel time by kind (the hand-written kernels by name: B3 as
    ``fwd_window_kernel<2, false>``);
@@ -57,7 +61,7 @@ Phases, each of which raises on failure (exit code != 0):
 5. the VI path: ``bench.py --phase vi``'s problem at 128³ on the "pre"
    noise scheme, GMM warm-up, 1 warm-up and 10 timed VI steps through
    ``make_vi_step`` -> ``make_vi_chunk``; the counters must move by
-   exactly T1 9, T2 9, B1 7, B5 9, B6 8, B7 8 (and B2-B4 0) per step; then 5 more
+   exactly T1 9, T2 9, B1 7, B5 9, B6 8, B7 8, L1 1, L2 1 (and B2-B4 0) per step; then 5 more
    steps under ``torch.profiler``, printed as in phase 3;
 6. one VI step at 64³ with fixed draws on the card and on the CPU must
    agree;
@@ -450,16 +454,61 @@ def _taylor_rows(gen) -> list:
     return rows[(CHAINS, 3) + DIMS]
 
 
+def _lcn_rows(gen) -> list:
+    """L1 and L2 against the plain residual map and autograd's VJP through
+    it on the selftest's ``LCN_SHAPES`` (L1 to the bit; whether L2 is too
+    printed per shape), timed at the pair cells' ``(8, 128³)`` (a fixed
+    image per row) and the 256³ cells' ``(2, 256³)`` (one shared image):
+    the plain times are the forward and autograd's backward through it
+    alone.  Returns the rows of the first; both are printed."""
+    from ir_sgmcmc_tpu_torch import selftest as st
+    from ir_sgmcmc_tpu_torch.kernels import lcn_residual as lr
+
+    errs = {lr.L1: 0.0, lr.L2: 0.0}
+    bitwise, timed = {}, {}
+    for shape, shared, R in st.LCN_SHAPES:
+        f, w, g = st.lcn_operands(gen, shape, shared)
+        res, dm, s = lr.lcn_residual_fwd_cuda(f, w, R)
+        errs[lr.L1] = max(errs[lr.L1], _err(res, lr.lcn_residual_plain(f, w, R),
+                                            *st.TOL["lcn_residual_fwd"], f"L1 {shape}"))
+        x = w.clone().requires_grad_(True)
+        out = lr.lcn_residual_plain(f, x, R)
+        (ref,) = torch.autograd.grad(out, x, g, retain_graph=True)
+        gw = lr.lcn_residual_bwd_cuda(dm, s, g, R)
+        atol = st.TOL["lcn_residual_bwd"][0] * float(ref.abs().max())
+        errs[lr.L2] = max(errs[lr.L2], _err(gw, ref, atol, 0.0, f"L2 {shape}") / float(
+            ref.abs().max()))
+        bitwise[f"{shape}{' shared' if shared else ''} R {R}"] = bool(torch.equal(gw, ref))
+        if len(shape) == 4 and R == 1 and shape[1:] in (DIMS, (256,) * 3):
+            # the main operand (N, C, D, H, W), C the fixed images per row
+            main = (shape[0], 1.0 / shape[0] if shared else 1) + tuple(shape[1:])
+            timed[main] = {
+                lr.L1: (_time_ms(lambda: lr.lcn_residual_fwd_cuda(f, w, R)),
+                        _time_ms(lambda: lr.lcn_residual_plain(f, w, R))),
+                lr.L2: (_time_ms(lambda: lr.lcn_residual_bwd_cuda(dm, s, g, R)),
+                        _time_ms(lambda: torch.autograd.grad(out, x, g, retain_graph=True)))}
+        del f, w, g, res, dm, s, x, out, ref, gw
+    print(f"lcn L2 bitwise the plain VJP: {json.dumps(bitwise)}", flush=True)
+    # L2's error is printed as a share of the gradient's largest element
+    rows = {main: [_row(k, main, errs[k], *st.TOL[k.symbol], *times[k]) for k in (lr.L1, lr.L2)]
+            for main, times in timed.items()}
+    first = next(iter(rows))
+    for main, rs in rows.items():
+        if main != first:
+            _print_rows(rs)
+    return rows[first]
+
+
 def phase_kernels(dev) -> list:
     """B1-B4 against their plain versions at the main path's shapes and at
     ragged ones; B3/B4 against their library calls; T1/T2 against the plain
-    Taylor squaring."""
+    Taylor squaring; L1/L2 against the plain residual map."""
     from ir_sgmcmc_tpu_torch import selftest as st
     from ir_sgmcmc_tpu_torch.kernels import block_warp as bw
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     tol = {k: st.TOL[k.symbol] for k in (bw.B3, bw.B4)}
-    rows = _split_rows(gen, torch.float32) + _taylor_rows(gen)
+    rows = _split_rows(gen, torch.float32) + _taylor_rows(gen) + _lcn_rows(gen)
 
     errs = {bw.B3: 0.0, bw.B4: 0.0}
     for shape, bound, radius in st.BLOCK_SHAPES:
@@ -747,9 +796,9 @@ def phase_spatial_kernels(dev) -> list:
 
 # launches per transition, and per VI step on "post", of the dense and SVFFD
 # models alike: the integration's 9 Taylor squarings and 7 split compositions
-# forward and backward and one block-gather warp
+# forward and backward, one block-gather warp, and the residual map (L1/L2)
 POST_PER_STEP = {"taylor_square_fwd": 9, "taylor_square_bwd": 9,
-                 "split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
+                 "lcn_residual_fwd": 1, "lcn_residual_bwd": 1, "split_warp_fwd": 7, "split_warp_bwd": 7, "block_warp_fwd": 1,
                   "block_warp_dgrad": 1, "warp_bounded_fwd": 0, "warp_bounded_dgrad": 0,
                   "warp_bounded_tblend": 0, "split_warp_fwd_bf16": 0,
                   "split_warp_bwd_bf16": 0, "warp_bounded_fwd_zhalo": 0,
@@ -930,7 +979,7 @@ def _vi_problem(dims, device, scheme="pre", cps=None, compute_dtype=None, **svf)
 
 
 VI_PER_STEP = {"taylor_square_fwd": 9, "taylor_square_bwd": 9,
-               "split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
+               "lcn_residual_fwd": 1, "lcn_residual_bwd": 1, "split_warp_fwd": 7, "split_warp_bwd": 0, "block_warp_fwd": 0,
                "block_warp_dgrad": 0, "warp_bounded_fwd": 9, "warp_bounded_dgrad": 8,
                "warp_bounded_tblend": 8, "split_warp_fwd_bf16": 0, "split_warp_bwd_bf16": 0,
                "warp_bounded_fwd_zhalo": 0, "warp_bounded_dgrad_zhalo": 0,
@@ -2385,7 +2434,10 @@ def phase_spatial_options(devices, tag: str = "spatial_options") -> dict:
     for option, per_shard in SPATIAL_OPTIONS.items():
         cd = "bfloat16" if option == "bfloat16" else None
         scheme = "pre" if option == "pre" else "post"
-        plain_per = {**zeros, **{_DEFAULT_MODE[k]: v for k, v in per_shard.items()}}
+        # the unsharded step's residual map runs L1/L2; the sharded one its own
+        # plain LCN (parallel/spatial.py)
+        plain_per = {**zeros, "lcn_residual_fwd": 1, "lcn_residual_bwd": 1,
+                     **{_DEFAULT_MODE[k]: v for k, v in per_shard.items()}}
         sharded_per = {**zeros, **{k: v * n for k, v in per_shard.items()}}
         what = f"{tag} {option}"
         if option != "pre":
@@ -2475,10 +2527,11 @@ def phase_spatial_options(devices, tag: str = "spatial_options") -> dict:
     return paths
 
 
-# the sharded trainer runs no default-mode B2 or B4 (every training step is
-# cut; B3 serves the GMM warm-up's one forward chain), nor the blend warp's
-# backward, the halo warp or the bf16 modes
-NOT_ON_SPATIAL_RUNS = (("split_warp_bwd", "block_warp_dgrad")
+# the sharded trainer runs no default-mode B2, B4 or L2 (every training step
+# is cut, its LCN plain; B3 and L1 serve the GMM warm-up's one forward chain
+# and the outputs), nor the blend warp's backward, the halo warp or the bf16
+# modes
+NOT_ON_SPATIAL_RUNS = (("split_warp_bwd", "block_warp_dgrad", "lcn_residual_bwd")
                        + tuple(s for s in NOT_ON_F32_RUNS if s not in SPATIAL))
 
 
@@ -2537,13 +2590,15 @@ BIG = (256, 256, 256)
 # their backward B6 7 and B7 7) before the block-gather warp; use_gather
 # integrates and warps by grid_sample alone; remat (VI at 256³) runs the
 # two antithetic chains in turn and recomputes each one's forward in the
-# backward (B1 2 x 2 x 7, B2 2 x 7, B3 2 x 2, B4 2)
+# backward (B1 2 x 2 x 7, B2 2 x 7, B3 2 x 2, B4 2, L1 2 x 2, L2 2); every
+# form runs the residual map once forward (L1) and once backward (L2)
 OFF_PER_STEP = {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "warp_bounded_fwd": 7,
                 "warp_bounded_dgrad": 7, "warp_bounded_tblend": 7, "block_warp_fwd": 1,
-                "block_warp_dgrad": 1}
-GATHER_PER_STEP = {}
+                "block_warp_dgrad": 1, "lcn_residual_fwd": 1, "lcn_residual_bwd": 1}
+GATHER_PER_STEP = {"lcn_residual_fwd": 1, "lcn_residual_bwd": 1}
 REMAT_PER_STEP = {"taylor_square_fwd": 36, "taylor_square_bwd": 18, "split_warp_fwd": 28,
-                  "split_warp_bwd": 14, "block_warp_fwd": 4, "block_warp_dgrad": 2}
+                  "split_warp_bwd": 14, "block_warp_fwd": 4, "block_warp_dgrad": 2,
+                  "lcn_residual_fwd": 4, "lcn_residual_bwd": 2}
 # the canonical line's keys in their order: bench.py's but its Pallas
 # fallback and VI error tags, then the port's; vs_baseline (after
 # noise_scheme) and baseline_* (after vi_compile_warm_s) come only with a
@@ -2713,9 +2768,10 @@ def phase_bench_kernels(dev) -> list:
 # forward once more (T1 9, B1 7)
 ANCHOR_PER_STEP = {
     "taylor": {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "split_warp_fwd": 7,
-               "split_warp_bwd": 7},
+               "split_warp_bwd": 7, "lcn_residual_fwd": 1, "lcn_residual_bwd": 1},
     "blend": {"taylor_square_fwd": 9, "taylor_square_bwd": 9, "split_warp_fwd": 7,
-              "split_warp_bwd": 7, "warp_bounded_fwd": 1, "warp_bounded_dgrad": 1}}
+              "split_warp_bwd": 7, "warp_bounded_fwd": 1, "warp_bounded_dgrad": 1,
+              "lcn_residual_fwd": 1, "lcn_residual_bwd": 1}}
 ANCHOR_PER_ANCHOR = {"taylor_square_fwd": 9, "split_warp_fwd": 7}
 # the "taylor" compositions compose by plain stencils after 8 Taylor
 # squarings (e 4; T1 8, T2 8): on "post" one block-gather warp per
@@ -2723,9 +2779,10 @@ ANCHOR_PER_ANCHOR = {"taylor_square_fwd": 9, "split_warp_fwd": 7}
 # radius-1 warps at e = 4, and the noise warp (B5 9; their backward B6 8,
 # B7 8), as VI_PER_STEP's but no B1
 TAYLOR_POST = {"taylor_square_fwd": 8, "taylor_square_bwd": 8, "block_warp_fwd": 1,
-               "block_warp_dgrad": 1}
+               "block_warp_dgrad": 1, "lcn_residual_fwd": 1, "lcn_residual_bwd": 1}
 TAYLOR_PRE = {"taylor_square_fwd": 8, "taylor_square_bwd": 8, "warp_bounded_fwd": 9,
-              "warp_bounded_dgrad": 8, "warp_bounded_tblend": 8}
+              "warp_bounded_dgrad": 8, "warp_bounded_tblend": 8, "lcn_residual_fwd": 1,
+              "lcn_residual_bwd": 1}
 
 
 def _expected(per_step: dict, steps: int, anchors: int = 0, per_anchor=None,
@@ -2739,6 +2796,8 @@ def _expected(per_step: dict, steps: int, anchors: int = 0, per_anchor=None,
     out = {k.symbol: 0 for k in all_kernels()}
     for table, n in ((per_step, steps), (per_anchor or {}, anchors)):
         for sym, count in table.items():
+            if zhalo and sym not in zmode:
+                continue  # L1/L2: the sharded step runs its own plain LCN (parallel/spatial.py)
             out[zmode[sym] if zhalo else sym] += count * n * per_shard
     return out
 

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "warp_bounded_dgrad_zhalo": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "taylor_square_fwd": [_P, _P, _I, _I, _I, _I, _P],
     "taylor_square_bwd": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "lcn_residual_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "lcn_residual_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

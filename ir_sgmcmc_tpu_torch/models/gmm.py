@@ -14,7 +14,7 @@ import math
 import torch
 
 from .._device import resolve_device
-from ..ops.stencil import box_filter3d
+from ..kernels.lcn_residual import lcn_residual
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -61,14 +61,11 @@ class GMM:
         return torch.exp(GMM.log_proportions(params))
 
     def residual_map(self, im_fixed: torch.Tensor, im_moving: torch.Tensor) -> torch.Tensor:
-        """Local-contrast-normalised residual ``lcn(f) - lcn(m)``."""
-
-        def lcn(im):
-            mu = box_filter3d(im, self.radius) / self.window
-            var = box_filter3d((im - mu) ** 2, self.radius) / self.window
-            return (im - mu) / torch.sqrt(var + 1e-10)
-
-        return lcn(im_fixed) - lcn(im_moving)
+        """Local-contrast-normalised residual ``lcn(f) - lcn(m)``: kernels
+        L1/L2 on float32 operands on the card, the plain stencils elsewhere
+        (``kernels/lcn_residual.py``); on the card ``im_fixed`` may not
+        require a gradient."""
+        return lcn_residual(im_fixed, im_moving, self.radius)
 
     def _log_w(self, params: dict) -> torch.Tensor:
         return self.log_proportions(params) - params["log_std"] - _LOG_SQRT_2PI

@@ -20,8 +20,9 @@ version on the same inputs on the card, at the tolerances of ``TOL``:
   window kernels, B5-B7 at R 1-3, the z-halo modes of B5/B6 and the
   z-pad mode of B7 at R 1, 2, 4, the z-halo modes of B1/B2
   (``SPLIT_ZHALO_SHAPES``) and of B3/B4 (``BLOCK_ZHALO_SHAPES``, window
-  and per-voxel kernels), and the Taylor squaring T1/T2
-  (``TAYLOR_SHAPES``: T1 to the bit);
+  and per-voxel kernels), the Taylor squaring T1/T2 (``TAYLOR_SHAPES``:
+  T1 to the bit) and the residual map L1/L2 (``LCN_SHAPES``: L1 to the
+  bit, L2 against autograd's VJP);
 * the per-voxel kernels the window and ring kernels leave to other
   shapes: B3/B4 at block 4 and at R 4, B5-B7 at R 4.
 
@@ -73,6 +74,11 @@ TOL.update({"split_warp_fwd_zhalo": TOL["split_warp_fwd"],
 # the bit.  T2 sums the plain VJP's terms in its order too, but the plain
 # version's channel sum is torch's reduction, whose order is torch's.
 TOL.update({"taylor_square_fwd": (0.0, 0.0), "taylor_square_bwd": (1e-5, 1e-6)})
+# L1 rounds as the plain forward does, in its order: equal to the bit.  L2
+# follows autograd's order of adds; held to autograd's VJP within 1e-6 of the
+# gradient's largest element (its flat regions' 1/s reaches 1e5), scaled per
+# check, so this entry is the share of that element
+TOL.update({"lcn_residual_fwd": (0.0, 0.0), "lcn_residual_bwd": (1e-6, 0.0)})
 
 # (shape, slab, offset) of B1/B2: the main path's, a tiny one, one that
 # straddles the tiles and 16-plane z-chunks with u saturated in a z-slab,
@@ -123,6 +129,29 @@ BLOCK_ZHALO_SHAPES = (((CHAINS, 1, MAIN[0] // 2) + MAIN[1:], 9, 2, 8, 12),
 # tiles and 32-plane chunks, each of D, H, W at 2, and two leading axes
 TAYLOR_SHAPES = ((CHAINS, 3) + MAIN, (8, 3) + MAIN, (3, 7, 9, 10), (2, 3, 40, 35, 70),
                  (1, 3, 2, 17, 33), (1, 3, 33, 2, 65), (1, 3, 66, 3, 2), (2, 2, 3, 8, 8, 8))
+
+
+# (moving shape, one shared fixed image, radius) of the residual map L1/L2:
+# the pair cells' 8 rows at 128³ (a fixed image per row), the 256³ cells' 2
+# rows (one shared image), unbatched, ragged across the 32 x 8 tiles and 8-
+# and 4-plane chunks, dims of 2 and 1, and each at R 2
+LCN_SHAPES = (((8,) + MAIN, False, 1), ((CHAINS, 256, 256, 256), True, 1), (MAIN, False, 1),
+              ((2, 17, 10, 70), False, 1), ((3, 17, 10, 70), True, 2), ((1, 2, 9, 33), False, 1),
+              ((2, 5, 2, 40), True, 2), ((2, 9, 12, 2), False, 2), ((1, 1, 7, 5), True, 1))
+
+
+def lcn_operands(gen, shape, shared):
+    """fixed, warped, g for L1/L2: unit-variance images with a flat slab (the
+    phantoms' background: var 0, so 1/sqrt(var + 1e-10) is 1e5 there), the
+    fixed image one ``(D, H, W)`` volume where ``shared``, and a unit
+    cotangent."""
+    dev = gen.device
+    f = torch.randn(shape[-3:] if shared else shape, generator=gen, device=dev)
+    w = torch.randn(shape, generator=gen, device=dev)
+    slab = max(1, shape[-3] // 4)
+    f[..., :slab, :, :] = 0.25
+    w[..., :slab, :, :] = 0.5
+    return f, w, torch.randn(shape, generator=gen, device=dev)
 
 
 def taylor_operands(gen, shape):
@@ -336,6 +365,7 @@ def run_selftest(dev=None, log: bool = True) -> dict:
     """Every check on the card ``dev`` (default ``cuda:0``); returns
     ``{"ok", "checks"}``.  The kernels' launch counters move."""
     from .kernels import block_warp as bw
+    from .kernels import lcn_residual as lr
     from .kernels import split_warp as sw
     from .kernels import taylor_square as ts
     from .kernels import warp_bounded as wb
@@ -415,6 +445,17 @@ def run_selftest(dev=None, log: bool = True) -> dict:
               TOL["taylor_square_fwd"])
         check(f"taylor_square_bwd{tag}", ts.taylor_square_bwd_cuda(d, g),
               _taylor_squaring_vjp_impl(d, g), TOL["taylor_square_bwd"])
+
+    for shape, shared, R in LCN_SHAPES:
+        f, w, g = lcn_operands(gen, shape, shared)
+        tag = f"{tuple(shape)}{' shared' if shared else ''} R {R}"
+        res, dm, sd = lr.lcn_residual_fwd_cuda(f, w, R)
+        check(f"lcn_residual_fwd{tag}", res, lr.lcn_residual_plain(f, w, R),
+              TOL["lcn_residual_fwd"])
+        x = w.clone().requires_grad_(True)
+        (ref,) = torch.autograd.grad(lr.lcn_residual_plain(f, x, R), x, g)
+        atol = TOL["lcn_residual_bwd"][0] * float(ref.abs().max())
+        check(f"lcn_residual_bwd{tag}", lr.lcn_residual_bwd_cuda(dm, sd, g, R), ref, (atol, 0.0))
     torch.cuda.synchronize(dev)
     return {"ok": bool(check.ok), "checks": {k: float(f"{v:.3e}") for k, v in check.errs.items()}}
 

@@ -47,6 +47,10 @@ MAIN_PATH = {
     # the Taylor squaring forward (d in, d' out) and backward (d, g in, ḡ out)
     "taylor_square_fwd": ((2, 3) + N128, 101),
     "taylor_square_bwd": ((2, 3) + N128, 151),
+    # the residual map at the pair cells' 8 rows, one fixed image per row:
+    # forward (fixed, warped in; res, dm, s out), backward (g, dm, s in; ḡ out)
+    "lcn_residual_fwd": ((8, 1) + N128, 336),
+    "lcn_residual_bwd": ((8, 1) + N128, 268),
 }
 
 
