@@ -1543,7 +1543,7 @@ def phase_pairs_reference(dev) -> None:
                 raise AssertionError(f"pairs reference: pair {who} {k} {pm[k][i]} vs {rm[k]}")
         for k in ("data_term", "reg_term", "vd_alpha"):
             _err(pm[k][i], rm[k], 0.0, 1e-4, f"pairs reference pair {who} {k}")
-        eps, _ = _chain_noise(states[i], bundle.uniform_noise_alpha, bundle.dims)
+        eps, _ = _chain_noise(bundle, states[i])
         v_noised = states[i].v + langevin_noise(None, states[i].sigma, tau, eps)
         q = (v_noised - ref.v) / tau
         floor = 8 * float(torch.finfo(torch.float32).eps * v_noised.abs().max()) / tau

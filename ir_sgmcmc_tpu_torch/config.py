@@ -6,7 +6,7 @@ cross-field wiring in one place (dims -> reg loss / transformation, the
 dof-derived hyperprior, the Simpson-2012 Gamma shape/rate of a learnable
 L2 weight).  The 17 bundled configs parse here; the dense-SVF ones build
 the same hyperparameters as the JAX package (a test holds them to it), and
-the SVFFD ones raise (ROADMAP A11).
+the SVFFD ones build and run as well.
 
 Run directory: ``<save_dir>/<name>/<run_id>/{log, models, tensors,
 samples/{VI,MCMC}, images, fields, grids, norms}``.

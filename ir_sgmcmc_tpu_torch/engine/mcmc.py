@@ -30,14 +30,14 @@ from ..parallel.mesh import Sharded, gather, run_in_turns
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import langevin_noise, sample_q_v, uniform_voxel_noise
+from ..ops._layout import OneDevice
 from ..ops.grids import inv_jacobian
 from ..ops.resample import grid_sample
-from ..ops.stencil import gradient
 from ..optim.adam_decay import AdamDecayState, apply_updates
 from ..utils.spans import (BOOKKEEPING, INTEGRATE, LIKELIHOOD, MCMC_STEP, REGULARISER, SMOOTH,
                            UPDATE, WARP, span)
 from .bundle import ModelBundle
-from .vi import forward_sample, gmm_adam_step, key_generator, vd_alpha
+from .vi import _ONE_CARD, forward_sample, gmm_adam_step, key_generator, vd_alpha
 
 
 class WelfordState(NamedTuple):
@@ -160,31 +160,31 @@ def init_chains(bundle: ModelBundle, generator: torch.Generator, no_chains: int,
         key=words, step=0)
 
 
-def _chain_noise(state: MCMCState, alpha: float | None, dims: tuple):
-    """Per-chain ``(eps, unif)`` from generators seeded by (key, step):
-    ``eps`` on the state's grid, ``unif`` on the dense ``dims`` (None without
-    a noise magnitude)."""
-    C = state.v.shape[0]
-    dev = state.v.device
-    eps = torch.empty_like(state.v)
-    unif = None if alpha is None else torch.empty((C, 3) + tuple(dims), device=dev)
+def _chain_noise(bundle: ModelBundle, state: MCMCState, device=None):
+    """Per-chain ``(eps, unif)`` of the whole field from generators seeded by
+    (key, step) on ``device`` (default: the state's): ``eps`` on
+    ``bundle.field_dims``, ``unif`` on the dense ``bundle.dims`` (None
+    without a noise magnitude).  A spatially sharded row draws it on each
+    slab's device and keeps the slab."""
+    C, alpha = state.v.shape[0], bundle.uniform_noise_alpha
+    dev = state.v.device if device is None else device
+    eps = (torch.empty_like(state.v) if device is None  # a whole state: its own layout
+           else torch.empty((C, 3) + tuple(bundle.field_dims), dtype=state.v.dtype, device=dev))
+    unif = None if alpha is None else torch.empty((C, 3) + tuple(bundle.dims), device=dev)
     for c in range(C):
         gen = key_generator(state.key[c], state.step, dev)
-        eps[c] = torch.randn(state.v.shape[1:], generator=gen, device=dev)
+        eps[c] = torch.randn(eps.shape[1:], generator=gen, device=dev)
         if unif is not None:
-            unif[c] = uniform_voxel_noise(gen, (3,) + tuple(dims), alpha, dev)
+            unif[c] = uniform_voxel_noise(gen, (3,) + tuple(bundle.dims), alpha, dev)
     return eps, unif
 
 
-def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor | None,
-               energy: torch.Tensor | None = None):
+def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth, layout: OneDevice = _ONE_CARD):
     """Per-chain reg energies' losses and ``log y``, and the hyperprior
     terms: the loc prior per chain, the scale (or weight) prior once per
-    parameter set.  ``energy``: the energy ``y`` itself, when the caller
-    computed it (the spatially sharded step sums it over slabs)."""
+    parameter set."""
     reg_loss = bundle.reg_loss
-    reg, log_y = (reg_loss(reg_p, v_smooth) if energy is None
-                  else reg_loss._loss(reg_p, energy))
+    reg, log_y = reg_loss(reg_p, v_smooth, layout)
     prior = torch.zeros_like(reg)
     per_set = 0.0
     if reg_loss.learnable and isinstance(reg_loss, RegLossLogNormal):
@@ -195,7 +195,8 @@ def _reg_terms(bundle: ModelBundle, reg_p: dict, v_smooth: torch.Tensor | None,
     return reg, log_y, prior, per_set
 
 
-def make_chain_anchor(bundle: ModelBundle, moving: dict, anchor_mode: str = "taylor"):
+def make_chain_anchor(bundle: ModelBundle, moving: dict, anchor_mode: str = "taylor",
+                      layout: OneDevice = _ONE_CARD):
     """``anchor(v) -> dict``: the chains' anchor for anchored residual
     warping (JAX ``make_chain_anchor``), made once per re-anchoring block
     from the chains' unsmoothed ``v (C, 3, *field_dims)``, with no gradient:
@@ -204,26 +205,83 @@ def make_chain_anchor(bundle: ModelBundle, moving: dict, anchor_mode: str = "tay
     ∇d0)⁻¹`` clipped to ±3 ``(C, 3, 3, D, H, W)`` (a near-folded anchor
     voxel would otherwise put ~1/det factors into the residual map), and in
     the ``"taylor"`` mode ``GW0 = ∇W0 (C, 3, D, H, W)``.  The integration
-    runs forward only (kernels B1 on the main path)."""
+    runs forward only (kernels B1 on the main path).  ``layout``: the
+    forward chain's."""
     if anchor_mode not in ("taylor", "blend"):
         raise ValueError(f"anchor_mode must be 'taylor' or 'blend', got {anchor_mode!r}")
+    L = layout
 
     def anchor(v_unsmoothed: torch.Tensor) -> dict:
         with torch.no_grad():
             with span(SMOOTH):
-                v = bundle.smooth(v_unsmoothed)
+                v = L.smooth(bundle, v_unsmoothed)
             with span(INTEGRATE):
-                transformation, d0, _ = bundle.transformation.integrate(v)
+                transformation, d0, _ = L.integrate(bundle.transformation, v)
             with span(WARP):
-                w0 = grid_sample(moving["im"], transformation)
-                eye = torch.eye(3, dtype=d0.dtype, device=d0.device).reshape(3, 3, 1, 1, 1)
+                w0 = L.map(grid_sample, moving["im"], transformation)
+                eye = L.map(_eye3, d0)
                 out = {"W0": w0, "d0": d0,
-                       "Jinv": torch.clamp(inv_jacobian(eye + gradient(d0)), -3.0, 3.0)}
+                       "Jinv": torch.clamp(inv_jacobian(eye + L.gradient(d0)), -3.0, 3.0)}
                 if anchor_mode == "taylor":
-                    out["GW0"] = gradient(w0.unsqueeze(-4))[:, 0]
+                    out["GW0"] = L.gradient(w0.unsqueeze(-4))[:, 0]
         return out
 
     return anchor
+
+
+def _eye3(like: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=like.dtype, device=like.device).reshape(3, 3, 1, 1, 1)
+
+
+def _potential(bundle: ModelBundle, opt_gmm, mask, out: dict, reg_p: dict, gmm: dict,
+               opt_gmm_state, shared: bool = False, layout: OneDevice = _ONE_CARD) -> tuple:
+    """The potential of the chains' forward chain ``out`` and its aux: the
+    detached GMM Adam step(s), the data and reg terms and their hyperpriors
+    (``shared``: :func:`make_sgld_transition_shared`'s)."""
+    res = out["residuals"]
+    with span(LIKELIHOOD):
+        if shared:
+            # one GMM, C sequential detached Adam steps: chain c's data
+            # term sees the GMM after its own step
+            datas, alphas = [], []
+            for c in range(res.shape[0]):
+                a = vd_alpha(bundle, gmm, res[c], mask, layout)
+                gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                                   res[c], mask, a, layout)
+                datas.append(bundle.gmm.masked_nll(gmm, res[c], mask, layout) * a)
+                alphas.append(a)
+            data_c, alpha = torch.stack(datas), torch.stack(alphas)
+            data_total = data_c.sum() - bundle.gmm_prior_terms(gmm)
+        else:
+            alpha = vd_alpha(bundle, gmm, res, mask, layout)
+            gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                               res, mask, alpha, layout)
+            data_c = bundle.gmm.masked_nll(gmm, res, mask, layout) * alpha
+            data_c = data_c - bundle.gmm_prior_terms(gmm)
+            data_total = data_c
+    with span(REGULARISER):
+        reg, log_y, loc_prior, per_set = _reg_terms(bundle, reg_p, out["v"], layout)
+        reg_c = reg if shared else reg - loc_prior - per_set
+        # shared: the hyperpriors enter once per transition
+        reg_total = (reg.sum() - loc_prior.sum() - per_set) if shared else reg_c
+    with span(BOOKKEEPING):
+        aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_c,
+               "reg_term": reg_c, "vd_alpha": alpha,
+               "reg_energy": torch.exp(log_y), "ndv": out["ndv"],
+               "sat": out["sat"], "sat_resid": out["sat_resid"],
+               "displacement": out["displacement"]}
+    with span(UPDATE):
+        return data_total + reg_total, aux
+
+
+def _transition_metrics(aux: dict, chains: int, shared: bool = False) -> dict:
+    """A transition's metrics from :func:`_potential`'s aux."""
+    metrics = {k: aux[k].detach() for k in (
+        "data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat", "sat_resid")}
+    for name, f in (("gmm_scales", GMM.scales), ("gmm_proportions", GMM.proportions)):
+        val = f(aux["gmm"])
+        metrics[name] = val.expand((chains,) + tuple(val.shape)) if shared else val
+    return metrics
 
 
 def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
@@ -259,47 +317,14 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
         # over the chains in either mode
         out = forward_sample(bundle, fixed, moving, v_noised, unif, anchor=anchor,
                              per_row=per_row, anchor_radius=anchor_radius)
-        res = out["residuals"]
-        with span(LIKELIHOOD):
-            if shared:
-                # one GMM, C sequential detached Adam steps: chain c's data
-                # term sees the GMM after its own step
-                datas, alphas = [], []
-                for c in range(res.shape[0]):
-                    a = vd_alpha(bundle, gmm, res[c], mask)
-                    gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
-                                                       res[c], mask, a)
-                    datas.append(bundle.gmm.masked_nll(gmm, res[c], mask) * a)
-                    alphas.append(a)
-                data_c, alpha = torch.stack(datas), torch.stack(alphas)
-                data_total = data_c.sum() - bundle.gmm_prior_terms(gmm)
-            else:
-                alpha = vd_alpha(bundle, gmm, res, mask)
-                gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
-                                                   res, mask, alpha)
-                data_c = bundle.gmm.masked_nll(gmm, res, mask) * alpha
-                data_c = data_c - bundle.gmm_prior_terms(gmm)
-                data_total = data_c
-        with span(REGULARISER):
-            reg, log_y, loc_prior, per_set = _reg_terms(bundle, reg_p, out["v"])
-            reg_c = reg if shared else reg - loc_prior - per_set
-            # shared: the hyperpriors enter once per transition
-            reg_total = (reg.sum() - loc_prior.sum() - per_set) if shared else reg_c
-        with span(BOOKKEEPING):
-            aux = {"gmm": gmm, "opt_gmm": opt_gmm_state, "data_term": data_c,
-                   "reg_term": reg_c, "vd_alpha": alpha,
-                   "reg_energy": torch.exp(log_y), "ndv": out["ndv"],
-                   "sat": out["sat"], "sat_resid": out["sat_resid"],
-                   "displacement": out["displacement"]}
-        with span(UPDATE):
-            return data_total + reg_total, aux
+        return _potential(bundle, opt_gmm, mask, out, reg_p, gmm, opt_gmm_state, shared)
 
     learnable_reg = bundle.reg_loss.learnable and len(bundle.reg_loss.param_names) > 0
 
     def transition(state: MCMCState, collect_weight: float, noise=None, anchor=None):
         with span(UPDATE):
             if noise is None:
-                noise = _chain_noise(state, bundle.uniform_noise_alpha, bundle.dims)
+                noise = _chain_noise(bundle, state)
             eps, unif = noise
         with torch.enable_grad():
             with span(UPDATE):
@@ -329,13 +354,7 @@ def make_sgld_transition(bundle: ModelBundle, opt_gmm, opt_reg, tau: float,
                 v=v_next, gmm=aux["gmm"], reg=reg_new, opt_gmm=aux["opt_gmm"],
                 opt_reg=opt_reg_state,
                 welford=welford_update(state.welford, disp, collect_weight))
-            metrics = {k: aux[k].detach() for k in (
-                "data_term", "reg_term", "vd_alpha", "reg_energy", "ndv", "sat",
-                "sat_resid")}
-            C = state.v.shape[0]
-            for name, f in (("gmm_scales", GMM.scales), ("gmm_proportions", GMM.proportions)):
-                val = f(aux["gmm"])
-                metrics[name] = val.expand((C,) + tuple(val.shape)) if shared else val
+            metrics = _transition_metrics(aux, state.v.shape[0], shared)
         return new_state, metrics
 
     return transition

@@ -31,10 +31,9 @@ from ..models.entropy import entropy_analytic, entropy_sample
 from ..models.gmm import GMM
 from ..models.reg_loss import RegLossL2, RegLossLogNormal
 from ..models.sampler import sample_q_v, uniform_voxel_noise
-from ..ops.grids import det_jacobian, voxel_to_normalised
-from ..ops.resample import (block_residual_overflow, grid_sample, grid_sample_each,
-                            warp_block_gather, warp_bounded)
-from ..ops.stencil import gradient
+from ..ops._layout import OneDevice
+from ..ops.grids import det_jacobian
+from ..ops.resample import grid_sample, grid_sample_each, warp_block_gather
 from ..optim.adam_decay import AdamDecayState, apply_updates
 from ..utils.spans import (BOOKKEEPING, INTEGRATE, LIKELIHOOD, REGULARISER, SMOOTH, UPDATE,
                            VI_STEP, WARP, span)
@@ -54,10 +53,21 @@ def key_generator(words, step: int, device, salt: int = 0) -> torch.Generator:
     return gen
 
 
-def count_folds(transformation: torch.Tensor) -> torch.Tensor:
+class _OneCard(OneDevice):
+    """``ops/_layout.py``'s one device, with the block-gather warp
+    (``warp_block_gather``, looked up at each call)."""
+
+    def block_warp(self, vol, disp, bound: int, radius: int, block: int) -> torch.Tensor:
+        return warp_block_gather(vol, disp, bound, radius, block)
+
+
+_ONE_CARD = _OneCard()
+
+
+def count_folds(transformation: torch.Tensor, layout: OneDevice = _ONE_CARD) -> torch.Tensor:
     """Voxels with ``det J < 0`` (the reference's NaN count of log|J|)."""
-    jac = gradient(transformation, normalised_spacing=True)
-    return torch.sum(det_jacobian(jac) < 0.0, dim=(-3, -2, -1))
+    jac = layout.gradient(transformation, normalised=True)
+    return layout.total(torch.sum(det_jacobian(jac) < 0.0, dim=(-3, -2, -1)))
 
 
 def block_warp_engages(bundle: ModelBundle) -> bool:
@@ -72,6 +82,22 @@ def block_warp_bound(bundle: ModelBundle) -> int:
     """The block means' bound: ``ceil(max_disp + alpha)`` voxels, the
     largest displacement ``T + U(-alpha, alpha)`` can reach."""
     return int(-(-float(bundle.transformation.max_disp + bundle.uniform_noise_alpha) // 1))
+
+
+def image_path(bundle: ModelBundle, anchored: bool = False) -> str:
+    """How :func:`forward_sample` warps the moving image: ``"gather"``,
+    ``"anchor"`` (given an anchor), ``"block"`` or ``"grid"`` (the
+    block-gather warp or ``grid_sample`` at ``T + noise``) or ``"cascade"``
+    (the image rides the compositions)."""
+    tr = bundle.transformation
+    if not hasattr(tr, "integrate") or getattr(tr, "use_gather", False):
+        return "gather"
+    if bundle.noise_scheme == "post":
+        if anchored:
+            return "anchor"
+        if bundle.uniform_noise_alpha is not None:
+            return "block" if block_warp_engages(bundle) else "grid"
+    return "cascade"
 
 
 def anchored_residual(displacement: torch.Tensor, noise: torch.Tensor | None, anchor: dict,
@@ -131,62 +157,76 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
     ``sat`` counts voxels whose displacement reaches the bound where the
     path clamps: ``displacement_clamp_bound`` on ``"post"`` (anchored or
     not), ``image_clamp_bound`` on the cascade, none on the gather path.
+    The path is :func:`image_path`'s; ``parallel.spatial.forward_slabs``
+    runs the same chain over slabs.
     """
+    return _forward_chain(bundle, _ONE_CARD, fixed, moving, v_unsmoothed, noise, anchor,
+                          per_row, anchor_radius)
+
+
+def _forward_chain(bundle: ModelBundle, L, fixed: dict, moving: dict, v_unsmoothed, noise,
+                   anchor: dict | None, per_row: bool, anchor_radius: int) -> dict:
+    """:func:`forward_sample` on the layout ``L`` (``parallel/spatial.py``'s
+    rows pass their slabs, the fixed image's LCN and the moving image's
+    windows)."""
     tr = bundle.transformation
     alpha = bundle.uniform_noise_alpha
-    gather = not hasattr(tr, "integrate") or getattr(tr, "use_gather", False)
-    post_noise = alpha is not None and bundle.noise_scheme == "post"
+    path = image_path(bundle, anchored=anchor is not None)
     im = moving["im"]
     if per_row and im.ndim != 4:
         raise ValueError(f"per-row images are (C, D, H, W), got {tuple(im.shape)}")
     with span(SMOOTH):
-        v = bundle.smooth(v_unsmoothed)
+        v = L.smooth(bundle, v_unsmoothed)
     with span(BOOKKEEPING):
         zero = torch.zeros(v.shape[:-4], dtype=torch.int64, device=v.device)
     anchor_sat = zero
 
     def sample(t):
-        return grid_sample_each(im[:, None], t)[:, 0] if per_row else grid_sample(im, t)
+        return grid_sample_each(im[:, None], t)[:, 0] if per_row else L.map(grid_sample, im, t)
 
-    if anchor is not None and not gather and bundle.noise_scheme == "post":
+    if path == "anchor":
         with span(INTEGRATE):
-            transformation, displacement, _ = tr.integrate(v)
+            transformation, displacement, _ = L.integrate(tr, v)
         R = int(anchor_radius)
         with span(WARP):
-            delta, anchor_sat = anchored_residual(
-                displacement, None if alpha is None else noise, anchor, R)
+            delta, clamped = anchored_residual(displacement, None if alpha is None else noise,
+                                               anchor, R)
             if "GW0" in anchor:
                 warped = anchor["W0"] + torch.sum(anchor["GW0"] * delta, dim=-4)
             else:
-                warped = warp_bounded(anchor["W0"].unsqueeze(-4), delta, R)[:, 0]
+                warped = L.warp(anchor["W0"].unsqueeze(-4), delta, R)[:, 0]
+            anchor_sat = L.total(clamped)
         clamp_bound = float(tr.displacement_clamp_bound)
-    elif gather:
+    elif path == "gather":
         with span(INTEGRATE):
-            transformation, displacement = tr(v)
+            if hasattr(tr, "integrate"):
+                transformation, displacement, _ = L.integrate(tr, v)
+            else:
+                transformation, displacement = tr(v)
         with span(WARP):
             t = transformation
             if alpha is not None:
-                t = t + voxel_to_normalised(noise)
+                t = t + L.to_normalised(noise)
             warped = sample(t)
         clamp_bound = math.inf  # no warp of this path clamps
-    elif post_noise:
+    elif path in ("block", "grid"):
         with span(INTEGRATE):
-            transformation, displacement, _ = tr.integrate(v)
-        if block_warp_engages(bundle):
+            transformation, displacement, _ = L.integrate(tr, v)
+        if path == "block":
             block = int(bundle.block_size)
             radius = int(bundle.block_radius)
             bound = block_warp_bound(bundle)
             with span(WARP):
                 d_total = displacement + noise
                 n = d_total.shape[0]
-                vol = (im[:, None] if per_row else im.expand((n, 1) + tuple(bundle.dims)))
+                vol = im[:, None] if per_row else im.expand((n, 1) + tuple(im.shape[-3:]))
                 vol = vol.contiguous()
-                warped = warp_block_gather(vol, d_total, bound, radius, block)[:, 0]
+                warped = L.block_warp(vol, d_total, bound, radius, block)[:, 0]
             with span(BOOKKEEPING):
-                anchor_sat = block_residual_overflow(d_total.detach(), bound, radius, block)
+                anchor_sat = L.block_overflow(d_total.detach(), bound, radius, block)
         else:
             with span(WARP):
-                warped = sample(transformation + voxel_to_normalised(noise))
+                warped = sample(transformation + L.to_normalised(noise))
         clamp_bound = float(tr.displacement_clamp_bound)
     else:
         with span(INTEGRATE):
@@ -195,23 +235,24 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
                                                                     per_row=True)
                 warped = warped[:, 0]
             else:
-                transformation, displacement, warped = tr.integrate(v, im=im)
+                transformation, displacement, warped = L.integrate(tr, v, im=im)
         if alpha is not None:
             # the radius covers the magnitude: alpha > 1 is not cut to ±1
             radius = max(1, math.ceil(float(alpha)))
             with span(WARP):
-                warped = warp_bounded(warped[:, None], noise, radius)[:, 0]
+                warped = L.warp(warped[:, None], noise, radius)[:, 0]
         clamp_bound = float(tr.image_clamp_bound)
     with span(BOOKKEEPING):
-        ndv = count_folds(transformation.detach())
+        ndv = count_folds(transformation.detach(), L)
     with span(LIKELIHOOD):
-        residuals = bundle.gmm.residual_map(fixed["im"], warped)
+        residuals = L.residual_map(bundle.gmm, fixed, warped)
     with span(BOOKKEEPING):
         if math.isinf(clamp_bound):
             sat = zero
         else:
             d = displacement.detach()
-            sat = torch.sum(torch.any(torch.abs(d) >= clamp_bound, dim=-4), dim=(-3, -2, -1))
+            sat = L.total(torch.sum(torch.any(torch.abs(d) >= clamp_bound, dim=-4),
+                                    dim=(-3, -2, -1)))
         sat = sat + anchor_sat
     return {
         "v": v,
@@ -226,12 +267,13 @@ def forward_sample(bundle: ModelBundle, fixed: dict, moving: dict,
 
 
 def gmm_adam_step(bundle: ModelBundle, opt, gmm: dict, opt_gmm, residuals,
-                  mask, alpha):
+                  mask, alpha, layout: OneDevice = _ONE_CARD):
     """One detached GMM Adam step per chain (reference trainer.py:68-77)."""
     res_d = residuals.detach()
     with torch.enable_grad():
         p = {k: v.detach().requires_grad_(True) for k, v in gmm.items()}
-        loss = bundle.gmm.masked_nll(p, res_d, mask) * alpha - bundle.gmm_prior_terms(p)
+        loss = (bundle.gmm.masked_nll(p, res_d, mask, layout) * alpha
+                - bundle.gmm_prior_terms(p))
         keys = list(p)
         grads = torch.autograd.grad(loss.sum(), [p[k] for k in keys])
     updates, opt_gmm = opt.update(dict(zip(keys, grads)), opt_gmm)
@@ -239,12 +281,59 @@ def gmm_adam_step(bundle: ModelBundle, opt, gmm: dict, opt_gmm, residuals,
     return apply_updates(gmm, updates), opt_gmm
 
 
-def vd_alpha(bundle: ModelBundle, gmm: dict, residuals, mask) -> torch.Tensor:
+def vd_alpha(bundle: ModelBundle, gmm: dict, residuals, mask,
+             layout: OneDevice = _ONE_CARD) -> torch.Tensor:
     """Virtual-decimation factor per chain (1 when VD is off)."""
     if not bundle.virtual_decimation:
         return torch.ones(residuals.shape[:-3], dtype=torch.float32,
                           device=residuals.device)
-    return bundle.gmm.vd_alpha(gmm, residuals.detach(), mask)
+    return bundle.gmm.vd_alpha(gmm, residuals.detach(), mask, layout)
+
+
+def _elbo(bundle: ModelBundle, opt_gmm, mask, q_v: dict, v, residuals, regs, log_ys,
+          counts: tuple, reg_p: dict, gmm: dict, opt_gmm_state,
+          layout: OneDevice = _ONE_CARD) -> tuple:
+    """The loss of the antithetic pair ``v`` from its forward chains' results
+    (each ``(2, …)``): per sample in turn a detached GMM Adam step and its
+    data term (reference trainer.py:68-77, :99-101), the hyperpriors, the
+    entropy.  Returns ``(loss, gmm, opt_gmm_state, metrics)``."""
+    reg_loss = bundle.reg_loss
+    learnable_reg = reg_loss.learnable and len(reg_loss.param_names) > 0
+    with span(REGULARISER):
+        ents = entropy_sample(v, q_v["mu"], q_v["log_var"], q_v["u"], layout)
+
+    with span(LIKELIHOOD):
+        datas, alphas = [], []
+        for i in range(2):
+            res = residuals[i]
+            a = vd_alpha(bundle, gmm, res, mask, layout)
+            gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
+                                               res, mask, a, layout)
+            datas.append(bundle.gmm.masked_nll(gmm, res, mask, layout) * a)
+            alphas.append(a)
+        data_term = 0.5 * (datas[0] + datas[1]) - bundle.gmm_prior_terms(gmm)
+
+    with span(REGULARISER):
+        reg_term = 0.5 * (regs[0] + regs[1])
+        if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
+            reg_term = reg_term - 0.5 * (bundle.reg_loc_prior(log_ys[0])
+                                         + bundle.reg_loc_prior(log_ys[1]))
+            reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
+        elif learnable_reg and isinstance(reg_loss, RegLossL2):
+            reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
+        entropy_term = (0.5 * (ents[0] + ents[1])
+                        + entropy_analytic(q_v["log_var"], q_v["u"], layout))
+    with span(UPDATE):
+        loss = data_term + reg_term - entropy_term
+    with span(BOOKKEEPING):
+        ndv, sat, sat_resid = counts
+        metrics = {
+            "data_term": data_term, "reg_term": reg_term,
+            "entropy_term": entropy_term, "total_loss": loss,
+            "vd_alpha": alphas[0], "reg_energy": torch.exp(log_ys[0]),
+            "ndv": ndv[0], "sat": sat[0], "sat_resid": sat_resid[0],
+        }
+    return loss, gmm, opt_gmm_state, metrics
 
 
 # ---- the VI iteration ------------------------------------------------------------
@@ -264,8 +353,9 @@ class VIState(NamedTuple):
 
 def _draws(bundle: ModelBundle, q_v: dict, gen: torch.Generator, batch: int):
     """``(eps, x, unif)`` for one q(v) draw and ``batch`` forward chains."""
-    mu = q_v["mu"]
-    eps = torch.randn(mu.shape, generator=gen, dtype=mu.dtype, device=mu.device)
+    mu = q_v["mu"]  # whole (spatially sharded: a slab, on its device)
+    eps = torch.randn((3,) + tuple(bundle.field_dims), generator=gen, dtype=mu.dtype,
+                      device=mu.device)
     x = torch.randn((), generator=gen, dtype=mu.dtype, device=mu.device)
     unif = None
     if bundle.uniform_noise_alpha is not None:
@@ -390,40 +480,8 @@ def make_vi_step(bundle: ModelBundle, opt_q_v, opt_gmm, opt_reg, fixed: dict,
             # per sample, then per pair: (2, *lead, …)
             residuals, regs, log_ys, ndv, sat, sat_resid = (
                 t.reshape((2,) + lead + tuple(t.shape[1:])) for t in outs)
-        with span(REGULARISER):
-            ents = entropy_sample(v, q_v["mu"], q_v["log_var"], q_v["u"])
-
-        with span(LIKELIHOOD):
-            datas, alphas = [], []
-            for i in range(2):
-                res = residuals[i]
-                a = vd_alpha(bundle, gmm, res, mask)
-                gmm, opt_gmm_state = gmm_adam_step(bundle, opt_gmm, gmm, opt_gmm_state,
-                                                   res, mask, a)
-                datas.append(bundle.gmm.masked_nll(gmm, res, mask) * a)
-                alphas.append(a)
-            data_term = 0.5 * (datas[0] + datas[1]) - bundle.gmm_prior_terms(gmm)
-
-        with span(REGULARISER):
-            reg_term = 0.5 * (regs[0] + regs[1])
-            if learnable_reg and isinstance(reg_loss, RegLossLogNormal):
-                reg_term = reg_term - 0.5 * (bundle.reg_loc_prior(log_ys[0])
-                                             + bundle.reg_loc_prior(log_ys[1]))
-                reg_term = reg_term - bundle.reg_scale_prior(reg_p["log_scale"])
-            elif learnable_reg and isinstance(reg_loss, RegLossL2):
-                reg_term = reg_term - bundle.reg_w_reg_prior(reg_p["log_w_reg"])
-            entropy_term = (0.5 * (ents[0] + ents[1])
-                            + entropy_analytic(q_v["log_var"], q_v["u"]))
-        with span(UPDATE):
-            loss = data_term + reg_term - entropy_term
-        with span(BOOKKEEPING):
-            metrics = {
-                "data_term": data_term, "reg_term": reg_term,
-                "entropy_term": entropy_term, "total_loss": loss,
-                "vd_alpha": alphas[0], "reg_energy": torch.exp(log_ys[0]),
-                "ndv": ndv[0], "sat": sat[0], "sat_resid": sat_resid[0],
-            }
-        return loss, gmm, opt_gmm_state, metrics
+        return _elbo(bundle, opt_gmm, mask, q_v, v, residuals, regs, log_ys,
+                     (ndv, sat, sat_resid), reg_p, gmm, opt_gmm_state)
 
     def step(state: VIState, noise=None):
         with span(VI_STEP):

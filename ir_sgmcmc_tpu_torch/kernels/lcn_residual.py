@@ -65,17 +65,19 @@ def _window(radius: int) -> float:
     return float((2 * radius + 1) ** 3)
 
 
-def lcn_parts(im: torch.Tensor, radius: int) -> tuple:
+def lcn_parts(im: torch.Tensor, radius: int, box=box_filter3d) -> tuple:
     """``(im - mu, sqrt(var + 1e-10))`` of the local contrast normalisation
-    ``lcn(im) = (im - mu) / sqrt(var + 1e-10)``."""
+    ``lcn(im) = (im - mu) / sqrt(var + 1e-10)``, ``box(x, radius)`` the
+    window sum (the spatially sharded steps' sums over slabs by halo
+    exchange)."""
     window = _window(radius)
-    mu = box_filter3d(im, radius) / window
-    var = box_filter3d((im - mu) ** 2, radius) / window
+    mu = box(im, radius) / window
+    var = box((im - mu) ** 2, radius) / window
     return im - mu, torch.sqrt(var + 1e-10)
 
 
-def _lcn(im: torch.Tensor, radius: int) -> torch.Tensor:
-    dm, s = lcn_parts(im, radius)
+def _lcn(im: torch.Tensor, radius: int, box=box_filter3d) -> torch.Tensor:
+    dm, s = lcn_parts(im, radius, box)
     return dm / s
 
 

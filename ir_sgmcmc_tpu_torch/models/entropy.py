@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops._layout import ONE_DEVICE, OneDevice
+
 
 def _reduce(x: torch.Tensor) -> torch.Tensor:
     """Sum over channel+spatial axes, keeping an optional leading batch."""
@@ -19,39 +21,22 @@ def _reduce(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=tuple(range(x.ndim - 4, x.ndim)))
 
 
-def entropy_analytic_sums(log_var: torch.Tensor, u: torch.Tensor) -> tuple:
-    """The sums of :func:`entropy_analytic`: ``(Σ (u/σ)², Σ log σ²)``."""
+def entropy_analytic(log_var: torch.Tensor, u: torch.Tensor,
+                     layout: OneDevice = ONE_DEVICE) -> torch.Tensor:
+    """``0.5 (log1p ||u/sigma||² + Σ log sigma²)``, the entropy up to
+    constants (matrix determinant lemma for the rank-1 term)."""
     sigma = torch.exp(0.5 * log_var)
-    return _reduce((u / sigma) ** 2), _reduce(log_var)
-
-
-def entropy_analytic_from_sums(un2, log_var_sum) -> torch.Tensor:
+    un2, log_var_sum = layout.total(_reduce((u / sigma) ** 2)), layout.total(_reduce(log_var))
     return 0.5 * (torch.log1p(un2) + log_var_sum)
 
 
-def entropy_analytic(log_var: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """``0.5 (log1p ||u/sigma||² + Σ log sigma²)``, the entropy up to
-    constants (matrix determinant lemma for the rank-1 term)."""
-    return entropy_analytic_from_sums(*entropy_analytic_sums(log_var, u))
-
-
-def entropy_sample_sums(sample: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor,
-                        u: torch.Tensor) -> tuple:
-    """The sums of :func:`entropy_sample`: ``(Σ sn², Σ sn·un, Σ un²)`` with
-    ``sn = (v-mu)/σ``, ``un = u/σ`` (the spatially sharded VI step adds
-    them over slabs)."""
+def entropy_sample(sample: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor,
+                   u: torch.Tensor, layout: OneDevice = ONE_DEVICE) -> torch.Tensor:
+    """Sample-based quadratic term ``0.5 (v-mu)ᵀ Σ⁻¹ (v-mu)`` by
+    Sherman-Morrison, with ``sn = (v-mu)/σ``, ``un = u/σ``."""
     sigma = torch.exp(0.5 * log_var)
     sn = (sample - mu) / sigma
     un = u / sigma
-    return _reduce(sn ** 2), _reduce(sn * un), _reduce(un ** 2)
-
-
-def entropy_sample_from_sums(sn2, snun, un2) -> torch.Tensor:
+    sn2, snun, un2 = (layout.total(_reduce(sn ** 2)), layout.total(_reduce(sn * un)),
+                      layout.total(_reduce(un ** 2)))
     return 0.5 * (sn2 - snun ** 2 / (1.0 + un2))
-
-
-def entropy_sample(sample: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor,
-                   u: torch.Tensor) -> torch.Tensor:
-    """Sample-based quadratic term ``0.5 (v-mu)ᵀ Σ⁻¹ (v-mu)`` by
-    Sherman-Morrison."""
-    return entropy_sample_from_sums(*entropy_sample_sums(sample, mu, log_var, u))

@@ -4,7 +4,9 @@
 Parameters are dicts of tensors ``{"logits": (…, K), "log_std": (…, K)}``;
 a leading chain axis on the parameters pairs with a leading chain axis on
 the residuals ``(…, D, H, W)``.  Reductions are mask-weighted over the full
-grid and return one value per leading index.
+grid and return one value per leading index; a ``layout``
+(``ops/_layout.py``) takes their sums over voxels (the spatially sharded
+steps' over slabs).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from .._device import resolve_device
 from ..kernels.lcn_residual import lcn_residual
+from ..ops._layout import ONE_DEVICE, OneDevice
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -75,10 +78,12 @@ class GMM:
         e = 0.5 * (z[..., None] * _over_voxels(torch.exp(-params["log_std"]))) ** 2
         return torch.logsumexp(_over_voxels(self._log_w(params)) - e, dim=-1)
 
-    def masked_nll(self, params: dict, z: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def masked_nll(self, params: dict, z: torch.Tensor, mask: torch.Tensor,
+                   layout: OneDevice = ONE_DEVICE) -> torch.Tensor:
         """``-Σ log p`` over the masked voxels, per leading index."""
-        lp = self.log_pdf(params, z)
-        return -torch.sum(torch.where(mask, lp, torch.zeros_like(lp)), dim=(-3, -2, -1))
+        lp = layout.map(self.log_pdf, layout.local(params), z)
+        return layout.total(-torch.sum(torch.where(mask, lp, torch.zeros_like(lp)),
+                                       dim=(-3, -2, -1)))
 
     def rescale_residuals(self, params: dict, res: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """``Σ_k z_k ∂(-log p_VD)/∂z_k`` with ``z_k = res·exp(-log_std_k)``.
@@ -93,27 +98,21 @@ class GMM:
         return torch.sum(z * (gamma * z), dim=-1)
 
     @staticmethod
-    def vd_factor(residual: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def vd_factor(residual: torch.Tensor, mask: torch.Tensor,
+                  layout: OneDevice = ONE_DEVICE) -> torch.Tensor:
         """Virtual-decimation factor from lag-1 residual autocorrelation."""
         res_masked = torch.where(mask, residual, torch.zeros_like(residual))
         vox = (-3, -2, -1)
-
-        def lag(axis):
-            n1 = res_masked.shape[axis]
-            a = res_masked.narrow(axis, 0, n1 - 1)
-            b = res_masked.narrow(axis, 1, n1 - 1)
-            return torch.sum(a * b, dim=vox)
-
         # masked voxels (per row for a per-row mask)
-        return GMM.vd_factor_from_sums(torch.sum(mask, dim=vox),
-                                       torch.sum(res_masked ** 2, dim=vox),
-                                       lag(-1), lag(-2), lag(-3))
+        return GMM.vd_factor_from_sums(layout.total(torch.sum(mask, dim=vox)),
+                                       layout.total(torch.sum(res_masked ** 2, dim=vox)),
+                                       *layout.lag1_sums(res_masked))
 
     @staticmethod
     def vd_factor_from_sums(n, sum_sq, lag_x, lag_y, lag_z) -> torch.Tensor:
         """:meth:`vd_factor` from its sums over the masked residual: the
         masked voxels ``n``, ``Σ r²`` and the lag-1 products ``Σ r_p r_{p+e}``
-        along W, H and D (the spatially sharded steps add them over slabs)."""
+        along W, H and D."""
         var = sum_sq / n
 
         def lag1(s):
@@ -123,7 +122,8 @@ class GMM:
         return torch.sqrt(lag1(lag_x) * lag1(lag_y) * lag1(lag_z))
 
     @torch.no_grad()
-    def vd_alpha(self, params: dict, res: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def vd_alpha(self, params: dict, res: torch.Tensor, mask: torch.Tensor,
+                 layout: OneDevice = ONE_DEVICE) -> torch.Tensor:
         """Full VD pipeline on detached residuals, per leading index."""
-        rescaled = self.rescale_residuals(params, res, mask)
-        return self.vd_factor(rescaled, mask)
+        rescaled = layout.map(self.rescale_residuals, layout.local(params), res, mask)
+        return self.vd_factor(rescaled, mask, layout)

@@ -15,7 +15,7 @@ import math
 import torch
 
 from .._device import resolve_device
-from ..ops.fourier import fourier_derivative_magnitude
+from ..ops._layout import ONE_DEVICE, OneDevice
 from ..ops.stencil import reg_energy
 from .distributions import expgamma_expectation, gamma_log_pdf
 
@@ -35,22 +35,21 @@ class RegLoss:
         self.dof = float(3.0 * math.prod(self.dims)) if dims is not None else None
         self.learnable = bool(learnable)
 
-    def energy(self, v: torch.Tensor) -> torch.Tensor:
-        if self.diff_op == "GradientOperator":
-            return reg_energy(v)
+    def energy(self, v: torch.Tensor, layout: OneDevice = ONE_DEVICE) -> torch.Tensor:
+        """``y`` per leading index (one value for ``(3, D, H, W)``), its sums
+        over voxels by ``layout`` (``ops/_layout.py``)."""
         if self.diff_op == "Fourier1stDerivativeOperator":
-            v = fourier_derivative_magnitude(v)
-        if v.ndim == 4:
-            return torch.sum(v * v)
-        return torch.sum(v * v, dim=tuple(range(1, v.ndim)))
+            return layout.fourier_energy(v)
+        return layout.total(reg_energy(v, layout.gradient if self.diff_op == "GradientOperator"
+                                       else lambda x: x))
 
     def init_params(self, device=None) -> dict:
         """Learnable parameters on ``device`` (default: the CUDA card)."""
         resolve_device(device)
         return {}
 
-    def __call__(self, params: dict, v: torch.Tensor):
-        return self._loss(params, self.energy(v))
+    def __call__(self, params: dict, v: torch.Tensor, layout: OneDevice = ONE_DEVICE):
+        return self._loss(params, self.energy(v, layout))
 
     def _loss(self, params, y):
         raise NotImplementedError

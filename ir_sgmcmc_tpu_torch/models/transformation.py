@@ -28,10 +28,10 @@ import math
 import torch
 
 from .._device import resolve_device
+from ..ops._layout import ONE_DEVICE, OneDevice
 from ..ops.bspline import CubicBSplineFFD3D, control_grid_size
-from ..ops.grids import identity_grid, normalised_to_voxel, voxel_to_normalised
-from ..ops.resample import grid_sample, grid_sample_each, warp_bounded
-from ..ops.stencil import split_compose_step, taylor_compose_step, taylor_squaring_step
+from ..ops.grids import identity_grid, voxel_to_normalised
+from ..ops.resample import grid_sample, grid_sample_each
 
 
 def _reduced_dtype(compute_dtype):
@@ -107,7 +107,7 @@ class SVF3D:
         return transformation, disp
 
     def integrate(self, v: torch.Tensor, im: torch.Tensor | None = None,
-                  per_row: bool = False):
+                  per_row: bool = False, layout: OneDevice = ONE_DEVICE):
         """Integrate ``v (B, 3, D, H, W)``; optionally warp ``im`` by the
         transformation.
 
@@ -122,11 +122,14 @@ class SVF3D:
         compositions as the last channel(s) of one fused ``[d | g]`` carry.
         With ``use_gather`` the image is warped once by ``grid_sample`` at
         the transformation, and without an image ``im_warped`` is None.
+        ``layout`` runs the steps' stencils (``ops/_layout.py``: the
+        spatially sharded steps pass their slab layout).
         """
         if per_row and im is not None and im.ndim != 5:
             raise ValueError(f"per-row images are (B, C, D, H, W), got {tuple(im.shape)}")
+        L = layout
         if self.use_gather:
-            transformation, disp = self._call_gather(v)
+            transformation, disp = self._call_gather(v, L)
             if im is None:
                 warped = None
             elif per_row:
@@ -140,27 +143,29 @@ class SVF3D:
             # returns the float32 gradient to v
             disp = disp.to(self.compute_dtype)
         for _ in range(self.no_taylor):
-            disp = taylor_squaring_step(disp)
+            disp = L.taylor_squaring(disp)
         if self.no_squarings - self.no_taylor:
             disp = disp.float()  # the blend kernels B5-B7 are float32
             for _ in range(self.no_squarings - self.no_taylor):
-                disp = disp + warp_bounded(disp, disp, 1)
+                disp = disp + L.warp(disp, disp, 1)
         if self.composition_form == "warp":
             disp = disp.float()  # so are its compositions
         u_phi = disp.contiguous()
         N = self.no_compositions
 
         if self.composition_form == "split":
+            u_split = L.split_operand(u_phi)
+
             def dstep(d):
-                return split_compose_step(d.contiguous(), u_phi)
+                return L.split_compose(d, u_split)
         elif self.composition_form == "taylor":
             # |u_phi| <= taylor_threshold by the choice of e (unstable
             # end-to-end; the JAX class docstring)
             def dstep(d):
-                return taylor_compose_step(d, u_phi)
+                return L.taylor_compose(d, u_phi)
         else:
             def dstep(d):
-                return u_phi + warp_bounded(d, u_phi, 1)
+                return u_phi + L.warp(d, u_phi, 1)
 
         g = None
         if im is None:
@@ -182,35 +187,35 @@ class SVF3D:
                 # the image rides float32 blend warps whatever the
                 # compositions' dtype
                 u_psi32 = u_psi.float()
-                g = warp_bounded(vol, u_psi32, 1)
+                g = L.warp(vol, u_psi32, 1)
                 for _ in range(K - 1):
                     for _ in range(m):
                         disp = dstep(disp)
-                    g = warp_bounded(g, u_psi32, 1)
+                    g = L.warp(g, u_psi32, 1)
             else:
-                g = warp_bounded(vol, u_phi, 1)  # g_1 = im ∘ φ
+                g = L.warp(vol, u_phi, 1)  # g_1 = im ∘ φ
                 if N > 1:
                     # one fused 4-channel warp and one add per step
                     u_phi_g = torch.cat([u_phi, torch.zeros_like(g)], dim=1)
                     state = torch.cat([u_phi, g], dim=1)
                     for _ in range(N - 1):
-                        state = warp_bounded(state, u_phi, 1) + u_phi_g
+                        state = L.warp(state, u_phi, 1) + u_phi_g
                     disp, g = state[:, :3], state[:, 3:]
             if not per_row and im.ndim == 3:
                 g = g[:, 0]
         disp = disp.float()  # the displacement is always float32
-        transformation = identity_grid(self.dims, device=v.device) + voxel_to_normalised(disp)
+        transformation = L.identity(self.dims, v) + L.to_normalised(disp)
         return transformation, disp, g
 
-    def _call_gather(self, v: torch.Tensor):
+    def _call_gather(self, v: torch.Tensor, L: OneDevice = ONE_DEVICE):
         """The reference formulation: ``no_steps`` squarings
         ``d <- d + d(id + d)`` in normalised units, each through
         ``grid_sample``."""
-        id_grid = identity_grid(self.dims, device=v.device)
-        disp = voxel_to_normalised(v) / float(2 ** self.no_steps)
+        id_grid = L.identity(self.dims, v)
+        disp = L.to_normalised(v) / float(2 ** self.no_steps)
         for _ in range(self.no_steps):
-            disp = disp + grid_sample_each(disp, id_grid + disp)
-        return id_grid + disp, normalised_to_voxel(disp)
+            disp = disp + L.gather_sample(disp, id_grid)
+        return id_grid + disp, L.to_voxel(disp)
 
 
 class SVF2D:
@@ -302,8 +307,8 @@ class SVFFD3D:
         return self.svf(self.ffd.dense_velocity(cp))
 
     def integrate(self, cp: torch.Tensor, im: torch.Tensor | None = None,
-                  per_row: bool = False):
-        return self.svf.integrate(self.ffd.dense_velocity(cp), im, per_row)
+                  per_row: bool = False, layout: OneDevice = ONE_DEVICE):
+        return self.svf.integrate(self.ffd.dense_velocity(cp), im, per_row, layout)
 
 
 def make_transformation(kind: str, dims, cps=None, no_steps: int = 12, max_disp: int = 8,

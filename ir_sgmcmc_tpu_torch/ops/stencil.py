@@ -97,9 +97,11 @@ def gradient(field: torch.Tensor, *, normalised_spacing: bool = False) -> torch.
     return torch.stack([d_dx, d_dy, d_dz], dim=field.ndim - 3)
 
 
-def reg_energy(field: torch.Tensor) -> torch.Tensor:
-    """``y = sum ||∇v||²`` per leading batch element (scalar for ``(3,D,H,W)``)."""
-    jac = gradient(field)
+def reg_energy(field: torch.Tensor, grad=gradient) -> torch.Tensor:
+    """``y = sum ||grad(v)||²`` per leading batch element (scalar for
+    ``(3,D,H,W)``); ``grad``, the difference operator, is :func:`gradient`
+    by default (a layout's over D-slabs: partial sums per slab)."""
+    jac = grad(field)
     if field.ndim == 4:
         return torch.sum(jac * jac)
     return torch.sum(jac * jac, dim=tuple(range(1, jac.ndim)))

@@ -17,27 +17,17 @@ specs replicate over the other axes).  Each shard takes the kernels on a
 CUDA device and their plain versions on the CPU, by the device of its
 slab, with no fallback.
 
-The spatially sharded training steps (``parallel/spatial.py``) need a
-halo form of every stencil of the step, which the JAX package leaves to
-GSPMD's partitioner: the Taylor squaring (:func:`taylor_squaring_sharded`)
-and composition (:func:`taylor_compose_sharded`),
-the split composition (:func:`split_compose_sharded`, kernels B1/B2 in
-their z-halo modes B1Z/B2Z), the block-gather warp
-(:func:`warp_block_gather_sharded` and :func:`block_residual_overflow_sharded`,
-B3/B4 in their z-halo modes B3Z/B4Z, on a window of the volume placed once
-per shard), the LCC box filter (:func:`box_filter3d_sharded`), the lag-1
-products of the VD factor (:func:`lag1_sums_sharded`), the global sums
-(:func:`sum_sharded`), the Fourier reg energy (:func:`fourier_energy_sharded`:
-an all-to-all of the (H, W) spectra, no whole field on one device) and, for
-the ``use_gather`` integration, an all-gather (:func:`allgather_slabs`).  Each has a list form (``*_slabs``: one row's slabs
-in, slabs or one reduced tensor out) that the steps compose into one
-autograd graph over the slabs of a row; the halo exchanges are
-differentiable (slices, ``repeat``, ``.to`` and ``cat``), so autograd
-sends each halo plane's gradient back to the shard that owns it and folds
-the replicated pad planes at the volume's two ends onto its edge plane.
-Forward differences along D take the next shard's first plane, and the
-last shard repeats its previous difference, as one device does at the
-volume's last plane (``ops.stencil._fwd_diff_axis``).
+The spatially sharded training steps (``parallel/spatial.py``) take a halo
+form of every stencil of the step, which the JAX package leaves to GSPMD's
+partitioner, in a list form (``*_slabs``: one row's slabs in, slabs or one
+reduced tensor out, summed on the first slab's device) that composes into
+one autograd graph over a row; :class:`_Slabs` carries a field's slabs
+between them.  The halo exchanges are differentiable (slices, ``repeat``,
+``.to`` and ``cat``), so autograd sends each halo plane's gradient back to
+the shard that owns it and folds the replicated pad planes at the volume's
+two ends onto its edge plane.  Forward differences along D take the next
+shard's first plane, and the last shard repeats its previous difference, as
+one device does at the volume's last plane (``ops.stencil._fwd_diff_axis``).
 """
 
 from __future__ import annotations
@@ -50,9 +40,83 @@ import torch
 from ..kernels import block_warp as _bw
 from ..kernels import split_warp as _sw
 from ..kernels import warp_bounded as _wb
+from ..ops._layout import _lag1_sum
 from ..ops.resample import _residual, block_residual_overflow
 from ..ops.stencil import TaylorComposeStep, TaylorSquaringStep, conv1d_axis
 from .mesh import Mesh, Sharded, halo_images_spatial, shard_tree_spatial
+
+
+_SLAB_METHODS = frozenset(("contiguous", "detach", "expand", "float", "to", "unsqueeze"))
+
+
+class _Slabs:
+    """One row's D-slabs of a field, in order along D, each on its shard's
+    device (``parts``: a list form's operand).  Torch functions, the tensor
+    methods of ``_SLAB_METHODS`` and operators apply slab by slab; an
+    operand that is not a ``_Slabs`` goes to every slab as it is.  A
+    reduction over D gives per-slab partial results: the layout's ``total``
+    adds them.  ``shape``, ``dtype``, ``ndim`` and ``device`` are the first
+    slab's: its device is where the row's sums over voxels land."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        return _each(func, *args, **(kwargs or {}))
+
+    def __getattr__(self, name):
+        if name not in _SLAB_METHODS:
+            raise AttributeError(f"D-slabs do not apply Tensor.{name} slab by slab")
+        method = getattr(torch.Tensor, name)
+        return lambda *args, **kwargs: _each(method, self, *args, **kwargs)
+
+    shape = property(lambda self: self.parts[0].shape)
+    dtype = property(lambda self: self.parts[0].dtype)
+    ndim = property(lambda self: self.parts[0].ndim)
+    device = property(lambda self: self.parts[0].device)
+
+
+for _name in ("add", "radd", "sub", "rsub", "mul", "rmul", "truediv", "rtruediv", "pow", "neg",
+              "lt", "ge", "getitem"):
+    setattr(_Slabs, f"__{_name}__", functools.partialmethod(
+        lambda self, method, *args: _each(method, self, *args),
+        getattr(torch.Tensor, f"__{_name}__")))
+
+
+def _width(x) -> int:
+    """The slab count of the ``_Slabs`` in ``x`` (0: none)."""
+    if isinstance(x, _Slabs):
+        return len(x.parts)
+    if isinstance(x, (list, tuple, dict)):
+        return max(map(_width, x.values() if isinstance(x, dict) else x), default=0)
+    return 0
+
+
+def _pick(x, k: int):
+    """``x`` with each ``_Slabs`` in it replaced by its slab ``k``."""
+    if isinstance(x, _Slabs):
+        return x.parts[k]
+    if isinstance(x, list) or type(x) is tuple:
+        return type(x)(_pick(e, k) for e in x)
+    if isinstance(x, dict):
+        return {a: _pick(e, k) for a, e in x.items()}
+    return x
+
+
+def _each(fn, *args, **kwargs) -> _Slabs:
+    """``fn`` of each slab of the ``_Slabs`` among the arguments in turn."""
+    return _Slabs(fn(*_pick(args, k), **_pick(kwargs, k))
+                  for k in range(_width((args, kwargs))))
+
+
+def _lifted(fn):
+    """A layout method of ``fn``, a halo op of lists of slabs: ``_Slabs``
+    operands as lists, a list result as ``_Slabs``."""
+    def method(self, *args):
+        out = fn(*(a.parts if isinstance(a, _Slabs) else a for a in args))
+        return _Slabs(out) if isinstance(out, list) else out
+    return method
 
 
 def _slabs(field, mesh: Mesh, axis_name: str) -> Sharded:
@@ -345,18 +409,14 @@ def block_residual_overflow_slabs(disps: list, max_disp: int, radius: int,
     return sum_slabs([block_residual_overflow(d, max_disp, radius, block) for d in disps])
 
 
-def lag1_sums_slabs(xs: list, dims=(-3, -2, -1)) -> tuple:
-    """The lag-1 product sums ``Σ x_p x_{p+e}`` along W, H and D of one
-    row's slabs of ``(…, D, H, W)``, each reduced over ``dims`` and summed
-    on the first slab's device: along D each slab's own pairs and the pair
-    across its upper boundary (the next shard's first plane)."""
-    def lag(x, axis):
-        n = x.shape[axis]
-        return torch.sum(x.narrow(axis, 0, n - 1) * x.narrow(axis, 1, n - 1), dim=dims)
-
-    sx = sum_slabs([lag(x, -1) for x in xs])
-    sy = sum_slabs([lag(x, -2) for x in xs])
-    sz = sum_slabs([lag(x if nxt is None else torch.cat([x, nxt], dim=-3), -3)
+def lag1_sums_slabs(xs: list) -> tuple:
+    """The lag-1 product sums ``Σ x_p x_{p+e}`` over the voxels along W, H
+    and D of one row's slabs of ``(…, D, H, W)``, summed on the first slab's
+    device: along D each slab's own pairs and the pair across its upper
+    boundary (the next shard's first plane)."""
+    sx = sum_slabs([_lag1_sum(x, -1) for x in xs])
+    sy = sum_slabs([_lag1_sum(x, -2) for x in xs])
+    sz = sum_slabs([_lag1_sum(x if nxt is None else torch.cat([x, nxt], dim=-3), -3)
                     for x, nxt in zip(xs, _next_planes(xs))])
     return sx, sy, sz
 

@@ -241,7 +241,7 @@ class Trainer:
             why = spatial.unported(self.bundle) if runs and shards > 1 else None
             if why is not None:
                 raise NotImplementedError(
-                    f"{phase} over {shards} spatial shards: {why} ({spatial.ROADMAP_ITEM})")
+                    f"{phase} over {shards} spatial shards: {why}")
 
     def _spatial_fits(self, shards: int) -> bool:
         """The port's own condition beside the JAX trainer's: each slab a

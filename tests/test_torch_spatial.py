@@ -11,6 +11,10 @@ name the CPU several times (virtual shards).
 * The halo exchange's autograd is its transpose (a dot-product test).
 * The z-halo modes of B1-B4 (plain versions) on slabs concatenate to the
   default modes on the whole volume.
+* The forward chain over 2 slabs (``spatial.forward_slabs``) against
+  ``vi.forward_sample`` on the whole field, on each image path; the slab
+  container (``halo._Slabs``) refuses the tensor attributes it does not
+  apply slab by slab.
 * The sharded MCMC chunk on a ``(2, 2)`` ``('chain', 'space')`` mesh and
   the sharded VI chunk on 4 slabs against the JAX package's UNSHARDED
   chunks at tests/test_parallel.py's problems (dims ``(16, 8, 8)``, 3
@@ -427,6 +431,88 @@ def test_spatial_vi_chunk_matches_jax_unsharded():
     np.testing.assert_allclose(gather(out).q_v["mu"].numpy(), np.asarray(new_j.q_v["mu"]),
                                atol=1e-5)
     assert out[0].step == 3
+
+
+# ---- one forward chain for both layouts -----------------------------------------------
+
+# (image path, composition form): every image path on "split", the other
+# forms on the cascade; "block" is the block-gather warp, which engages at 64³
+LAYOUT_CASES = [("block", "split"), ("grid", "split"), ("cascade", "split"),
+                ("gather", "split"), ("anchor_taylor", "split"), ("anchor_blend", "split"),
+                ("cascade", "taylor"), ("cascade", "warp")]
+
+
+@pytest.mark.parametrize("path,form", LAYOUT_CASES)
+def test_forward_slabs_match_forward_sample(path, form):
+    """``spatial.forward_slabs`` over 2 CPU slabs, its slabs concatenated
+    along D, against ``vi.forward_sample`` on the whole field, both runs of
+    the one forward chain: the fields within 1e-6, the fold and saturation
+    counts equal.  The anchored paths take an anchor built by
+    ``make_chain_anchor`` on each layout from the same field."""
+    from ir_sgmcmc_tpu_torch.engine import ModelBundle
+    from ir_sgmcmc_tpu_torch.engine.mcmc import make_chain_anchor
+    from ir_sgmcmc_tpu_torch.engine.vi import forward_sample
+    from ir_sgmcmc_tpu_torch.models import SVF3D, DirichletPrior, LogScaleNormalPrior
+    from ir_sgmcmc_tpu_torch.models.reg_loss import RegLossL2
+    from ir_sgmcmc_tpu_torch.parallel import shard_images_spatial
+    from ir_sgmcmc_tpu_torch.parallel import spatial
+    from ir_sgmcmc_tpu_torch.parallel.halo import _Slabs
+
+    dims = (64, 64, 64) if path == "block" else (16, 8, 8)
+    svf = dict(no_steps=4, max_disp=4, taylor_compositions=form, use_gather=path == "gather")
+    bundle = ModelBundle(dims=dims, gmm=GMM(2, 1), scale_prior=LogScaleNormalPrior(0.0, 2.3),
+                         proportion_prior=DirichletPrior(2, 0.5),
+                         reg_loss=RegLossL2(w_reg=1.0, dims=dims),
+                         transformation=SVF3D(dims, **svf), sobolev_s=1,
+                         uniform_noise_alpha=ALPHA,
+                         noise_scheme="pre" if path == "cascade" else "post")
+    anchored = path.startswith("anchor")
+    assert spatial.image_path(bundle, anchored) == ("anchor" if anchored else path)
+    rng = np.random.default_rng(len(path))
+    fixed, moving = ({"im": torch.as_tensor(_smooth(rng, dims, 1.0) + 1.0),
+                      "mask": torch.ones(dims, dtype=torch.bool)} for _ in range(2))
+    v, v0 = (torch.as_tensor(_smooth(rng, (2, 3) + dims, 6.0)) for _ in range(2))
+    unif = torch.as_tensor(rng.uniform(-ALPHA, ALPHA, (2, 3) + dims).astype(np.float32))
+    mesh = _space(2)
+    row = spatial._rows(bundle, mesh, 2)[0]
+    images = spatial._Images(bundle, shard_images_spatial(fixed, mesh, dims[0]),
+                             shard_images_spatial(moving, mesh, dims[0]), row, moving, anchored)
+
+    def cut(t):
+        return [row.cut(t, k) for k in range(row.n)]
+
+    anchor = anchor_slabs = None
+    if anchored:
+        mode = path.split("_")[1]
+        anchor = make_chain_anchor(bundle, moving, mode)(v0)
+        anchor_slabs = make_chain_anchor(bundle, images.moving, mode, row)(_Slabs(cut(v0)))
+    whole = forward_sample(bundle, fixed, moving, v, unif, anchor=anchor)
+    slabs = spatial.forward_slabs(bundle, images, cut(v), cut(unif), anchor_slabs)
+    for k in ("v", "transformation", "displacement", "warped", "residuals"):
+        torch.testing.assert_close(torch.cat(slabs[k], dim=-3), whole[k], atol=1e-6, rtol=0,
+                                   msg=k)
+    for k in ("ndv", "sat", "sat_resid"):
+        assert torch.equal(slabs[k], whole[k]), k
+
+
+@pytest.mark.parametrize("name", ["requires_grad", "is_cuda", "T", "sum", "mean", "amax"])
+def test_slabs_refuse_tensor_attributes_they_do_not_apply(name):
+    """``halo._Slabs`` applies the tensor methods the shared chain calls
+    slab by slab and refuses every other attribute: a property read as a
+    method would be truthy, and a reduction over D would give per-slab
+    partial results where the layout's ``total`` must add them."""
+    from ir_sgmcmc_tpu_torch.parallel.halo import _Slabs
+
+    parts = [torch.arange(4.0).reshape(1, 4, 1, 1) + k for k in range(2)]
+    x = _Slabs(parts)
+    with pytest.raises(AttributeError):
+        getattr(x, name)
+    y = (x.detach().unsqueeze(0) * 2.0 + 1.0).float()
+    assert [tuple(p.shape) for p in y.parts] == [(1, 1, 4, 1, 1)] * 2
+    for p, q in zip(y.parts, parts):
+        assert torch.equal(p[0], q * 2.0 + 1.0)
+    assert torch.equal(torch.cat(torch.sum(x, dim=(-3, -2, -1)).parts),
+                       torch.tensor([6.0, 10.0]))
 
 
 # ---- the trainer -----------------------------------------------------------------------
